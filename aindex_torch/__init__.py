@@ -1,0 +1,16 @@
+"""aindex_torch: the PyTorch/CUDA port of aindex_tpu for NVIDIA Hopper.
+
+This package holds the dense 13-mer index (``Dense13Index``): counting,
+the fused forward + reverse-complement table, batched queries and
+per-position coverage, each backed by a hand-written CUDA kernel on a CUDA
+device and by that kernel's plain PyTorch version on the CPU. It imports
+torch and numpy only, never JAX or aindex_tpu, which stays the reference
+it is tested against.
+"""
+
+__version__ = "0.1.0"
+
+from aindex_torch.core.codec import hamming_distance, revcomp  # noqa: E402
+from aindex_torch.index.dense13 import Dense13Index  # noqa: E402
+
+__all__ = ["Dense13Index", "revcomp", "hamming_distance", "__version__"]

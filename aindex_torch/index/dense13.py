@@ -11,9 +11,10 @@ kernels/coverage.py).
 Counting is forward-strand only, as reference count_kmers13 does; fwd and
 rc are combined at query time.
 
-The index lives on one device, named by every constructor. On a CUDA
-device every build and query step runs the CUDA kernels; on the CPU it
-runs their plain PyTorch versions. Tables are held as uint32 (uint16,
+The index lives on one device, named by every constructor: the card
+(``"cuda"``) unless the caller asks for the CPU. On a CUDA device every
+build and query step runs the CUDA kernels; on the CPU it runs their plain
+PyTorch versions. Tables are held as uint32 (uint16,
 uint8 for the narrowed query tables) in PyTorch's bare unsigned dtypes;
 the kernels read their bits and the plain versions widen to int64.
 """
@@ -26,8 +27,8 @@ import numpy as np
 import torch
 
 from aindex_torch.constants import K13, SPACE_13
-from aindex_torch.core import codec
 from aindex_torch.core.reads import blob_chunks, stream_blob_chunks
+from aindex_torch.index.common import host_u32, packed_chunks, resolve_device
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels import coverage as cov_kernels
 from aindex_torch.kernels.count import count13_packed
@@ -81,70 +82,15 @@ def _narrow(table: torch.Tensor) -> torch.Tensor:
     return table
 
 
-def _host_u32(t: torch.Tensor) -> np.ndarray:
-    """uint32 (or int32 storage) tensor -> numpy uint32 on the host, moved
-    through its int32 view."""
-    return t.view(torch.int32).cpu().numpy().view(np.uint32)
-
-
-def _device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not available")
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}: aindex_torch runs on cpu or cuda")
-    return device
-
-
-class _Slot:
-    """One half of the CUDA ingest double buffer: pinned host and device
-    buffers for a packed chunk, the event that marks the host-to-device
-    copy done, and the event that marks the count kernel done with it."""
-
-    def __init__(self, n_words: int, device: torch.device):
-        self.n_words = n_words
-        self.host_packed = torch.empty(n_words, dtype=torch.int32, pin_memory=True)
-        self.host_vbits = torch.empty(2 * n_words, dtype=torch.uint8, pin_memory=True)
-        self.dev_packed = torch.empty(n_words, dtype=torch.int32, device=device)
-        self.dev_vbits = torch.empty(2 * n_words, dtype=torch.uint8, device=device)
-        self.copied = torch.cuda.Event()
-        self.consumed = torch.cuda.Event()
-
-
-def _count_cuda(counts: torch.Tensor, chunk_iter, on_progress) -> None:
-    """Double-buffered CUDA count: while K1 counts chunk i on the compute
-    stream, the host packs chunk i+1 into the other pinned buffer and a
-    copy stream moves it to the device. A pinned buffer is rewritten only
-    after its previous copy has completed, and a device buffer only after
-    the kernel that read it has."""
-    dev = counts.device
-    compute = torch.cuda.current_stream(dev)
-    copy = torch.cuda.Stream(dev)
-    slots: list[_Slot | None] = [None, None]
-    for i, (piece, done) in enumerate(chunk_iter):
-        packed, vbits = codec.pack_ascii_chunk(piece)
-        n = packed.size
-        if slots[i % 2] is None:
-            slots[i % 2] = _Slot(n, dev)
-        slot = slots[i % 2]
-        if n > slot.n_words:
-            # both chunkers cut every piece of one stream to one size
-            raise ValueError(f"chunk of {n} words after chunks of {slot.n_words}")
-        slot.copied.synchronize()
-        slot.host_packed.numpy()[:n] = packed.view(np.int32)
-        slot.host_vbits.numpy()[:2 * n] = vbits
-        with torch.cuda.stream(copy):
-            copy.wait_event(slot.consumed)
-            slot.dev_packed[:n].copy_(slot.host_packed[:n], non_blocking=True)
-            slot.dev_vbits[:2 * n].copy_(slot.host_vbits[:2 * n], non_blocking=True)
-            slot.copied.record(copy)
-        compute.wait_event(slot.copied)
-        count13_packed(counts, slot.dev_packed[:n], slot.dev_vbits[:2 * n])
-        slot.consumed.record(compute)
+def _count(counts: torch.Tensor, chunk_iter, on_progress) -> None:
+    """K1 over every packed chunk (double-buffered on CUDA, see
+    ``common.packed_chunks``)."""
+    for packed, vbits, done in packed_chunks(chunk_iter, counts.device):
+        count13_packed(counts, packed, vbits)
         if on_progress is not None:
             on_progress(done)
-    torch.cuda.synchronize(dev)
+    if counts.device.type == "cuda":
+        torch.cuda.synchronize(counts.device)
 
 
 class Dense13Index:
@@ -194,7 +140,7 @@ class Dense13Index:
 
     @classmethod
     def build_from_blob(cls, blob: np.ndarray, chunk: int = 1 << 22,
-                        on_progress=None, *, device) -> "Dense13Index":
+                        on_progress=None, *, device="cuda") -> "Dense13Index":
         """Count all forward-strand 13-mers of a concatenated sequence blob,
         streamed through the device in overlapping chunks (newlines and
         non-ACGT bytes invalidate their windows)."""
@@ -205,26 +151,18 @@ class Dense13Index:
 
     @classmethod
     def _count_chunk_iter(cls, chunk_iter, on_progress=None, *,
-                          device) -> "Dense13Index":
+                          device="cuda") -> "Dense13Index":
         """Count over (chunk, bytes_done) pairs; chunks cross to the device
         in the packed ingest format (codec.pack_ascii_chunk, 0.375
         bytes/base)."""
-        device = _device(device)
+        device = resolve_device(device)
         counts = torch.zeros(SPACE_13, dtype=torch.int32, device=device)
-        if device.type == "cuda":
-            _count_cuda(counts, chunk_iter, on_progress)
-            return cls(counts)
-        for piece, done in chunk_iter:
-            packed, vbits = codec.pack_ascii_chunk(piece)
-            count13_packed(counts, torch.from_numpy(packed.view(np.int32)),
-                           torch.from_numpy(vbits))
-            if on_progress is not None:
-                on_progress(done)
+        _count(counts, chunk_iter, on_progress)
         return cls(counts)
 
     @classmethod
     def build_from_stream(cls, pieces, chunk: int = 1 << 22, on_progress=None,
-                          *, device) -> "Dense13Index":
+                          *, device="cuda") -> "Dense13Index":
         """Count from a stream of newline-terminated sequence byte pieces in
         constant host memory (the CLI ``count`` path for multi-GB inputs)."""
         return cls._count_chunk_iter(
@@ -233,13 +171,13 @@ class Dense13Index:
 
     @classmethod
     def build_from_sequences(cls, sequences: list[str], chunk: int = 1 << 22,
-                             *, device) -> "Dense13Index":
+                             *, device="cuda") -> "Dense13Index":
         text = "".join(s + "\n" for s in sequences)
         blob = np.frombuffer(text.encode("ascii"), dtype=np.uint8)
         return cls.build_from_blob(blob, chunk, device=device)
 
     @classmethod
-    def from_numpy(cls, tf: np.ndarray, device) -> "Dense13Index":
+    def from_numpy(cls, tf: np.ndarray, device="cuda") -> "Dense13Index":
         """Index over a host table, e.g. ``np.asarray(jax_index.tf)`` or a
         ``tf_host`` of either package: uint32 as it is, uint64 under
         ``load``'s saturate-and-keep-exact rule."""
@@ -255,7 +193,7 @@ class Dense13Index:
     @classmethod
     def _from_host_u32(cls, tf: np.ndarray, tf_host: np.ndarray,
                        device) -> "Dense13Index":
-        device = _device(device)
+        device = resolve_device(device)
         # a copy: the index's table must not alias the caller's array
         dev_tf = torch.from_numpy(np.array(tf, dtype=np.uint32).view(np.int32))
         return cls(dev_tf.to(device), tf_host=tf_host)
@@ -268,7 +206,7 @@ class Dense13Index:
 
     @classmethod
     def load(cls, tf_path: str, pf_path: str | None = None, *,
-             device) -> "Dense13Index":
+             device="cuda") -> "Dense13Index":
         """Load a dense uint64 x 4^13 table in k-mer code order.
 
         Reference-built tables are in emphf slot order and need their
@@ -306,7 +244,7 @@ class Dense13Index:
     def tf_host(self) -> np.ndarray:
         """Host copy of the table (pulled from the device once)."""
         if self._tf_host is None:
-            self._tf_host = _host_u32(self._tf)
+            self._tf_host = host_u32(self._tf)
         return self._tf_host
 
     # -- queries (batch-first) -------------------------------------------
@@ -323,16 +261,16 @@ class Dense13Index:
     def get_tf_values(self, kmers: list[str]) -> np.ndarray:
         """Forward-strand tf per k-mer (get_tf_value_13mer semantics), uint32;
         0 for a k-mer with a non-ACGT base."""
-        return _host_u32(gather13(self.tf_query, ascii=self._ascii_rows(kmers)))
+        return host_u32(gather13(self.tf_query, ascii=self._ascii_rows(kmers)))
 
     def get_total_tf_values(self, kmers: list[str]) -> np.ndarray:
         """fwd + rc tf per k-mer: one gather in ``tf_total``, uint32."""
-        return _host_u32(gather13(self.tf_total, ascii=self._ascii_rows(kmers)))
+        return host_u32(gather13(self.tf_total, ascii=self._ascii_rows(kmers)))
 
     def get_tf_both_directions(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """(fwd tf, rc tf) per k-mer, uint32 each."""
         fwd, rc = gather13(self.tf_query, ascii=self._ascii_rows(kmers), both=True)
-        return _host_u32(fwd), _host_u32(rc)
+        return host_u32(fwd), host_u32(rc)
 
     def _codes_in(self, codes, valid):
         """Codes (tensor, array or list; any integer dtype, read as uint32

@@ -134,13 +134,12 @@ def compute_reads(input1, input2: str | None, read_type: str,
     for comma-separated inputs (scripts/compute_aindex.py:125-131). Paired
     fastq takes exactly two files (the R1/R2 pairing is positional).
 
-    Only the pure-Python reader is ported: ``use_native=True`` raises
-    ``NotImplementedError`` until aindex_tpu's native reader
-    (native/aindex_host.cpp) has a ctypes bridge here.
+    A single uncompressed input goes through the native reader
+    (``aindex_torch.native``, the repository's ``native/aindex_host.cpp``)
+    unless ``use_native`` is False; it writes the same files as the Python
+    reader. ``use_native=True`` raises when the native library cannot be
+    built or does not take the input; ``None`` then uses the Python reader.
     """
-    if use_native:
-        raise NotImplementedError(
-            "native compute_reads is not available in aindex_torch yet")
     inputs = list(input1) if isinstance(input1, (list, tuple)) else [input1]
     if read_type != "fastq" and input2 is not None:
         inputs.append(input2)
@@ -154,6 +153,22 @@ def compute_reads(input1, input2: str | None, read_type: str,
     reads_path = output_prefix + ".reads"
     ridx_path = output_prefix + ".ridx"
     header_path = output_prefix + ".header"
+
+    gz_input = any(is_gzip(p) for p in inputs) or bool(input2 and is_gzip(input2))
+    if use_native is not False and not gz_input and len(inputs) == 1:
+        # the native reader streams raw files; gzipped and multi-file
+        # inputs take the Python path (decompression, concatenation)
+        from aindex_torch import native
+        n = (native.compute_reads_native(inputs[0], input2, read_type, output_prefix)
+             if use_native or native.available() else None)
+        if n is not None:
+            result = {"reads": reads_path, "ridx": ridx_path, "n_reads": n}
+            if read_type == "fasta":
+                result["header"] = header_path
+            return result
+    if use_native:
+        raise RuntimeError("the native reader does not take this input "
+                           f"({read_type}, {len(inputs)} file(s), gzip {gz_input})")
 
     n_reads = 0
     start = 0

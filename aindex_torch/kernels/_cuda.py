@@ -1,12 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each ``aindex_torch/csrc/*.cu`` source (with the shared ``dna13.cuh``) is
-compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
+Each ``aindex_torch/csrc/*.cu`` source (with the headers it includes,
+``dna13.cuh`` and ``dna23.cuh``) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with ctypes. Nothing is built or loaded when
 this module is imported: the first launch builds every kernel, one ``nvcc``
 per source, all started together. Libraries are named by a hash of their
-sources and flags, so an edited source is rebuilt and an unchanged one is
-reused.
+source, every header it includes (followed transitively) and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.
 
 Each C entry launches on the stream it is given (PyTorch's current stream),
 allocates nothing and returns ``cudaGetLastError()``; ``Kernel.launch``
@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,12 +28,31 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-HEADER = "dna13.cuh"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_I = ctypes.c_int
+_ULL = ctypes.c_ulonglong
+
+
+def _with_headers(source: str) -> list[str]:
+    """``source`` and every ``csrc`` header it includes, transitively, in a
+    fixed order (the library name hashes them all)."""
+    seen: list[str] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        todo += [os.path.join(CSRC, name.decode()) for name in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(CSRC, name.decode()))]
+    return seen
 
 
 class Kernel:
@@ -49,7 +69,7 @@ class Kernel:
 
     def library_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for path in (self.source, os.path.join(CSRC, HEADER)):
+        for path in _with_headers(self.source):
             with open(path, "rb") as f:
                 h.update(f.read())
         return os.path.join(BUILD_DIR, f"{self.name}.{h.hexdigest()[:16]}.so")
@@ -89,6 +109,23 @@ KERNELS: dict[str, Kernel] = {
         Kernel("coverage13_packed", "coverage13.cu",
                [_P, ctypes.c_int, _P, _P, _LL, _LL, _LL, ctypes.c_uint, _P, _P],
                "aindex_tpu/kernels/coverage.py:32"),
+        # packed, vbits, n_words, k, keys_in, n_in, key_bits, keys_out, counts,
+        # counters, keys_a, keys_b, idx, start, hist, sums, stream
+        Kernel("spectrum23", "spectrum23.cu",
+               [_P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+               "aindex_tpu/kernels/spectrum.py:48"),
+        # half0, half1, slot0, slot1, m, lb, w, m1a, m1b, m2a, m2b, codes, valid,
+        # ascii, k, n, canon, tf, slot, strand, stream
+        Kernel("quot23", "quot23.cu",
+               [_P, _P, _P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL, _P, _P, _P, _I, _LL,
+                _I, _P, _P, _P, _P],
+               "aindex_tpu/index/quotcuckoo.py:310"),
+        # half0, half1, m, lb, w, m1a, m1b, m2a, m2b, packed, vbits, n_words, rows,
+        # stride, k, cutoff, out, stream
+        Kernel("quotcov23", "quotcov23.cu",
+               [_P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL, _P, _P, _LL, _LL, _LL, _I,
+                ctypes.c_uint, _P, _P],
+               "aindex_tpu/index/quotcuckoo.py:353"),
     )
 }
 

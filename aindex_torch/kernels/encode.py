@@ -1,14 +1,18 @@
-"""Plain PyTorch encoding and 13-mer window extraction.
+"""Plain PyTorch encoding, window extraction and reverse complements.
 
 Counterparts of aindex_tpu/kernels/encode.py. On the device these steps run
 inside the CUDA kernels (``csrc/dna13.cuh``: ``ascii_code``,
-``packed_window``, ``revcomp13``); the functions here are the plain versions
-that the kernels' plain twins are built from, and they run on any device.
+``packed_window``, ``revcomp13``; ``csrc/dna23.cuh``: ``revcomp64``,
+``canonical64``, ``packed_window64``); the functions here are the plain
+versions that the kernels' plain twins are built from, and they run on any
+device.
 
 CPU PyTorch has no ``>>`` on uint32 and few uint32 ops at all, so codes are
 carried as int64 (a k <= 16 code fits in 32 bits) and packed words, which
 may arrive as int32 or uint32 storage of the same bits, are widened to
-int64 and masked to their unsigned value first.
+int64 and masked to their unsigned value first. 64-bit codes (k <= 31) are
+int64 holding uint64 bit patterns: every right shift is masked, since
+``>>`` on int64 sign-extends.
 """
 
 from __future__ import annotations
@@ -110,3 +114,40 @@ def revcomp_code13(codes: torch.Tensor, k: int = 13) -> torch.Tensor:
     x = ((x >> 8) & 0x00FF00FF) | ((x & 0x00FF00FF) << 8)
     x = ((x >> 16) | (x << 16)) & _U32
     return x >> (32 - 2 * k)
+
+
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+_M8 = 0x00FF00FF00FF00FF
+_M16 = 0x0000FFFF0000FFFF
+
+
+def revcomp_code64(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of <=32-mer codes held in 64 bits
+    (aindex_tpu/kernels/encode.py:125): complement every 2-bit field,
+    mirror the 32 fields of the word, shift down to the low 2k bits.
+
+    ``codes`` is int64 holding uint64 bit patterns; the result depends only
+    on their low 2k bits and is below 4^k. Each right shift is masked, so
+    the sign bits an int64 shift brings in never reach the result."""
+    x = ~codes.to(torch.int64)
+    x = ((x >> 2) & _M2) | ((x & _M2) << 2)
+    x = ((x >> 4) & _M4) | ((x & _M4) << 4)
+    x = ((x >> 8) & _M8) | ((x & _M8) << 8)
+    x = ((x >> 16) & _M16) | ((x & _M16) << 16)
+    x = ((x >> 32) & _U32) | (x << 32)
+    return (x >> (64 - 2 * k)) & ((1 << (2 * k)) - 1 if k < 32 else -1)
+
+
+def u64_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a <= b`` as uint64 for int64 tensors whose ``b`` is non-negative:
+    a negative ``a`` is at least 2^63 unsigned, so never below ``b``."""
+    return (a >= 0) & (a <= b)
+
+
+def canonical_code64(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """min(code, revcomp) as uint64 (aindex_tpu/kernels/encode.py:141) on
+    int64 storage, for k <= 31 (the revcomp is then non-negative)."""
+    codes = codes.to(torch.int64)
+    rc = revcomp_code64(codes, k)
+    return torch.where(u64_le(codes, rc), codes, rc)

@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
-"""Smoke run of aindex_torch's dense 13-mer main path on one CUDA card.
+"""Smoke run of aindex_torch's two main paths on one CUDA card: the dense
+13-mer index and the sparse canonical 23-mer index.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the four CUDA kernels from aindex_torch/csrc.
-2. Holds every kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, with exact equality (all outputs
-   are integers), and times both with CUDA events.
-3. Drives the main path at E. coli scale, as ``aindex-tpu count -k 13``
+   builds the seven CUDA kernels from aindex_torch/csrc.
+2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
+   the card, at the shapes the dense path gives them, with exact equality
+   (all outputs are integers), and times both with CUDA events.
+3. Generates the corpus once: scripts/make_scale_corpus.py's (seed 1, 25x:
+   773,608 reads of 150 bp over a 4.64 Mbp genome, 0.3% substitutions), as
+   a FASTA file and a read matrix that the numpy oracles read.
+4. Drives the dense path at E. coli scale, as ``aindex-tpu count -k 13``
    does (iter_sequence_bytes -> build_from_stream -> save -> stats), then
-   loads the table back and makes the query and coverage calls that
-   AIndex makes for k = 13. The corpus is scripts/make_scale_corpus.py's
-   (seed 1, 25x: 773,608 reads of 150 bp over a 4.64 Mbp genome, 0.3%
-   substitutions), and every answer is checked against an independent
-   numpy oracle computed from the generated read matrix.
-4. Prints the kernels line (launch counts of step 3) and the result line.
+   loads the table back and makes the query and coverage calls that AIndex
+   makes for k = 13, each checked against a numpy oracle.
+5. Holds K5 (the chunk spectrum) against its plain version on a 2^22-byte
+   chunk of the corpus and on a chunk with N runs and newlines, beside
+   ``torch.unique``.
+6. Drives the sparse path: ``Sparse23Index.build_from_stream`` over the
+   FASTA file (stage times and the device's idle share of the build), then
+   every query family, coverage, De Bruijn CONT and a save/load round
+   trip, each checked against an independent numpy oracle (canonical
+   windows of the read matrix + np.unique).
+7. Holds K6 (quotient cuckoo queries, every mode) and K7 (coverage) against
+   their plain versions on the index built in step 6.
+8. Prints the kernels line (launch counts of steps 4 and 6, each path run
+   with the counts set to 0 just before it), the card line and the result
+   line.
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
@@ -39,10 +52,24 @@ READ_LEN = 150
 ERR = 0.003
 K = 13
 SPACE = 4 ** K
+K23 = 23
+MASK23 = (1 << (2 * K23)) - 1
+#: published H100 SXM memory rate at 700 W (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+#: shapes of the checks: the main paths' (smaller only in a CPU rehearsal)
+COVERAGE = 25.0
+N_CODES = 4 << 24          # codes-in batches
+N_ASCII = 1 << 20          # ASCII query batches
+CHUNK_BYTES = 1 << 22      # one ingest chunk
+N_SEQ = 10_000             # coverage batches
+N_DB = 1 << 16             # De Bruijn batch
+
+DENSE_KERNELS = ("count13_packed", "total13", "gather13", "coverage13_packed")
+SPARSE_KERNELS = ("spectrum23", "quot23", "quotcov23")
 
 
-
-# -- corpus and oracle (numpy only, independent of aindex_torch) -------------
+# -- corpus and oracles (numpy only, independent of aindex_torch) ------------
 
 def scale_corpus(coverage: float = 25.0, seed: int = 1):
     """(genome, reads uint8[n_reads, 150]) by scripts/make_scale_corpus.py's
@@ -107,6 +134,38 @@ def oracle_table(reads: np.ndarray) -> np.ndarray:
     return counts.astype(np.uint32)
 
 
+def oracle_windows23(mat: np.ndarray):
+    """(forward code, reverse-complement code, valid) of the 23-mer windows
+    of each row of an ASCII matrix, uint64. The reverse complement is built
+    base by base: base j of a window lands complemented in field j."""
+    b = _LUT[mat].astype(np.uint64)
+    n_win = mat.shape[1] - K23 + 1
+    fwd = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
+    rc = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
+    bad = np.zeros((mat.shape[0], n_win), dtype=bool)
+    for j in range(K23):
+        bj = b[:, j:j + n_win]
+        fwd = (fwd << np.uint64(2)) | (bj & np.uint64(3))
+        rc |= (np.uint64(3) - (bj & np.uint64(3))) << np.uint64(2 * j)
+        bad |= bj > 3
+    return fwd, rc, ~bad
+
+
+def oracle_spectrum23(reads: np.ndarray):
+    """(sorted unique canonical 23-mer codes, counts) of every valid window."""
+    parts = []
+    for i in range(0, len(reads), 1 << 16):
+        fwd, rc, ok = oracle_windows23(reads[i:i + (1 << 16)])
+        parts.append(np.minimum(fwd, rc)[ok])
+    return np.unique(np.concatenate(parts), return_counts=True)
+
+
+def oracle_lookup(keys: np.ndarray, counts: np.ndarray, canon: np.ndarray) -> np.ndarray:
+    """tf of each canonical code in the oracle spectrum (0 when absent)."""
+    at = np.minimum(np.searchsorted(keys, canon), keys.size - 1)
+    return np.where(keys[at] == canon, counts[at], 0).astype(np.uint32)
+
+
 # -- helpers -----------------------------------------------------------------
 
 def check(cond: bool, what: str) -> None:
@@ -133,8 +192,12 @@ def bits64(t):
 
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over unsigned values; raises when they differ."""
-    err = int((bits64(a) - bits64(b)).abs().max()) if a.numel() else 0
-    check(a.shape == b.shape and err == 0, f"kernel != plain (max |err| {err})")
+    check(a.shape == b.shape, f"kernel shape {tuple(a.shape)} != plain {tuple(b.shape)}")
+    if not a.numel():
+        return 0
+    x, y = bits64(a), bits64(b)
+    err = int((x - y).abs().max()) if bool((x != y).any()) else 0
+    check(err == 0, f"kernel != plain (max |err| {err})")
     return err
 
 
@@ -153,38 +216,78 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound_ms(n_bytes: float) -> float:
+    """The least time to move ``n_bytes`` at the published memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def record(err, ms, plain_ms, n_bytes, library_ms=None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms(n_bytes), "bound_by": "bytes", "library_ms": library_ms}
+
+
 def random_ascii(rng, n: int, alphabet: bytes, weights) -> np.ndarray:
     p = np.asarray(weights, dtype=np.float64)
     return np.frombuffer(alphabet, dtype=np.uint8)[rng.choice(len(alphabet), size=n, p=p / p.sum())]
 
 
-# -- phase 2: kernel against plain version -----------------------------------
+def device_busy_ms(prof) -> tuple[float, int]:
+    """(union of the device intervals of a torch.profiler trace in ms, the
+    number of device events)."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3, len(spans)
 
-def kernels_vs_plain(dev, card: str) -> dict:
+
+def report(card, name, shape, rec):
+    lib = "" if rec["library_ms"] is None else f", library {rec['library_ms']:.4f} ms"
+    print(f"kernel {name} [{shape}]: max_abs_err {rec['max_abs_err']}, kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib}, plain/kernel "
+          f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
+
+
+def upload(dev, packed, vbits):
+    import torch
+    return (torch.from_numpy(packed.reshape(-1).view(np.int32)).to(dev),
+            torch.from_numpy(vbits.reshape(-1)).to(dev))
+
+
+# -- phase 2: dense kernels against plain versions -----------------------------
+
+def dense_kernels_vs_plain(dev, card: str) -> dict:
     import torch
     from aindex_torch.core import codec
     from aindex_torch.index.dense13 import total13, total13_plain
     from aindex_torch.kernels.count import count13_packed, count13_packed_plain
     from aindex_torch.kernels.coverage import coverage13_packed, coverage13_packed_plain
-    from aindex_torch.kernels.lookup import gather13, gather13_plain
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, packed_window_codes,
+                                             revcomp_code13, window_codes)
+    from aindex_torch.kernels.lookup import gather13, gather13_plain, jax_index
 
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=dev).manual_seed(7)
     res = {}
 
-    def report(name, shape, err, ms, plain_ms):
-        print(f"kernel {name} [{shape}]: max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, plain/kernel {plain_ms / ms:.1f}x ({card})")
-
-    def upload(packed, vbits):
-        return (torch.from_numpy(packed.reshape(-1).view(np.int32)).to(dev),
-                torch.from_numpy(vbits.reshape(-1)).to(dev))
+    def touched(codes, valid):
+        return int(torch.unique(codes[valid]).numel())
 
     # K1: one 2^22-byte chunk, reads of 150 bases with N, lowercase and '~'
-    chunk = random_ascii(rng, 1 << 22, b"ACGTacgtN~",
+    chunk = random_ascii(rng, CHUNK_BYTES, b"ACGTacgtN~",
                          [0.24, 0.24, 0.24, 0.24, 0.005, 0.005, 0.005, 0.005, 0.005, 0.005])
     chunk[150::151] = ord("\n")
-    packed, vbits = upload(*codec.pack_ascii_chunk(chunk))
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
     kern = torch.zeros(SPACE, dtype=torch.int32, device=dev)
     plain = torch.zeros(SPACE, dtype=torch.int32, device=dev)
     count13_packed(kern, packed, vbits)
@@ -193,8 +296,10 @@ def kernels_vs_plain(dev, card: str) -> dict:
     scratch = torch.zeros(SPACE, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: count13_packed(scratch, packed, vbits), 50)
     pms = cuda_ms(lambda: count13_packed_plain(scratch, packed, vbits), 5)
-    report("count13_packed", "chunk 2^22 B", err, ms, pms)
-    res["count13_packed"] = (err, ms, pms)
+    # the chunk in, and each table entry its windows touch read and written once
+    n_bytes = packed.numel() * 4 + vbits.numel() + 8 * touched(*packed_window_codes(packed, vbits, K))
+    res["count13_packed"] = record(err, ms, pms, n_bytes)
+    report(card, "count13_packed", "chunk 2^22 B", res["count13_packed"])
     del kern, plain, scratch
 
     # K2: a random full table, wrapping adds included
@@ -203,12 +308,13 @@ def kernels_vs_plain(dev, card: str) -> dict:
     err = max_abs_err(total13(tf), total13_plain(tf))
     ms = cuda_ms(lambda: total13(tf), 20)
     pms = cuda_ms(lambda: total13_plain(tf), 3)
-    report("total13", "4^13 table", err, ms, pms)
-    res["total13"] = (err, ms, pms)
+    res["total13"] = record(err, ms, pms, 2 * 4 * SPACE)
+    report(card, "total13", "4^13 table", res["total13"])
+    del tf
 
     # K3: every mode on u8/u16/u32 tables; 4 x 2^24 codes over the whole
     # uint32 range with the edge codes first, 2^20 ASCII rows
-    n_codes = 4 << 24
+    n_codes = N_CODES
     codes = torch.randint(-2 ** 31, 2 ** 31, (n_codes,), dtype=torch.int32, device=dev,
                           generator=gen)
     codes[n_codes // 2:] &= SPACE - 1           # half in range
@@ -218,9 +324,21 @@ def kernels_vs_plain(dev, card: str) -> dict:
     valid = torch.rand(n_codes, device=dev, generator=gen) < 0.9
     valid[:edges.numel()] = True
     rows = torch.from_numpy(random_ascii(
-        rng, (1 << 20) * K, b"ACGTacgtN\n~",
+        rng, N_ASCII * K, b"ACGTacgtN\n~",
         [0.245, 0.245, 0.245, 0.245, 0.004, 0.004, 0.004, 0.004, 0.002, 0.001, 0.001]
     ).reshape(-1, K)).to(dev)
+    index = jax_index(codes)
+    # the table entries each mode reaches (forward, and with the revcomp)
+    rc_index = revcomp_code13(codes)
+    row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K)
+    row_codes = row_codes.reshape(-1)[row_valid.reshape(-1)]
+    n_touched = {}
+    for mode, fwd in (("codes", index), ("codes+mask", index[valid]), ("ascii", row_codes)):
+        rc = revcomp_code13(fwd) if mode == "ascii" else rc_index[valid] \
+            if mode == "codes+mask" else rc_index
+        n_touched[mode, False] = int(torch.unique(fwd).numel())
+        n_touched[mode, True] = int(torch.unique(torch.cat([fwd, rc])).numel())
+    del rc_index
     k3 = []
     for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
                               (32, torch.int32, torch.uint32)):
@@ -239,19 +357,31 @@ def kernels_vs_plain(dev, card: str) -> dict:
                 pms = cuda_ms(lambda: gather13_plain(table, both=both, **kw), 2)
                 tag = f"u{bits} {mode}{' both' if both else ''}, " \
                       f"{'2^20 rows' if mode == 'ascii' else '4x2^24 codes'}"
-                report("gather13", tag, err, ms, pms)
-                k3.append((tag, err, ms, pms))
+                lib = None
+                if bits == 8 and mode == "codes" and not both:
+                    # the gather alone, on the index each code reads
+                    lib = cuda_ms(lambda: torch.take(table, index), 20)
+                # queries in, answers out, each table entry they reach read once
+                n_out = n_codes if mode != "ascii" else rows.shape[0]
+                n_in = {"codes": 4 * n_codes, "codes+mask": 5 * n_codes,
+                        "ascii": rows.numel()}[mode]
+                n_bytes = n_in + n_out * 4 * (2 if both else 1) \
+                    + n_touched[mode, both] * bits // 8
+                rec = record(err, ms, pms, n_bytes, lib)
+                report(card, "gather13", tag, rec)
+                k3.append((tag, rec))
         del table
-    head = next(r for r in k3 if r[0].startswith("u8 codes+mask,"))
-    res["gather13"] = (max(r[1] for r in k3), head[2], head[3])
-    del codes, valid, rows
+    head = dict(k3)["u8 codes, 4x2^24 codes"]
+    res["gather13"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k3)}
+    del codes, valid, rows, index
 
     # K4: 10,000 rows x stride 151 (150 bp reads), cutoff 0 and 10
-    n_rows, stride = 10_000, READ_LEN + 1
+    n_rows, stride = N_SEQ, READ_LEN + 1
     mat = random_ascii(rng, n_rows * stride, b"ACGTN",
                        [0.2475, 0.2475, 0.2475, 0.2475, 0.01]).reshape(n_rows, stride)
     mat[:, -1] = ord("\n")
-    packed, vbits = upload(*codec.pack_ascii_chunk(mat.reshape(-1)))
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(mat.reshape(-1)))
+    n_touched = touched(*packed_window_codes(packed, vbits, K))
     k4 = []
     for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
                               (32, torch.int32, torch.uint32)):
@@ -262,33 +392,27 @@ def kernels_vs_plain(dev, card: str) -> dict:
             err = max_abs_err(coverage13_packed(*args), coverage13_packed_plain(*args))
             ms = cuda_ms(lambda: coverage13_packed(*args), 50)
             pms = cuda_ms(lambda: coverage13_packed_plain(*args), 5)
-            tag = f"u{bits} cutoff {cutoff}, 10000 x 151"
-            report("coverage13_packed", tag, err, ms, pms)
-            k4.append((tag, err, ms, pms))
-    head = k4[0]
-    res["coverage13_packed"] = (max(r[1] for r in k4), head[2], head[3])
+            n_bytes = packed.numel() * 4 + vbits.numel() + n_rows * (stride - K) * 4 \
+                + n_touched * bits // 8
+            rec = record(err, ms, pms, n_bytes)
+            report(card, "coverage13_packed", f"u{bits} cutoff {cutoff}, 10000 x 151", rec)
+            k4.append(rec)
+    res["coverage13_packed"] = {**k4[0], "max_abs_err": max(r["max_abs_err"] for r in k4)}
     return res
 
 
-# -- phase 3: the main path end to end ----------------------------------------
+# -- phase 4: the dense path end to end ----------------------------------------
 
-def main_path(dev, card: str, tmp: str) -> None:
+def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
+               fasta: str) -> None:
     import torch
     from aindex_torch import Dense13Index
     from aindex_torch.io.fastq import iter_sequence_bytes
 
     t0 = time.perf_counter()
-    genome, reads = scale_corpus(25.0, 1)
-    fasta = os.path.join(tmp, "ecoli_25x.fasta")
-    write_fasta(reads, fasta)
-    t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
     table = oracle_table(reads)
-    t_oracle = time.perf_counter() - t0
+    print(f"dense oracle table {time.perf_counter() - t0:.1f} s")
     n_bases = reads.size
-    print(f"corpus: {len(reads)} reads, {n_bases / 1e6:.1f} MB of bases, "
-          f"{os.path.getsize(fasta) / 1e6:.1f} MB FASTA ({t_gen:.1f} s); "
-          f"oracle table {t_oracle:.1f} s")
 
     # count, as `aindex-tpu count -k 13` does
     torch.cuda.synchronize()
@@ -298,13 +422,13 @@ def main_path(dev, card: str, tmp: str) -> None:
     tf_path = os.path.join(tmp, "ecoli_25x.tf.bin")
     built.save(tf_path)
     s = built.stats()
-    print(f"build_from_stream: {t_build:.3f} s, {n_bases / t_build / 1e6:.2f} MB/s "
+    print(f"dense build_from_stream: {t_build:.3f} s, {n_bases / t_build / 1e6:.2f} MB/s "
           f"of bases, FASTA parse included ({card})")
     check(np.array_equal(built.tf_host, table), "built table == oracle table")
     check(s["non_zero_kmers"] == int(np.count_nonzero(table))
           and s["total_count"] == len(reads) * (READ_LEN - K + 1)
           and s["max_frequency"] == int(table.max()), f"stats {s}")
-    print(f"stats: {s}")
+    print(f"dense stats: {s}")
     del built
 
     index = Dense13Index.load(tf_path, device=dev)
@@ -316,7 +440,7 @@ def main_path(dev, card: str, tmp: str) -> None:
     # ASCII queries: 2^20 k-mers sampled from the reads, 1/16 of them
     # random (mostly absent) and 1/64 with an N
     rng = np.random.default_rng(11)
-    n_q = 1 << 20
+    n_q = N_ASCII
     r = rng.integers(0, len(reads), size=n_q)
     o = rng.integers(0, READ_LEN - K + 1, size=n_q)
     mat = reads[r[:, None], o[:, None] + np.arange(K)[None, :]]
@@ -343,22 +467,22 @@ def main_path(dev, card: str, tmp: str) -> None:
                       for g, w in zip(got, want)), name)
         else:
             check(got.dtype == np.uint32 and np.array_equal(got, want), name)
-        print(f"{name}: {n_q} ASCII k-mers, {n_q / dt / 1e6:.2f} M queries/s "
+        print(f"dense {name}: {n_q} ASCII k-mers, {n_q / dt / 1e6:.2f} M queries/s "
               f"(host clock, encode and copies included) ({card})")
 
     # codes-in total on 4 x 2^24 device codes
     gen = torch.Generator(device=dev).manual_seed(13)
-    codes = torch.randint(0, SPACE, (4 << 24,), dtype=torch.int32, device=dev, generator=gen)
+    codes = torch.randint(0, SPACE, (N_CODES,), dtype=torch.int32, device=dev, generator=gen)
     got = index.get_total_tf_values_codes(codes)
     check(np.array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32),
                          total[codes.cpu().numpy()]), "get_total_tf_values_codes")
     ms = cuda_ms(lambda: index.get_total_tf_values_codes(codes), 20)
-    print(f"get_total_tf_values_codes: {codes.numel()} device codes, "
+    print(f"dense get_total_tf_values_codes: {codes.numel()} device codes, "
           f"{codes.numel() / ms / 1e6:.2f} G queries/s ({ms:.4f} ms, CUDA events; "
           f"table {index.tf_total.dtype}) ({card})")
 
     # coverage of 10,000 reads, cutoff 0 and 10; one 100 kbp sequence
-    n_seq = 10_000
+    n_seq = N_SEQ
     seqs = [row.tobytes().decode("ascii") for row in reads[:n_seq]]
     wcode, wok = oracle_codes(reads[:n_seq])
     want = np.where(wok, table[wcode], 0)
@@ -370,13 +494,320 @@ def main_path(dev, card: str, tmp: str) -> None:
         exp = np.where(want >= cutoff, want, 0)
         check(all(np.array_equal(c, e) for c, e in zip(covs, exp)),
               f"sequence_coverage_batch cutoff {cutoff}")
-        print(f"sequence_coverage_batch cutoff {cutoff}: {n_seq} x {READ_LEN} bp, "
+        print(f"dense sequence_coverage_batch cutoff {cutoff}: {n_seq} x {READ_LEN} bp, "
               f"{n_seq / dt:.0f} sequences/s (host clock) ({card})")
     seq = genome[:100_000]
     cov = index.sequence_coverage(seq.tobytes().decode("ascii"))
     gcode, gok = oracle_codes(seq[None, :])
     check(np.array_equal(cov, np.where(gok, table[gcode], 0)[0]), "sequence_coverage")
     check(index.sequence_coverage("ACGT").size == 0, "short sequence coverage")
+
+
+# -- phase 5: K5 against its plain version -------------------------------------
+
+def spectrum_vs_plain(dev, card: str, reads: np.ndarray) -> dict:
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.encode import canonical_code64, packed_window_codes
+    from aindex_torch.kernels.spectrum import spectrum23, spectrum23_plain
+
+    rng = np.random.default_rng(17)
+    n_rows = CHUNK_BYTES // (READ_LEN + 1) + 1
+    corpus_chunk = np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]
+                             ).ravel()[:CHUNK_BYTES]
+    n_runs = random_ascii(rng, CHUNK_BYTES, b"ACGTacgtN~",
+                          [0.24, 0.24, 0.24, 0.24, 0.005, 0.005, 0.01, 0.005, 0.005, 0.005])
+    n_runs[150::151] = ord("\n")
+    for start in rng.integers(0, n_runs.size - 64, size=CHUNK_BYTES >> 10):
+        n_runs[start:start + rng.integers(1, 64)] = ord("N")
+    out = None
+    for tag, chunk in (("corpus chunk 2^22 B", corpus_chunk),
+                       ("N runs + newlines 2^22 B", n_runs)):
+        packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
+        got = spectrum23(packed, vbits, K23)
+        ref = spectrum23_plain(packed, vbits, K23)
+        err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+        check(int(got[2]) > 0, "K5 found k-mers")
+        ms = cuda_ms(lambda: spectrum23(packed, vbits, K23), 20)
+        pms = cuda_ms(lambda: spectrum23_plain(packed, vbits, K23), 3)
+        codes, valid = packed_window_codes(packed, vbits, K23)
+        live = canonical_code64(codes, K23)[valid]
+        lib = cuda_ms(lambda: torch.unique(live, sorted=True, return_counts=True), 20)
+        # the chunk in; padded keys (8 B) and counts (4 B) out
+        n_bytes = packed.numel() * 4 + vbits.numel() + got[0].numel() * 12
+        rec = record(err, ms, pms, n_bytes, lib)
+        report(card, "spectrum23", f"{tag}, {int(got[2])} unique of {live.numel()} valid", rec)
+        if out is None:
+            out = rec
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], rec["max_abs_err"])
+    return out
+
+
+# -- phase 6: the sparse path end to end ---------------------------------------
+
+def _torch_canonical(codes):
+    """Canonical 23-mer codes on the card, the reverse complement built
+    field by field (independent of aindex_torch's bit tricks)."""
+    import torch
+    rc = torch.zeros_like(codes)
+    for j in range(K23):
+        rc |= (3 - ((codes >> (2 * (K23 - 1 - j))) & 3)) << (2 * j)
+    return torch.minimum(codes, rc)
+
+
+def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle) -> object:
+    import torch
+    from torch import profiler
+    from aindex_torch import Sparse23Index
+    from aindex_torch.io.fastq import iter_sequence_bytes
+
+    keys, counts = oracle
+    n_bases = reads.size
+
+    # build, as `aindex-tpu count -k 23` does, under the profiler
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index = Sparse23Index.build_from_stream(iter_sequence_bytes(fasta), device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    busy_ms, n_events = device_busy_ms(prof)
+    t0 = time.perf_counter()
+    tables = index.tables
+    torch.cuda.synchronize()
+    t_quot = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in index.build_seconds.items())
+    print(f"sparse build_from_stream: {t_build:.3f} s, {n_bases / t_build / 1e6:.2f} MB/s of "
+          f"bases, FASTA parse included ({stages}); quot build + upload {t_quot:.3f} s; "
+          f"with it {n_bases / (t_build + t_quot) / 1e6:.2f} MB/s ({card})")
+    if n_events:
+        print(f"sparse build device time: busy {busy_ms:.3f} ms over {n_events} device "
+              f"events, idle share {1 - busy_ms / (t_build * 1e3):.4f} of the build "
+              f"(torch.profiler, profiler on) ({card})")
+    else:
+        print("sparse build device idle share: not measured (the profiler saw no device events)")
+    print(f"sparse index: n {index.n}, quotient table m 2^{tables.lb} rows per half, "
+          f"{index.quot.nbytes / 1e6:.1f} MB")
+
+    check(index.n == keys.size, f"n {index.n} == oracle {keys.size}")
+    order = np.argsort(index.checker_host)
+    check(np.array_equal(index.checker_host[order], keys), "checker keys == oracle keys")
+    check(np.array_equal(index.tf_host[order], counts.astype(np.uint32)), "tf == oracle counts")
+    s = index.stats()
+    check(s["total_count"] == int(counts.sum()) and s["max_frequency"] == int(counts.max())
+          and s["unique_kmers"] == int((counts == 1).sum()), f"stats {s}")
+    print(f"sparse stats: {s}")
+
+    # ASCII queries: 2^20 k-mers, half windows of the reads, half random
+    rng = np.random.default_rng(23)
+    n_q = N_ASCII
+    r = rng.integers(0, len(reads), size=n_q)
+    o = rng.integers(0, READ_LEN - K23 + 1, size=n_q)
+    mat = reads[r[:, None], o[:, None] + np.arange(K23)[None, :]]
+    mat[1::2] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(n_q // 2, K23))]
+    mat[::64, 7] = ord("N")
+    text = mat.tobytes().decode("ascii")
+    kmers = [text[i:i + K23] for i in range(0, len(text), K23)]
+    fwd, rc, ok = oracle_windows23(mat)
+    fwd, rc, ok = fwd[:, 0], rc[:, 0], ok[:, 0]
+    canon = np.minimum(fwd, rc)
+    want = np.where(ok, oracle_lookup(keys, counts, canon), 0).astype(np.uint32)
+    print(f"sparse ASCII batch: {int((want > 0).sum())} of {n_q} present")
+    for name, call, check_fn in (
+            ("get_tf_values", lambda: index.get_tf_values(kmers),
+             lambda g: g.dtype == np.uint32 and np.array_equal(g, want)),
+            ("get_pfids", lambda: index.get_pfids(kmers),
+             lambda g: g.dtype == np.int64
+             and np.array_equal(g == index.n, want == 0)
+             and np.array_equal(index.checker_host[g[want > 0]], canon[want > 0])),
+            ("get_strands", lambda: index.get_strands(kmers),
+             lambda g: g.dtype == np.int32
+             and np.array_equal(g, np.where(want > 0, np.where(fwd <= rc, 1, 2), 0)))):
+        call()
+        t0 = time.perf_counter()
+        got = call()
+        dt = time.perf_counter() - t0
+        check(check_fn(got), name)
+        print(f"sparse {name}: {n_q} ASCII k-mers, {n_q / dt / 1e6:.2f} M queries/s "
+              f"(host clock, encode and copies included) ({card})")
+
+    # codes-in on 4 x 2^24 device codes: half windows of the reads, half random
+    n_codes = N_CODES
+    reads_dev = torch.from_numpy(reads).to(dev)
+    lut = torch.from_numpy(_LUT.astype(np.int64)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    half = n_codes // 2
+    rr = torch.randint(0, len(reads), (half,), device=dev, generator=gen)
+    oo = torch.randint(0, READ_LEN - K23 + 1, (half,), device=dev, generator=gen)
+    sampled = torch.zeros(half, dtype=torch.int64, device=dev)
+    for j in range(K23):
+        sampled = (sampled << 2) | lut[reads_dev[rr, oo + j].to(torch.int64)]
+    codes = torch.cat([sampled, torch.randint(0, 1 << 46, (half,), dtype=torch.int64,
+                                              device=dev, generator=gen)])
+    del reads_dev, rr, oo, sampled
+    keys_dev = torch.from_numpy(keys.view(np.int64)).to(dev)
+    counts_dev = torch.from_numpy(counts.astype(np.int64)).to(dev)
+    c = _torch_canonical(codes)
+    at = torch.searchsorted(keys_dev, c).clamp_(max=keys.size - 1)
+    want_codes = torch.where(keys_dev[at] == c, counts_dev[at], 0)
+    del c, at
+    got = index.get_tf_values_codes(codes)
+    check(got.dtype == torch.uint32 and bool((bits64(got) == want_codes).all()),
+          "get_tf_values_codes == oracle")
+    ms = cuda_ms(lambda: index.get_tf_values_codes(codes), 20)
+    print(f"sparse get_tf_values_codes: {n_codes} device codes "
+          f"({int((want_codes > 0).sum())} present), {n_codes / ms / 1e6:.3f} G queries/s "
+          f"({ms:.4f} ms, CUDA events) ({card})")
+    del got, want_codes, keys_dev, counts_dev
+
+    # coverage of 10,000 reads, cutoff 0 and 10
+    n_seq = N_SEQ
+    seqs = [row.tobytes().decode("ascii") for row in reads[:n_seq]]
+    wf, wr, wok = oracle_windows23(reads[:n_seq])
+    wtf = np.where(wok, oracle_lookup(keys, counts, np.minimum(wf, wr)), 0)
+    for cutoff in (0, 10):
+        index.sequence_coverage_batch(seqs, cutoff)
+        t0 = time.perf_counter()
+        covs = index.sequence_coverage_batch(seqs, cutoff)
+        dt = time.perf_counter() - t0
+        exp = np.where(wtf >= cutoff, wtf, 0)
+        check(all(c.dtype == np.uint32 and np.array_equal(c, e) for c, e in zip(covs, exp)),
+              f"sparse sequence_coverage_batch cutoff {cutoff}")
+        print(f"sparse sequence_coverage_batch cutoff {cutoff}: {n_seq} x {READ_LEN} bp, "
+              f"{n_seq / dt:.0f} sequences/s (host clock) ({card})")
+
+    # De Bruijn continuation with CONT on 2^16 k-mers of the reads
+    n_db = N_DB
+    dmat = mat[:2 * n_db:2].copy()
+    dmat[:, 7] = reads[r[:2 * n_db:2], o[:2 * n_db:2] + 7]   # undo the N
+    dtext = dmat.tobytes().decode("ascii")
+    dkmers = [dtext[i:i + K23] for i in range(0, len(dtext), K23)]
+    dfwd, _, _ = oracle_windows23(dmat)
+    ext = ((dfwd[:, :1] << np.uint64(2)) | np.arange(4, dtype=np.uint64)) & np.uint64(MASK23)
+    ext_rc = np.zeros_like(ext)
+    for j in range(K23):
+        ext_rc |= (np.uint64(3) - ((ext >> np.uint64(2 * (K23 - 1 - j))) & np.uint64(3))) \
+            << np.uint64(2 * j)
+    etf = oracle_lookup(keys, counts, np.minimum(ext, ext_rc).reshape(-1)).reshape(-1, 4)
+    best = np.array([max(i for i in range(4) if row[i] == row.max()) for row in etf])
+    info = index.debruijn_next_info(dkmers)
+    check(np.array_equal(info["tf"], etf), "debruijn_next_info tf")
+    check(np.array_equal(info["n"], (etf > 0).sum(axis=1))
+          and np.array_equal(info["sum"], etf.sum(axis=1)), "debruijn_next_info n, sum")
+    check(np.array_equal(info["best_hit"], np.array(list("ACGT"))[best])
+          and np.array_equal(info["best_hit_tf"], etf[np.arange(n_db), best])
+          and np.array_equal(info["best_ukmer"], ext[np.arange(n_db), best]),
+          "debruijn_next_info best hit (ties to the last in ACGT)")
+    print(f"sparse debruijn_next_info: {n_db} k-mers, {int((etf.sum(axis=1) > 0).sum())} "
+          f"with a continuation")
+
+    # save / load round trip
+    prefix = os.path.join(tmp, "ecoli_25x.23")
+    index.save(prefix)
+    back = Sparse23Index.load(prefix, device=dev)
+    check(np.array_equal(back.checker_host, index.checker_host)
+          and np.array_equal(back.tf_host, index.tf_host)
+          and np.array_equal(back.mphf.g_packed, index.mphf.g_packed), "save/load arrays")
+    check(np.array_equal(back.get_tf_values(kmers[:4096]), want[:4096]), "loaded index queries")
+    sizes = {ext: os.path.getsize(prefix + ext) for ext in (".pf", ".tf.bin", ".kmers.bin")}
+    print(f"sparse save/load round trip: {sizes}")
+    return index
+
+
+# -- phase 7: K6 and K7 against their plain versions ---------------------------
+
+def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
+                                             packed_window_codes, window_codes)
+    from aindex_torch.kernels.quot import bij, quot23, quot23_plain, quotcov23, quotcov23_plain
+
+    t = index.tables
+
+    def probed_rows(keys) -> int:
+        """Distinct table rows the canonical keys' probes read."""
+        h1 = bij(keys, *t.mults[:2], t.w)
+        r1 = h1 & (t.m - 1)
+        miss = t.half0[r1][:, 0].to(torch.int64) != (h1 >> t.lb)
+        r2 = bij(keys[miss], *t.mults[2:], t.w) & (t.m - 1)
+        return int(torch.unique(r1).numel()) + int(torch.unique(r2).numel())
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n_codes = N_CODES
+    half = n_codes // 2
+    sample = torch.from_numpy(index.checker_host.view(np.int64)).to(dev)
+    picks = sample[torch.randint(0, sample.numel(), (half,), device=dev, generator=gen)]
+    codes = torch.cat([picks, torch.randint(0, 1 << 46, (half,), dtype=torch.int64,
+                                            device=dev, generator=gen)])
+    codes = codes[torch.randperm(n_codes, device=dev, generator=gen)]
+    valid = torch.rand(n_codes, device=dev, generator=gen) < 0.9
+    rows_np = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(37).integers(
+        0, 4, size=(N_ASCII, K23))]
+    r = np.random.default_rng(41).integers(0, len(reads), size=N_ASCII // 2)
+    rows_np[::2] = reads[r, :K23]
+    rows_np[::97, 3] = ord("N")
+    rows = torch.from_numpy(rows_np).to(dev)
+    n_probe = probed_rows(canonical_code64(codes, K23))
+    res = {}
+    k6 = []
+    for tag, kw, n_in, n_out in (
+            ("codes, tf", {"codes": codes}, 8, 4),
+            ("codes+mask, tf", {"codes": codes, "valid": valid}, 9, 4),
+            ("codes, tf+slot+strand", {"codes": codes, "slot": True, "strand": True}, 8, 12),
+            ("codes+mask, tf+slot+strand",
+             {"codes": codes, "valid": valid, "slot": True, "strand": True}, 9, 12)):
+        got = quot23(t, k=K23, **kw)
+        ref = quot23_plain(t, k=K23, **kw)
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        ms = cuda_ms(lambda: quot23(t, k=K23, **kw), 20)
+        pms = cuda_ms(lambda: quot23_plain(t, k=K23, **kw), 2)
+        # codes (+ mask) in, outputs out, each probed row read once (and
+        # its slot when the slot is asked for)
+        n_bytes = n_codes * (n_in + n_out) + n_probe * (12 if "slot" in kw else 8)
+        rec = record(err, ms, pms, n_bytes)
+        report(card, "quot23", f"{tag}, {n_codes} codes (half present)", rec)
+        k6.append((tag, rec))
+    row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K23)
+    ascii_probe = probed_rows(canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)],
+                                               K23))
+    for tag, kw, n_out in (("ascii, tf", {}, 4),
+                           ("ascii, tf+slot+strand", {"slot": True, "strand": True}, 12)):
+        got = quot23(t, ascii=rows, k=K23, **kw)
+        ref = quot23_plain(t, ascii=rows, k=K23, **kw)
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        ms = cuda_ms(lambda: quot23(t, ascii=rows, k=K23, **kw), 20)
+        pms = cuda_ms(lambda: quot23_plain(t, ascii=rows, k=K23, **kw), 2)
+        n_bytes = rows.numel() + rows.shape[0] * n_out + ascii_probe * (12 if kw else 8)
+        rec = record(err, ms, pms, n_bytes)
+        report(card, "quot23", f"{tag}, {rows.shape[0]} rows", rec)
+        k6.append((tag, rec))
+    head = dict(k6)["codes, tf"]
+    res["quot23"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k6)}
+    del codes, valid, picks, sample
+
+    # K7: 10,000 reads of the corpus as rows of stride 151, cutoff 0 and 10
+    n_rows, stride = N_SEQ, READ_LEN + 1
+    mat = np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]).reshape(-1)
+    flat = np.concatenate([mat, np.full(K23, ord("\n"), np.uint8)])
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(flat))
+    wcodes, wvalid = packed_window_codes(packed, vbits, K23)
+    n_probe = probed_rows(canonical_code64(wcodes[wvalid], K23))
+    k7 = []
+    for cutoff in (0, 10):
+        args = (t, packed, vbits, n_rows, stride, K23, cutoff)
+        err = max_abs_err(quotcov23(*args), quotcov23_plain(*args))
+        ms = cuda_ms(lambda: quotcov23(*args), 50)
+        pms = cuda_ms(lambda: quotcov23_plain(*args), 5)
+        n_bytes = packed.numel() * 4 + vbits.numel() + n_rows * (stride - K23) * 4 + n_probe * 8
+        rec = record(err, ms, pms, n_bytes)
+        report(card, "quotcov23", f"cutoff {cutoff}, 10000 x 151", rec)
+        k7.append(rec)
+    res["quotcov23"] = {**k7[0], "max_abs_err": max(r["max_abs_err"] for r in k7)}
+    return res
 
 
 def main() -> int:
@@ -391,6 +822,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    t_start = time.perf_counter()
     t_build = _cuda.build_all()
     print(f"kernels built in {t_build:.1f} s")
     for k in _cuda.KERNELS.values():
@@ -401,25 +833,54 @@ def main() -> int:
         print(f"  {k.name}: registers per thread {regs}, instantiations with spills {spills}")
 
     t0 = time.perf_counter()
-    measured = kernels_vs_plain(dev, card)
-    print(f"phase kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+    measured = dense_kernels_vs_plain(dev, card)
+    print(f"phase dense kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
 
+    counts: dict[str, int] = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
+        genome, reads = scale_corpus(COVERAGE, 1)
+        fasta = os.path.join(tmp, "ecoli_25x.fasta")
+        write_fasta(reads, fasta)
+        print(f"corpus: {len(reads)} reads, {reads.size / 1e6:.1f} MB of bases, "
+              f"{os.path.getsize(fasta) / 1e6:.1f} MB FASTA ({time.perf_counter() - t0:.1f} s)")
+
+        t0 = time.perf_counter()
         _cuda.reset_launches()
-        main_path(dev, card, tmp)
-        counts = _cuda.launches()
-        print(f"phase main path: {time.perf_counter() - t0:.1f} s")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} launched on the main path")
+        dense_path(dev, card, tmp, genome, reads, fasta)
+        dense_counts = _cuda.launches()
+        print(f"phase dense path: {time.perf_counter() - t0:.1f} s")
+        counts.update({name: dense_counts[name] for name in DENSE_KERNELS})
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        measured["spectrum23"] = spectrum_vs_plain(dev, card, reads)
+        print(f"phase spectrum kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        oracle = oracle_spectrum23(reads)
+        print(f"sparse oracle spectrum: {oracle[0].size} distinct canonical 23-mers "
+              f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        _cuda.reset_launches()
+        index = sparse_path(dev, card, tmp, reads, fasta, oracle)
+        sparse_counts = _cuda.launches()
+        print(f"phase sparse path: {time.perf_counter() - t0:.1f} s")
+        counts.update({name: sparse_counts[name] for name in SPARSE_KERNELS})
+
+        t0 = time.perf_counter()
+        measured.update(quot_vs_plain(dev, card, index, reads))
+        print(f"phase quot kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+    for name in _cuda.KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched on its main path")
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda",
          "source": "aindex_torch/csrc/" + os.path.basename(k.source),
-         "replaces": k.replaces, "launches": counts[k.name],
-         "max_abs_err": measured[k.name][0], "ms": measured[k.name][1],
-         "plain_ms": measured[k.name][2]}
+         "replaces": k.replaces, "launches": counts[k.name], **measured[k.name]}
         for k in _cuda.KERNELS.values()]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

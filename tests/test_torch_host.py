@@ -108,9 +108,16 @@ class TestFastq:
                     assert fa.read() == fb.read(), key
 
     def test_native_reader_not_ported(self, tmp_path):
-        with pytest.raises(NotImplementedError):
-            tfastq.compute_reads(os.path.join(DATA, "test.fasta"), None, "fasta",
-                                 str(tmp_path / "p"), use_native=True)
+        """The native reader is ported now: use_native=True on the paired
+        test FASTQs writes the files of aindex_tpu's native reader."""
+        args = (os.path.join(DATA, "test_R1.fastq"), os.path.join(DATA, "test_R2.fastq"),
+                "fastq")
+        a = tfastq.compute_reads(*args, str(tmp_path / "t" / "p"), use_native=True)
+        b = jfastq.compute_reads(*args, str(tmp_path / "j" / "p"), use_native=True)
+        assert a["n_reads"] == b["n_reads"] > 0
+        for key in ("reads", "ridx"):
+            with open(a[key], "rb") as fa, open(b[key], "rb") as fb:
+                assert fa.read() == fb.read(), key
 
     @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(DATA, "*"))),
                              ids=lambda p: os.path.basename(p))

@@ -142,6 +142,26 @@ def pack_ascii_chunk(chunk: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return packed.reshape(*chunk.shape[:-1], -1), validbits
 
 
+def coverage_row_batches(raws: list[bytes], k: int):
+    """Group sequences of at least ``k`` bases into coverage launches: one
+    per power-of-two length class (>= 128 bases), one row per sequence,
+    rows as long as the class's longest sequence plus one newline (so a
+    row is padded to at most twice its length). Yields ``(members, stride,
+    packed, vbits)``: the members' indices into ``raws`` and their
+    newline-padded [len(members), stride] rows in the packed ingest
+    format."""
+    classes: dict[int, list[int]] = {}
+    for i, raw in enumerate(raws):
+        if len(raw) >= k:
+            classes.setdefault(max(128, 1 << (len(raw) - 1).bit_length()), []).append(i)
+    for members in classes.values():
+        stride = max(len(raws[i]) for i in members) + 1
+        mat = np.full((len(members), stride), ord("\n"), dtype=np.uint8)
+        for row, i in enumerate(members):
+            mat[row, :len(raws[i])] = np.frombuffer(raws[i], dtype=np.uint8)
+        yield (members, stride, *pack_ascii_chunk(mat.reshape(-1)))
+
+
 def encode_kmer(kmer: str) -> int:
     """Single k-mer string -> integer code. Raises on invalid bases."""
     codes, valid = encode_kmers([kmer], len(kmer))

@@ -15,10 +15,10 @@
 // Bound: random reads of device memory. Each query reads one or two 8-byte
 // rows (plus a 4-byte slot) at addresses unrelated to its neighbours', from
 // halves of 2^24 rows (128 MB each) at E. coli scale, far beyond the 50 MB
-// L2; codes and outputs move coalesced. Design: one thread per query; the
-// second row is read only when the first misses, and the slot column only
-// on a hit; the 64-bit arithmetic (revcomp, two bijections) is cheap beside
-// the memory latency.
+// L2; codes and outputs move coalesced. Design: one thread per query; an
+// invalid query reads no row, the second row is read only when the first
+// misses, and the slot column only on a hit; the 64-bit arithmetic
+// (revcomp, two bijections) is cheap beside the memory latency.
 #include "dna23.cuh"
 
 namespace {
@@ -51,10 +51,11 @@ __global__ void quot23_kernel(dna23::QuotTable t, const long long* __restrict__ 
       rc = dna23::revcomp64(code, k);
       key = code < rc ? code : rc;
     }
-    unsigned tf;
+    unsigned tf = 0;
     int half = 0;
     long long row = 0;
-    const bool hit = dna23::quot_probe(t, key, &tf, &half, &row) && ok;
+    // masked-off queries and rows with a non-ACGT base read no table row
+    const bool hit = ok && dna23::quot_probe(t, key, &tf, &half, &row);
     tf_out[i] = hit ? tf : 0u;
     if (SLOT) slot_out[i] = hit ? dna23::quot_slot(t, half, row) : -1;
     if (STRAND) strand_out[i] = hit ? (code <= rc ? 1 : 2) : 0;

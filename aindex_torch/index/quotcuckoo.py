@@ -2,10 +2,7 @@
 
 Host side copied from aindex_tpu/index/quotcuckoo.py (:57-273), so that
 both packages build byte-identical tables for the same keys; the device
-probes are the hand-written kernels K6 and K7 (kernels/quot.py), and the
-named functions at the end of this module are their counterparts of
-aindex_tpu's ``quot_query_tf``, ``quot_tf_canonical``, ``quot_query`` and
-``quot_tf_windows_packed``.
+probes are the hand-written kernels K6 and K7 (kernels/quot.py).
 
 Each half of the table has its own invertible mixer (an xorshift-multiply
 bijection on the 2k-bit code space); the row index takes the hash's low
@@ -33,7 +30,7 @@ import numpy as np
 import torch
 
 from aindex_torch import native
-from aindex_torch.kernels.quot import QuotTables, quot23, quotcov23
+from aindex_torch.kernels.quot import QuotTables
 
 _EMPTY_FP = np.uint32(0xFFFFFFFF)
 
@@ -238,31 +235,3 @@ class QuotCuckoo:
             slot[idx] = np.where(hit2, self.slot_host[r2], -1).astype(np.int32)
         return found, tf, slot
 
-
-# ---------------------------------------------------------------------------
-# device probes: wrappers of K6 (quot23) and K7 (quotcov23)
-# ---------------------------------------------------------------------------
-
-def quot_query_tf(t: QuotTables, keys: torch.Tensor, valid=None) -> torch.Tensor:
-    """tf per canonical key (quotcuckoo.py:296)."""
-    return quot23(t, keys, valid, k=t.w // 2, canon=False)
-
-
-def quot_tf_canonical(t: QuotTables, codes: torch.Tensor, valid=None) -> torch.Tensor:
-    """tf per literal code: revcomp + canonical + both probes
-    (quotcuckoo.py:310)."""
-    return quot23(t, codes, valid, k=t.w // 2, canon=True)
-
-
-def quot_query(t: QuotTables, keys: torch.Tensor, valid=None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(tf, slot) per canonical key, slot -1 when absent or invalid
-    (quotcuckoo.py:378)."""
-    return quot23(t, keys, valid, k=t.w // 2, canon=False, slot=True)
-
-
-def quot_tf_windows_packed(t: QuotTables, packed: torch.Tensor, vbits: torch.Tensor,
-                           rows: int, stride: int, cutoff: int = 0) -> torch.Tensor:
-    """[rows, stride - k] verified coverage of packed rows
-    (quotcuckoo.py:353), with the cutoff applied."""
-    return quotcov23(t, packed, vbits, rows, stride, t.w // 2, cutoff)

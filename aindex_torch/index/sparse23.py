@@ -60,27 +60,16 @@ _NOT_PORTED_ENGINE = (
 def _spectrum_parts(chunk_iter, k: int, device: torch.device, on_progress=None
                     ) -> list[tuple[np.ndarray, np.ndarray]]:
     """Per-chunk (sorted unique keys uint64, counts uint32) on the host: K5
-    on every packed chunk. A chunk's result is fetched after the next
-    chunk's kernel is queued, so the device works while the host packs."""
+    on every packed chunk, its result fetched right after the launch."""
     parts: list[tuple[np.ndarray, np.ndarray]] = []
-    pending = None
-
-    def fetch(res, done):
-        keys, counts, n_unique = res
+    for packed, vbits, done in packed_chunks(chunk_iter, device):
+        keys, counts, n_unique = chunk_spectrum_packed(packed, vbits, k)
         n = int(n_unique)
         if n:
             parts.append((keys[:n].cpu().numpy().view(np.uint64),
                           host_u32(counts[:n])))
         if on_progress is not None:
             on_progress(done)
-
-    for packed, vbits, done in packed_chunks(chunk_iter, device):
-        res = chunk_spectrum_packed(packed, vbits, k)
-        if pending is not None:
-            fetch(*pending)
-        pending = (res, done)
-    if pending is not None:
-        fetch(*pending)
     return parts
 
 
@@ -113,51 +102,27 @@ def count_canonical_kmers_stream(pieces, k: int = K23, chunk: int = 1 << 22,
                                          on_progress))
 
 
-def _length_bucket(n: int, k: int) -> int:
-    """Power-of-two length class (>= 128) that groups sequences into one
-    launch, as aindex_tpu's coverage buckets them."""
-    b = 128
-    while b < n:
-        b <<= 1
-    return max(b, k)
-
-
 class SharedQueryOps:
     """Coverage + continuation-query surface (the part of aindex_tpu's
     ``SharedQueryOps`` this index uses). Requires ``self.k``,
     ``self._encode(kmers)``, ``self._ext_tf(ext_codes, cutoff)`` and
-    ``self._coverage_ascii(mat, cutoff)``."""
+    ``self._coverage_rows(packed, vbits, rows, stride, cutoff)``."""
 
     # -- coverage -----------------------------------------------------------
 
     def sequence_coverage(self, seq: str, cutoff: int = 0) -> np.ndarray:
-        ascii_u8 = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
-        if ascii_u8.size < self.k:
-            return np.zeros(0, dtype=np.uint32)
-        return self._coverage_ascii(ascii_u8[None, :], cutoff)[0]
+        return self.sequence_coverage_batch([seq], cutoff)[0]
 
     def sequence_coverage_batch(self, seqs: list[str], cutoff: int = 0
                                 ) -> list[np.ndarray]:
-        """Coverage for many sequences, one launch per power-of-two length
-        class; a class's row count is padded to a power of two (>= 8)."""
-        out = [None] * len(seqs)
-        buckets = {}
-        for i, s in enumerate(seqs):
-            if len(s) < self.k:
-                out[i] = np.zeros(0, dtype=np.uint32)
-            else:
-                buckets.setdefault(_length_bucket(len(s), self.k), []).append(i)
-        for blen, members in buckets.items():
-            rows = 8
-            while rows < len(members):
-                rows <<= 1
-            mat = np.full((rows, blen), ord("\n"), dtype=np.uint8)
+        """Coverage for many sequences, one launch per length class
+        (``codec.coverage_row_batches``); empty below k bases."""
+        raws = [s.encode("ascii") for s in seqs]
+        out = [np.zeros(0, dtype=np.uint32)] * len(seqs)
+        for members, stride, packed, vbits in codec.coverage_row_batches(raws, self.k):
+            cov = self._coverage_rows(packed, vbits, len(members), stride, cutoff)
             for row, i in enumerate(members):
-                enc = np.frombuffer(seqs[i].encode("ascii"), dtype=np.uint8)
-                mat[row, :len(enc)] = enc
-            cov = self._coverage_ascii(mat, cutoff)
-            for row, i in enumerate(members):
-                out[i] = cov[row, :len(seqs[i]) - self.k + 1]
+                out[i] = cov[row, :len(raws[i]) - self.k + 1]
         return out
 
     # -- De Bruijn continuation queries ------------------------------------
@@ -427,19 +392,14 @@ class Sparse23Index(SharedQueryOps):
             tf = np.where(tf <= cutoff, 0, tf)
         return tf
 
-    def _coverage_ascii(self, mat: np.ndarray, cutoff: int) -> np.ndarray:
-        """Coverage over [rows, L] ASCII rows: the rows flatten with a
-        newline column (plus a k-newline tail) into the packed ingest
-        format, and K7 computes windows, canonical probes and the cutoff in
-        one launch; returns uint32[rows, L - k + 1] on the host."""
-        rows, L = mat.shape
-        flat = np.concatenate([
-            np.hstack([mat, np.full((rows, 1), ord("\n"), np.uint8)]).ravel(),
-            np.full(self.k, ord("\n"), np.uint8)])
-        packed, vbits = codec.pack_ascii_chunk(flat)
+    def _coverage_rows(self, packed: np.ndarray, vbits: np.ndarray, rows: int,
+                       stride: int, cutoff: int) -> np.ndarray:
+        """Coverage of packed [rows, stride] rows: K7 computes windows,
+        canonical probes and the cutoff in one launch; returns
+        uint32[rows, stride - k] on the host."""
         cov = quotcov23(self.tables,
                         torch.from_numpy(packed.view(np.int32)).to(self.device),
-                        torch.from_numpy(vbits).to(self.device), rows, L + 1, self.k,
+                        torch.from_numpy(vbits).to(self.device), rows, stride, self.k,
                         cutoff)
         return host_u32(cov)
 

@@ -72,57 +72,26 @@ def coverage13_packed(table: torch.Tensor, packed: torch.Tensor, vbits: torch.Te
     return out.view(torch.uint32)
 
 
-def _coverage_rows(table: torch.Tensor, seqs: list[bytes], stride: int,
-                   cutoff: int) -> np.ndarray:
-    """Pack ``seqs`` (each shorter than ``stride``) as newline-padded rows
-    and run K4; returns the [rows, stride - 13] result on the host."""
-    mat = np.full((len(seqs), stride), ord("\n"), dtype=np.uint8)
-    for row, s in enumerate(seqs):
-        mat[row, :len(s)] = np.frombuffer(s, dtype=np.uint8)
-    packed, vbits = codec.pack_ascii_chunk(mat.reshape(-1))
-    dev = table.device
-    cov = coverage13_packed(table, torch.from_numpy(packed.view(np.int32)).to(dev),
-                            torch.from_numpy(vbits).to(dev), len(seqs), stride,
-                            cutoff)
-    return cov.view(torch.int32).cpu().numpy().view(np.uint32)
-
-
 def coverage_dense(table: torch.Tensor, seq: str, cutoff: int = 0) -> np.ndarray:
     """Forward coverage of one sequence: one packed row through K4. The
     result has the table's dtype, as aindex_tpu's has."""
-    raw = seq.encode("ascii")
-    if len(raw) < K13:
-        return np.zeros(0, dtype=np.uint32)
-    cov = _coverage_rows(table, [raw], len(raw) + 1, cutoff)
-    return cov[0, :len(raw) - K13 + 1].astype(_NP_DTYPES[table.dtype])
-
-
-def _length_bucket(n: int) -> int:
-    """Power-of-two length class (>= 128) that groups sequences into one
-    launch: a row is padded to at most twice its length."""
-    b = 128
-    while b < n:
-        b <<= 1
-    return b
+    return coverage_dense_batch(table, [seq], cutoff)[0]
 
 
 def coverage_dense_batch(table: torch.Tensor, seqs: list[str],
                          cutoff: int = 0) -> list[np.ndarray]:
-    """Coverage of many sequences, one K4 launch per power-of-two length
-    class; a class's rows are as long as its longest sequence plus one
-    newline. Results have the table's dtype (empty uint32 below 13 bases)."""
-    out: list[np.ndarray | None] = [None] * len(seqs)
-    buckets: dict[int, list[int]] = {}
+    """Coverage of many sequences, one K4 launch per length class
+    (``codec.coverage_row_batches``). Results have the table's dtype (empty
+    uint32 below 13 bases)."""
     raws = [s.encode("ascii") for s in seqs]
-    for i, raw in enumerate(raws):
-        if len(raw) < K13:
-            out[i] = np.zeros(0, dtype=np.uint32)
-        else:
-            buckets.setdefault(_length_bucket(len(raw)), []).append(i)
+    out = [np.zeros(0, dtype=np.uint32)] * len(seqs)
     dtype = _NP_DTYPES[table.dtype]
-    for members in buckets.values():
-        stride = max(len(raws[i]) for i in members) + 1
-        cov = _coverage_rows(table, [raws[i] for i in members], stride, cutoff)
+    dev = table.device
+    for members, stride, packed, vbits in codec.coverage_row_batches(raws, K13):
+        cov = coverage13_packed(table, torch.from_numpy(packed.view(np.int32)).to(dev),
+                                torch.from_numpy(vbits).to(dev), len(members), stride,
+                                cutoff)
+        cov = cov.view(torch.int32).cpu().numpy().view(np.uint32)
         for row, i in enumerate(members):
             out[i] = cov[row, :len(raws[i]) - K13 + 1].astype(dtype)
-    return out  # type: ignore[return-value]
+    return out

@@ -560,6 +560,7 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
     import torch
     from torch import profiler
     from aindex_torch import Sparse23Index
+    from aindex_torch.index import sparse23
     from aindex_torch.io.fastq import iter_sequence_bytes
 
     keys, counts = oracle
@@ -666,6 +667,15 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
     seqs = [row.tobytes().decode("ascii") for row in reads[:n_seq]]
     wf, wr, wok = oracle_windows23(reads[:n_seq])
     wtf = np.where(wok, oracle_lookup(keys, counts, np.minimum(wf, wr)), 0)
+    # record the (rows, stride) of every K7 call, which quot_vs_plain checks
+    k7_shapes = set()
+    real_quotcov23 = sparse23.quotcov23
+
+    def quotcov23_seen(t, packed, vbits, rows, stride, *args):
+        k7_shapes.add((rows, stride))
+        return real_quotcov23(t, packed, vbits, rows, stride, *args)
+
+    sparse23.quotcov23 = quotcov23_seen
     for cutoff in (0, 10):
         index.sequence_coverage_batch(seqs, cutoff)
         t0 = time.perf_counter()
@@ -676,6 +686,10 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
               f"sparse sequence_coverage_batch cutoff {cutoff}")
         print(f"sparse sequence_coverage_batch cutoff {cutoff}: {n_seq} x {READ_LEN} bp, "
               f"{n_seq / dt:.0f} sequences/s (host clock) ({card})")
+    sparse23.quotcov23 = real_quotcov23
+    check(k7_shapes == {(N_SEQ, READ_LEN + 1)},
+          f"K7 ran at rows x stride {sorted(k7_shapes)}, the shape its check uses")
+    print(f"sparse coverage: K7 launched at rows x stride {sorted(k7_shapes)}")
 
     # De Bruijn continuation with CONT on 2^16 k-mers of the reads
     n_db = N_DB
@@ -749,7 +763,10 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     rows_np[::2] = reads[r, :K23]
     rows_np[::97, 3] = ord("N")
     rows = torch.from_numpy(rows_np).to(dev)
-    n_probe = probed_rows(canonical_code64(codes, K23))
+    canon = canonical_code64(codes, K23)
+    # rows the probes read: a masked-off code reads none
+    n_probe = {False: probed_rows(canon), True: probed_rows(canon[valid])}
+    del canon
     res = {}
     k6 = []
     for tag, kw, n_in, n_out in (
@@ -766,7 +783,8 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         pms = cuda_ms(lambda: quot23_plain(t, k=K23, **kw), 2)
         # codes (+ mask) in, outputs out, each probed row read once (and
         # its slot when the slot is asked for)
-        n_bytes = n_codes * (n_in + n_out) + n_probe * (12 if "slot" in kw else 8)
+        n_bytes = n_codes * (n_in + n_out) \
+            + n_probe["valid" in kw] * (12 if "slot" in kw else 8)
         rec = record(err, ms, pms, n_bytes)
         report(card, "quot23", f"{tag}, {n_codes} codes (half present)", rec)
         k6.append((tag, rec))
@@ -789,11 +807,13 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     res["quot23"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k6)}
     del codes, valid, picks, sample
 
-    # K7: 10,000 reads of the corpus as rows of stride 151, cutoff 0 and 10
-    n_rows, stride = N_SEQ, READ_LEN + 1
-    mat = np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]).reshape(-1)
-    flat = np.concatenate([mat, np.full(K23, ord("\n"), np.uint8)])
-    packed, vbits = upload(dev, *codec.pack_ascii_chunk(flat))
+    # K7: 10,000 reads of the corpus, cutoff 0 and 10, packed as
+    # sequence_coverage_batch packs them on the sparse path (one launch of
+    # 10,000 rows of stride 151, which sparse_path checks)
+    [(members, stride, packed, vbits)] = codec.coverage_row_batches(
+        [row.tobytes() for row in reads[:N_SEQ]], K23)
+    n_rows = len(members)
+    packed, vbits = upload(dev, packed, vbits)
     wcodes, wvalid = packed_window_codes(packed, vbits, K23)
     n_probe = probed_rows(canonical_code64(wcodes[wvalid], K23))
     k7 = []
@@ -804,7 +824,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         pms = cuda_ms(lambda: quotcov23_plain(*args), 5)
         n_bytes = packed.numel() * 4 + vbits.numel() + n_rows * (stride - K23) * 4 + n_probe * 8
         rec = record(err, ms, pms, n_bytes)
-        report(card, "quotcov23", f"cutoff {cutoff}, 10000 x 151", rec)
+        report(card, "quotcov23", f"cutoff {cutoff}, {n_rows} x {stride}", rec)
         k7.append(rec)
     res["quotcov23"] = {**k7[0], "max_abs_err": max(r["max_abs_err"] for r in k7)}
     return res

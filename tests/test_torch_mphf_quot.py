@@ -175,8 +175,8 @@ def test_quot_tf_canonical_matches_jax(built, probe_inputs, masked):
     t, j = built
     codes, valid = probe_inputs
     v = valid if masked else None
-    got = tq.quot_tf_canonical(_tables(t), torch.from_numpy(codes.view(np.int64)),
-                               None if v is None else torch.from_numpy(v))
+    got = tquot.quot23(_tables(t), torch.from_numpy(codes.view(np.int64)),
+                       None if v is None else torch.from_numpy(v), k=23)
     want = jq.quot_tf_canonical(*j.device, jnp.asarray(codes),
                                 None if v is None else jnp.asarray(v), *j.mults,
                                 k=23, m=j.m, lb=j.lb, w=j.w)
@@ -192,13 +192,13 @@ def test_quot_query_and_query_tf_match_jax(built, probe_inputs, masked):
     tv = None if v is None else torch.from_numpy(v)
     jv = None if v is None else jnp.asarray(v)
     tk = torch.from_numpy(canon.view(np.int64))
-    tf, slot = tq.quot_query(_tables(t), tk, tv)
+    tf, slot = tquot.quot23(_tables(t), tk, tv, k=23, canon=False, slot=True)
     jtf, jslot = jq.quot_query(*j.device, *j.slot_device, jnp.asarray(canon), jv, *j.mults,
                                m=j.m, lb=j.lb, w=j.w)
     np.testing.assert_array_equal(_u32(tf), np.asarray(jtf))
     assert slot.dtype == torch.int32
     np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
-    tf_only = tq.quot_query_tf(_tables(t), tk, tv)
+    tf_only = tquot.quot23(_tables(t), tk, tv, k=23, canon=False)
     jtf_only = jq.quot_query_tf(*j.device, jnp.asarray(canon), jv, *j.mults,
                                 m=j.m, lb=j.lb, w=j.w)
     np.testing.assert_array_equal(_u32(tf_only), np.asarray(jtf_only))
@@ -260,8 +260,8 @@ def test_quotcov23_matches_jax_windows_packed(built, random_reads, cutoff):
     flat = np.concatenate([np.hstack([mat, np.full((rows, 1), ord("\n"), np.uint8)]).ravel(),
                            np.full(23, ord("\n"), np.uint8)])
     packed, vbits = jcodec.pack_ascii_chunk(flat)
-    got = tq.quot_tf_windows_packed(_tables(t), torch.from_numpy(packed.view(np.int32)),
-                                    torch.from_numpy(vbits), rows, L + 1, cutoff)
+    got = tquot.quotcov23(_tables(t), torch.from_numpy(packed.view(np.int32)),
+                          torch.from_numpy(vbits), rows, L + 1, 23, cutoff)
     want = np.asarray(jq.quot_tf_windows_packed(
         *j.device, jnp.asarray(packed), jnp.asarray(vbits), *j.mults,
         k=23, m=j.m, lb=j.lb, w=j.w, rows=rows, stride=L + 1))

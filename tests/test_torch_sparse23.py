@@ -194,6 +194,28 @@ class TestCoverageAndCont:
                         j.sequence_coverage_batch(seqs, cutoff)):
             _eq(a, b)
 
+    @pytest.mark.parametrize("lengths, shapes", [
+        ([150] * 10, [(10, 151)]),
+        ([150, 100, 300, 10, 140], [(2, 151), (1, 101), (1, 301)]),
+    ], ids=["reads", "classes"])
+    def test_coverage_batch_launch_shapes(self, built, monkeypatch, lengths, shapes):
+        """One K7 launch per length class, one row per sequence, rows as long
+        as the class's longest sequence plus a newline: no padding beyond."""
+        import aindex_torch.index.sparse23 as tsparse
+        seen = []
+
+        def spy(t, packed, vbits, rows, stride, k, cutoff):
+            seen.append((rows, stride))
+            return real(t, packed, vbits, rows, stride, k, cutoff)
+
+        real = tsparse.quotcov23
+        monkeypatch.setattr(tsparse, "quotcov23", spy)
+        rng = np.random.default_rng(3)
+        seqs = ["".join(rng.choice(list("ACGT"), n)) for n in lengths]
+        covs = built[0].sequence_coverage_batch(seqs)
+        assert seen == shapes
+        assert [c.size for c in covs] == [max(n - 22, 0) for n in lengths]
+
     @pytest.mark.parametrize("fn", ["debruijn_next", "debruijn_prev"])
     @pytest.mark.parametrize("cutoff", [0, 1])
     def test_debruijn(self, built, kmers, fn, cutoff):

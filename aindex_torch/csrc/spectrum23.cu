@@ -14,14 +14,13 @@
 // 6 x 2 x 32 MB plus the scans' flags. Design, all plain kernels on one
 // stream:
 //   1. one thread per window writes its canonical key and a valid flag;
-//   2. an exclusive scan of the flags (three-kernel tile scan) gives each
-//      valid key its place, and a compaction keeps only valid keys, in
-//      window order;
-//   3. each radix pass: one warp per tile of 1024 keys counts its digits in
-//      shared memory; a scan of the digit-major [256, tiles] histogram gives
-//      every (digit, tile) its output base; the warp then re-reads its tile
-//      in order and ranks equal digits with __match_any_sync, which keeps
-//      the pass stable;
+//   2. an exclusive scan of the flags (csrc/scan.cuh) gives each valid key
+//      its place, and a compaction keeps only valid keys, in window order;
+//   3. each radix pass (csrc/radix.cuh): one warp per tile of 1024 keys
+//      counts its digits in shared memory; a scan of the digit-major
+//      [256, tiles] histogram gives every (digit, tile) its output base; the
+//      warp then re-reads its tile in order and ranks equal digits with
+//      __match_any_sync, which keeps the pass stable;
 //   4. a scan of the "new run" flags of the sorted keys numbers the unique
 //      keys; each run start writes its key and position, and each count is
 //      the distance to the next run start.
@@ -29,111 +28,12 @@
 // (counters[0], counters[1]); every kernel reads them there, so the host
 // never waits inside the chunk.
 #include "dna23.cuh"
+#include "radix.cuh"
+#include "scan.cuh"
 
 namespace {
 
-constexpr int SCAN_BLOCK = 256;
-constexpr int SCAN_ITEMS = 8;
-constexpr int SCAN_TILE = SCAN_BLOCK * SCAN_ITEMS;  // items per scan block
-constexpr int SUMS_BLOCK = 1024;
-constexpr int RADIX = 256;
-constexpr int WARPS = 8;          // warps per block in the radix passes
-constexpr int WARP_TILE = 1024;   // keys per warp tile
 constexpr unsigned long long SENTINEL = ~0ull;
-
-#define SPECTRUM_CHECK()                                  \
-  do {                                                    \
-    const cudaError_t e_ = cudaGetLastError();            \
-    if (e_ != cudaSuccess) return static_cast<int>(e_);   \
-  } while (0)
-
-// Exclusive scan of one int per thread across the block; writes the block's
-// total. blockDim.x is a multiple of 32 and at most 1024.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int ws = lane < n_warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, ws, o);
-      if (lane >= o) ws += y;
-    }
-    if (lane < n_warps) warp_sums[lane] = ws;
-  }
-  __syncthreads();
-  const int before = warp ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[n_warps - 1];
-  __syncthreads();
-  return before + x - v;
-}
-
-__global__ void scan_reduce(const int* __restrict__ data, long long m, int* __restrict__ sums) {
-  const long long base = static_cast<long long>(blockIdx.x) * SCAN_TILE;
-  int s = 0;
-  for (int j = threadIdx.x; j < SCAN_TILE; j += SCAN_BLOCK) {
-    const long long i = base + j;
-    if (i < m) s += data[i];
-  }
-  int total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-__global__ void scan_sums(int* __restrict__ sums, long long n_blocks, int* __restrict__ total) {
-  int carry = 0;
-  for (long long base = 0; base < n_blocks; base += SUMS_BLOCK) {
-    const long long i = base + threadIdx.x;
-    const int v = i < n_blocks ? sums[i] : 0;
-    int chunk_total;
-    const int before = block_exclusive_scan(v, &chunk_total);
-    if (i < n_blocks) sums[i] = carry + before;
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0 && total != nullptr) *total = carry;
-}
-
-__global__ void scan_apply(int* __restrict__ data, long long m, const int* __restrict__ sums) {
-  const long long base = static_cast<long long>(blockIdx.x) * SCAN_TILE +
-                         static_cast<long long>(threadIdx.x) * SCAN_ITEMS;
-  int v[SCAN_ITEMS];
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    v[j] = base + j < m ? data[base + j] : 0;
-    s += v[j];
-  }
-  int total;
-  int run = block_exclusive_scan(s, &total) + sums[blockIdx.x];
-#pragma unroll
-  for (int j = 0; j < SCAN_ITEMS; ++j) {
-    if (base + j < m) data[base + j] = run;
-    run += v[j];
-  }
-}
-
-// In-place exclusive scan of data[0, m); the sum of all m items goes to
-// *total when it is not null. sums holds ceil(m / SCAN_TILE) ints.
-int scan_exclusive(int* data, long long m, int* sums, int* total, cudaStream_t s) {
-  const long long n_blocks = (m + SCAN_TILE - 1) / SCAN_TILE;
-  scan_reduce<<<static_cast<unsigned>(n_blocks), SCAN_BLOCK, 0, s>>>(data, m, sums);
-  SPECTRUM_CHECK();
-  scan_sums<<<1, SUMS_BLOCK, 0, s>>>(sums, n_blocks, total);
-  SPECTRUM_CHECK();
-  scan_apply<<<static_cast<unsigned>(n_blocks), SCAN_BLOCK, 0, s>>>(data, m, sums);
-  SPECTRUM_CHECK();
-  return 0;
-}
 
 __global__ void windows_kernel(const unsigned* __restrict__ packed,
                                const unsigned char* __restrict__ vbits, long long n_words, int k,
@@ -160,68 +60,6 @@ __global__ void keys_kernel(const unsigned long long* __restrict__ in, long long
     flags[p] = key != SENTINEL ? 1 : 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[n] = 0;
-}
-
-// idx: the exclusive scan of the valid flags, with idx[n] the total.
-__global__ void compact_kernel(const unsigned long long* __restrict__ in,
-                               const int* __restrict__ idx, long long n,
-                               unsigned long long* __restrict__ out) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < n;
-       p += step) {
-    const int at = idx[p];
-    if (idx[p + 1] != at) out[at] = in[p];
-  }
-}
-
-__global__ void radix_hist(const unsigned long long* __restrict__ keys,
-                           const int* __restrict__ n_ptr, int shift, long long n_tiles,
-                           int* __restrict__ hist) {
-  __shared__ int cnt[WARPS][RADIX];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long t = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (t >= n_tiles) return;
-  for (int d = lane; d < RADIX; d += 32) cnt[warp][d] = 0;
-  __syncwarp();
-  const long long n = *n_ptr;
-  const long long base = t * WARP_TILE;
-  const long long end = base + WARP_TILE < n ? base + WARP_TILE : n;
-  for (long long i = base + lane; i < end; i += 32)
-    atomicAdd(&cnt[warp][static_cast<int>((keys[i] >> shift) & (RADIX - 1))], 1);
-  __syncwarp();
-  for (int d = lane; d < RADIX; d += 32) hist[static_cast<long long>(d) * n_tiles + t] = cnt[warp][d];
-}
-
-// hist: the exclusive scan of radix_hist's counts, i.e. each (digit, tile)'s
-// first output position. Stable: keys of one digit keep their order.
-__global__ void radix_scatter(const unsigned long long* __restrict__ in,
-                              const int* __restrict__ n_ptr, int shift, long long n_tiles,
-                              const int* __restrict__ hist,
-                              unsigned long long* __restrict__ out) {
-  __shared__ int next[WARPS][RADIX];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long t = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (t >= n_tiles) return;
-  const long long n = *n_ptr;
-  const long long base = t * WARP_TILE;
-  if (base >= n) return;
-  for (int d = lane; d < RADIX; d += 32) next[warp][d] = hist[static_cast<long long>(d) * n_tiles + t];
-  __syncwarp();
-  const unsigned lower = (1u << lane) - 1u;
-  for (int j = 0; j < WARP_TILE && base + j < n; j += 32) {
-    const long long i = base + j + lane;
-    const bool ok = i < n;
-    const unsigned long long key = ok ? in[i] : 0ull;
-    // lanes past the end get a digit no real key has, so they match nobody
-    const int d = ok ? static_cast<int>((key >> shift) & (RADIX - 1)) : RADIX + lane;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (ok) out[next[warp][d] + __popc(peers & lower)] = key;
-    __syncwarp();
-    if (ok && lane == __ffs(peers) - 1) next[warp][d] += __popc(peers);
-    __syncwarp();
-  }
 }
 
 __global__ void run_flags(const unsigned long long* __restrict__ s, const int* __restrict__ n_ptr,
@@ -309,33 +147,21 @@ extern "C" int spectrum23(const void* packed, const void* vbits, long long n_wor
   else
     keys_kernel<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const unsigned long long*>(keys_in),
                                              cap, kb, ix);
-  SPECTRUM_CHECK();
-  if (int e = scan_exclusive(ix, cap + 1, sm, cn, s)) return e;
-  compact_kernel<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, cap, ka);
-  SPECTRUM_CHECK();
+  KERNEL_CHECK();
+  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn, s)) return e;
+  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, cap, ka);
+  KERNEL_CHECK();
 
-  const long long n_tiles = (cap + WARP_TILE - 1) / WARP_TILE;
-  const unsigned radix_grid = static_cast<unsigned>((n_tiles + WARPS - 1) / WARPS);
-  unsigned long long* cur = ka;
-  unsigned long long* alt = kb;
-  for (int shift = 0; shift < bits; shift += 8) {
-    radix_hist<<<radix_grid, WARPS * 32, 0, s>>>(cur, cn, shift, n_tiles, hs);
-    SPECTRUM_CHECK();
-    if (int e = scan_exclusive(hs, RADIX * n_tiles, sm, nullptr, s)) return e;
-    radix_scatter<<<radix_grid, WARPS * 32, 0, s>>>(cur, cn, shift, n_tiles, hs, alt);
-    SPECTRUM_CHECK();
-    unsigned long long* t = cur;
-    cur = alt;
-    alt = t;
-  }
+  unsigned long long* cur = nullptr;
+  if (int e = radix::sort(ka, kb, cn, cap, 0, bits, hs, sm, s, &cur)) return e;
 
   run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, cap, ix);
-  SPECTRUM_CHECK();
-  if (int e = scan_exclusive(ix, cap + 1, sm, cn + 1, s)) return e;
+  KERNEL_CHECK();
+  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn + 1, s)) return e;
   run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, static_cast<int*>(start));
-  SPECTRUM_CHECK();
+  KERNEL_CHECK();
   run_count<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const int*>(start), cn, cap, ko,
                                           static_cast<unsigned*>(counts_out));
-  SPECTRUM_CHECK();
+  KERNEL_CHECK();
   return 0;
 }

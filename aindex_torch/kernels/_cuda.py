@@ -1,7 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each ``aindex_torch/csrc/*.cu`` source (with the headers it includes,
-``dna13.cuh`` and ``dna23.cuh``) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
+Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
+includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with ctypes. Nothing is built or loaded when
 this module is imported: the first launch builds every kernel, one ``nvcc``
 per source, all started together. Libraries are named by a hash of their
@@ -126,6 +126,16 @@ KERNELS: dict[str, Kernel] = {
                [_P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL, _P, _P, _LL, _LL, _LL, _I,
                 ctypes.c_uint, _P, _P],
                "aindex_tpu/index/quotcuckoo.py:353"),
+        # tf, n, offsets, sums, stream
+        Kernel("csr_offsets", "csr.cu", [_P, _LL, _P, _P, _P],
+               "aindex_tpu/index/positional.py:39"),
+        # packed, vbits, n_words, k, off, half0, half1, slot0, slot1, m, lb, w,
+        # m1a, m1b, m2a, m2b, n_slots, slot_bits, idx_bits, offsets, cursor,
+        # positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
+        Kernel("posfill", "posfill.cu",
+               [_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL,
+                _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
+               "aindex_tpu/index/positional.py:47"),
     )
 }
 

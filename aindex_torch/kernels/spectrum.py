@@ -30,13 +30,22 @@ SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 #: SENTINEL's bits as an int64
 SENTINEL_I64 = -1
 
-#: shapes of the kernel's scratch (csrc/spectrum23.cu)
-_RADIX = 256
-_WARP_TILE = 1024
-_SCAN_TILE = 2048
-_INT32_LIMIT = (1 << 31) - 1
+#: shapes of the scratch of the sort and the scans (csrc/radix.cuh,
+#: csrc/scan.cuh), which K5 and K9 share
+RADIX = 256
+WARP_TILE = 1024
+SCAN_TILE = 2048
+#: the kernels index keys with int32
+INT32_LIMIT = (1 << 31) - 1
 
 _I64_MIN = -(1 << 63)
+
+
+def sort_scratch(cap: int) -> tuple[int, int]:
+    """int32 lengths (hist, sums) of the radix sort's scratch for up to
+    ``cap`` keys, ``sums`` also serving the scans of ``cap + 1`` flags."""
+    n_hist = RADIX * -(-cap // WARP_TILE)
+    return n_hist, -(-max(cap + 1, n_hist) // SCAN_TILE)
 
 
 def _flip(keys: torch.Tensor) -> torch.Tensor:
@@ -84,7 +93,7 @@ def _check(packed, vbits, k, keys) -> int:
         cap = keys.numel()
         if cap == 0:
             raise ValueError("empty key array")
-    if cap >= _INT32_LIMIT:
+    if cap >= INT32_LIMIT:
         raise ValueError(f"{cap} windows exceed the kernel's int32 positions")
     return cap
 
@@ -107,8 +116,7 @@ def spectrum23(packed: torch.Tensor | None = None, vbits: torch.Tensor | None = 
     if not _cuda.on_cuda(*tensors):
         return spectrum23_plain(packed, vbits, k, keys)
     dev = tensors[0].device
-    n_tiles = -(-cap // _WARP_TILE)
-    n_sums = -(-max(cap + 1, _RADIX * n_tiles) // _SCAN_TILE)
+    n_hist, n_sums = sort_scratch(cap)
 
     def ints(n):
         return torch.empty(n, dtype=torch.int32, device=dev)
@@ -118,7 +126,7 @@ def spectrum23(packed: torch.Tensor | None = None, vbits: torch.Tensor | None = 
     counters = ints(2)
     scratch = (torch.empty(cap, dtype=torch.int64, device=dev),
                torch.empty(cap, dtype=torch.int64, device=dev),
-               ints(cap + 1), ints(cap), ints(_RADIX * n_tiles), ints(n_sums))
+               ints(cap + 1), ints(cap), ints(n_hist), ints(n_sums))
     with torch.cuda.device(dev):
         KERNEL.launch(
             None if packed is None else packed.data_ptr(),

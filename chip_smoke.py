@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of aindex_torch's two main paths on one CUDA card: the dense
-13-mer index and the sparse canonical 23-mer index.
+"""Smoke run of aindex_torch's main paths on one CUDA card: the dense
+13-mer index, the sparse canonical 23-mer index and the positional index
+built by the compute-aindex pipeline.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the seven CUDA kernels from aindex_torch/csrc.
+   builds the nine CUDA kernels from aindex_torch/csrc.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
    (all outputs are integers), and times both with CUDA events.
@@ -28,16 +29,25 @@ Run from the repository root, with no arguments:
    windows of the read matrix + np.unique).
 7. Holds K6 (quotient cuckoo queries, every mode) and K7 (coverage) against
    their plain versions on the index built in step 6.
-8. Prints the kernels line (launch counts of steps 4 and 6, each path run
-   with the counts set to 0 just before it), the card line and the result
-   line.
+8. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
+   and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
+   positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
+   from a nonzero cursor, beside ``torch.sort(stable=True)`` of its keys.
+9. Drives the positional path: ``pipeline.build_all`` on the corpus FASTA
+   for k = 13 and k = 23 under the profiler (stage seconds, MB/s of bases,
+   the device's idle share of the fill), then checks the artifacts against
+   the numpy oracle: offsets, every position, ``positions_by_slots`` on
+   2^16 slots and ``rid_by_pos``. Fails unless K9's launches there ran at
+   the chunk shape step 8 checks.
+10. Prints the kernels line (launch counts of steps 4, 6 and 9, each path
+   run with the counts set to 0 just before it), the card line and the
+   result line.
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
 """
 
-from __future__ import annotations
-
+import itertools
 import json
 import os
 import subprocess
@@ -67,6 +77,7 @@ N_DB = 1 << 16             # De Bruijn batch
 
 DENSE_KERNELS = ("count13_packed", "total13", "gather13", "coverage13_packed")
 SPARSE_KERNELS = ("spectrum23", "quot23", "quotcov23")
+POSITIONAL_KERNELS = ("csr_offsets", "posfill")
 
 
 # -- corpus and oracles (numpy only, independent of aindex_torch) ------------
@@ -258,6 +269,18 @@ def report(card, name, shape, rec):
           f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
 
 
+def distinct_probed_rows(t, keys) -> int:
+    """Distinct rows of the quotient table ``t`` that the probes of the
+    canonical ``keys`` read (the second half only for first-half misses)."""
+    import torch
+    from aindex_torch.kernels.quot import bij
+    h1 = bij(keys, *t.mults[:2], t.w)
+    r1 = h1 & (t.m - 1)
+    miss = t.half0[r1][:, 0].to(torch.int64) != (h1 >> t.lb)
+    r2 = bij(keys[miss], *t.mults[2:], t.w) & (t.m - 1)
+    return int(torch.unique(r1).numel()) + int(torch.unique(r2).numel())
+
+
 def upload(dev, packed, vbits):
     import torch
     return (torch.from_numpy(packed.reshape(-1).view(np.int32)).to(dev),
@@ -404,14 +427,11 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
 # -- phase 4: the dense path end to end ----------------------------------------
 
 def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
-               fasta: str) -> None:
+               fasta: str, table: np.ndarray) -> None:
     import torch
     from aindex_torch import Dense13Index
     from aindex_torch.io.fastq import iter_sequence_bytes
 
-    t0 = time.perf_counter()
-    table = oracle_table(reads)
-    print(f"dense oracle table {time.perf_counter() - t0:.1f} s")
     n_bases = reads.size
 
     # count, as `aindex-tpu count -k 13` does
@@ -736,17 +756,9 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.core import codec
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
                                              packed_window_codes, window_codes)
-    from aindex_torch.kernels.quot import bij, quot23, quot23_plain, quotcov23, quotcov23_plain
+    from aindex_torch.kernels.quot import quot23, quot23_plain, quotcov23, quotcov23_plain
 
     t = index.tables
-
-    def probed_rows(keys) -> int:
-        """Distinct table rows the canonical keys' probes read."""
-        h1 = bij(keys, *t.mults[:2], t.w)
-        r1 = h1 & (t.m - 1)
-        miss = t.half0[r1][:, 0].to(torch.int64) != (h1 >> t.lb)
-        r2 = bij(keys[miss], *t.mults[2:], t.w) & (t.m - 1)
-        return int(torch.unique(r1).numel()) + int(torch.unique(r2).numel())
 
     gen = torch.Generator(device=dev).manual_seed(31)
     n_codes = N_CODES
@@ -765,7 +777,8 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     rows = torch.from_numpy(rows_np).to(dev)
     canon = canonical_code64(codes, K23)
     # rows the probes read: a masked-off code reads none
-    n_probe = {False: probed_rows(canon), True: probed_rows(canon[valid])}
+    n_probe = {False: distinct_probed_rows(t, canon),
+               True: distinct_probed_rows(t, canon[valid])}
     del canon
     res = {}
     k6 = []
@@ -789,8 +802,8 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         report(card, "quot23", f"{tag}, {n_codes} codes (half present)", rec)
         k6.append((tag, rec))
     row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K23)
-    ascii_probe = probed_rows(canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)],
-                                               K23))
+    ascii_probe = distinct_probed_rows(
+        t, canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)], K23))
     for tag, kw, n_out in (("ascii, tf", {}, 4),
                            ("ascii, tf+slot+strand", {"slot": True, "strand": True}, 12)):
         got = quot23(t, ascii=rows, k=K23, **kw)
@@ -815,7 +828,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     n_rows = len(members)
     packed, vbits = upload(dev, packed, vbits)
     wcodes, wvalid = packed_window_codes(packed, vbits, K23)
-    n_probe = probed_rows(canonical_code64(wcodes[wvalid], K23))
+    n_probe = distinct_probed_rows(t, canonical_code64(wcodes[wvalid], K23))
     k7 = []
     for cutoff in (0, 10):
         args = (t, packed, vbits, n_rows, stride, K23, cutoff)
@@ -828,6 +841,316 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         k7.append(rec)
     res["quotcov23"] = {**k7[0], "max_abs_err": max(r["max_abs_err"] for r in k7)}
     return res
+
+
+# -- phase 8: K8 and K9 against their plain versions ---------------------------
+
+def corpus_blob(reads: np.ndarray) -> np.ndarray:
+    """The .reads blob the pipeline writes for the corpus FASTA: each read
+    and a newline, so read i starts at 151 i."""
+    return np.hstack([reads, np.full((len(reads), 1), ord("\n"), np.uint8)]).ravel()
+
+
+def positional_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, index) -> dict:
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.kernels.encode import canonical_code64, packed_window_codes
+    from aindex_torch.kernels.positional import (chunk_slots_plain, csr_offsets,
+                                                 csr_offsets_plain, fill_scratch, posfill,
+                                                 scatter_chunk_plain)
+
+    res = {}
+    # K8 over the path's two tables: the 4^13 dense counts and the sparse
+    # index's per-slot tf
+    k8 = []
+    for tag, host in (("dense 4^13", table), (f"sparse n={index.n}", index.tf_host)):
+        tf = torch.from_numpy(host.view(np.int32)).to(dev).view(torch.uint32)
+        err = max_abs_err(csr_offsets(tf), csr_offsets_plain(tf))
+        ms = cuda_ms(lambda: csr_offsets(tf), 20)
+        pms = cuda_ms(lambda: csr_offsets_plain(tf), 5)
+        # one call of the library's scan on the same counts (all < 2^31 here)
+        lib = cuda_ms(lambda: torch.cumsum(tf.view(torch.int32), 0, dtype=torch.int64), 20)
+        rec = record(err, ms, pms, 4 * tf.numel() + 8 * (tf.numel() + 1), lib)
+        report(card, "csr_offsets", tag, rec)
+        k8.append(rec)
+        del tf
+    res["csr_offsets"] = {**k8[0], "max_abs_err": max(r["max_abs_err"] for r in k8)}
+
+    # K9 on the second 2^22-byte chunk of the corpus blob (a nonzero blob
+    # offset), each kind, from a nonzero cursor; the offsets leave each slot
+    # room for the cursor and the chunk's windows, so no two writes meet
+    blob = corpus_blob(reads)
+    k9 = []
+    for tag, k, tables in (("dense k=13", K, None), ("sparse k=23", K23, index.tables)):
+        piece, off = list(itertools.islice(blob_chunks(blob, k, CHUNK_BYTES), 2))[1]
+        packed, vbits = upload(dev, *codec.pack_ascii_chunk(piece))
+        n_slots = SPACE if tables is None else index.n
+        slots, valid = chunk_slots_plain(packed, vbits, k, tables)
+        live = slots[valid]
+        n_valid, n_distinct = live.numel(), int(torch.unique(live).numel())
+        gen = torch.Generator(device=dev).manual_seed(43)
+        cursor = torch.randint(0, 4, (n_slots,), dtype=torch.int32, device=dev, generator=gen)
+        tf = torch.bincount(live, minlength=n_slots).to(torch.int32) + cursor
+        offsets = csr_offsets_plain(tf)
+        total = int(offsets[-1])
+        got = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+        ref = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+        scratch = fill_scratch(16 * packed.numel() - k + 1, dev)
+        posfill(*got, offsets[:-1], packed, vbits, k, off, tables, scratch)
+        scatter_chunk_plain(*ref, offsets[:-1], slots,
+                            torch.arange(slots.numel(), device=dev) + off, valid)
+        err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+        check(int((got[0] > 0).sum()) == n_valid, f"K9 {tag} wrote every valid window")
+        # timed on copies: the cursor runs on from call to call, the work
+        # per call stays the chunk's
+        work = (got[0].clone(), got[1].clone())
+        ms = cuda_ms(lambda: posfill(*work, offsets[:-1], packed, vbits, k, off, tables,
+                                     scratch), 20)
+
+        def plain():
+            s, v = chunk_slots_plain(packed, vbits, k, tables)
+            scatter_chunk_plain(*work, offsets[:-1], s,
+                                torch.arange(s.numel(), device=dev) + off, v)
+        pms = cuda_ms(plain, 3)
+        idx_bits = max(1, (16 * packed.numel() - k).bit_length())
+        keys = (live << idx_bits) | torch.nonzero(valid).reshape(-1)
+        lib = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
+        # the chunk in; a position out per valid window; per distinct slot
+        # its offset read and its cursor read and written (and, sparse, its
+        # slot-column entry and the table rows the probes read)
+        n_bytes = packed.numel() * 4 + vbits.numel() + 8 * n_valid + 16 * n_distinct
+        if tables is not None:
+            codes, wvalid = packed_window_codes(packed, vbits, k)
+            n_bytes += 4 * n_distinct + 8 * distinct_probed_rows(
+                tables, canonical_code64(codes[wvalid], k))
+        rec = record(err, ms, pms, n_bytes, lib)
+        report(card, "posfill", f"{tag}, corpus chunk 2^22 B at {off}, {n_valid} valid "
+               f"windows, {n_distinct} slots", rec)
+        k9.append(rec)
+        del got, ref, work, scratch, cursor, tf, offsets
+    res["posfill"] = {**k9[0], "max_abs_err": max(r["max_abs_err"] for r in k9)}
+    return res
+
+
+# -- phase 9: the positional path end to end -----------------------------------
+
+def profile_ranges(prof) -> tuple[dict, list]:
+    """(record_function name -> (start, end) us of its first range, sorted
+    device intervals in us) of a torch.profiler trace."""
+    import torch
+    ranges, device = {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device.append(e)
+        elif e.name not in ranges:
+            ranges[e.name] = (e.time_range.start, e.time_range.end)
+    # a record_function range also shows on the device timeline, under its
+    # own name, spanning its kernels: not device work of its own
+    spans = [(e.time_range.start, e.time_range.end) for e in device if e.name not in ranges]
+    return ranges, sorted(spans)
+
+
+def busy_in(spans, start: float, end: float) -> float:
+    """us of the union of device intervals clipped to [start, end]."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        s, e = max(s, start), min(e, end)
+        if e <= s:
+            continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def oracle_dense_positions(reads: np.ndarray) -> np.ndarray:
+    """1-based blob positions of every valid 13-mer window, grouped by code
+    ascending and by position ascending within a code: the stable argsort
+    of the codes in blob order, as one sort of (code << 27 | position)."""
+    parts = []
+    stride = READ_LEN + 1
+    for i in range(0, len(reads), 1 << 16):
+        code, ok = oracle_codes(reads[i:i + (1 << 16)])
+        pos = (np.arange(i, i + len(code), dtype=np.uint64)[:, None] * np.uint64(stride)
+               + np.arange(code.shape[1], dtype=np.uint64)[None, :])
+        parts.append((code.astype(np.uint64)[ok] << np.uint64(27)) | pos[ok])
+    check(len(reads) * stride < 1 << 27, "blob positions fit in 27 bits")
+    keys = np.concatenate(parts)
+    keys.sort()
+    return (keys & np.uint64((1 << 27) - 1)) + np.uint64(1)
+
+
+def oracle_canon(reads: np.ndarray):
+    """(canonical 23-mer code, valid) of every window, [n_reads, 128]."""
+    n_win = READ_LEN - K23 + 1
+    canon = np.empty((len(reads), n_win), np.uint64)
+    ok = np.empty((len(reads), n_win), bool)
+    for i in range(0, len(reads), 1 << 16):
+        fwd, rc, v = oracle_windows23(reads[i:i + (1 << 16)])
+        canon[i:i + len(v)] = np.minimum(fwd, rc)
+        ok[i:i + len(v)] = v
+    return canon, ok
+
+
+def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
+                    table: np.ndarray, oracle) -> dict[str, int]:
+    """build_all on the corpus FASTA for k = 13 and k = 23 under the
+    profiler, each against the numpy oracle; returns the K8 and K9 launch
+    counts of the two runs."""
+    import torch
+    from torch import profiler
+    from aindex_torch import PositionalIndex, Sparse23Index
+    from aindex_torch.core.reads import ReadsStore
+    from aindex_torch.index import positional as tpos
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.pipeline.build import BuildConfig, build_all
+
+    keys, counts = oracle
+    n_bases = reads.size
+    stride = READ_LEN + 1
+    launched = {name: 0 for name in POSITIONAL_KERNELS}
+    # the (n_words, kind) of every K9 call of the path, checked against
+    # the chunk positional_vs_plain checks
+    k9_shapes = set()
+    real_posfill = tpos.posfill
+
+    def posfill_seen(positions, cursor, offsets, packed, vbits, k, off, tables=None,
+                     scratch=None):
+        k9_shapes.add((packed.numel(), "dense" if tables is None else "sparse"))
+        return real_posfill(positions, cursor, offsets, packed, vbits, k, off, tables, scratch)
+
+    tpos.posfill = posfill_seen
+    try:
+        for k in (K, K23):
+            prefix = os.path.join(tmp, f"ecoli_25x.p{k}")
+            cfg = BuildConfig(prefix=prefix, k=k, chunk=CHUNK_BYTES, device=str(dev))
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            acts = [profiler.ProfilerActivity.CPU, profiler.ProfilerActivity.CUDA]
+            with profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                build_all([fasta], cfg)
+                t_all = time.perf_counter() - t0
+            runs = _cuda.launches()
+            for name in launched:
+                launched[name] += runs[name]
+            ranges, spans = profile_ranges(prof)
+
+            def sec(name):
+                s, e = ranges[name]
+                return (e - s) / 1e6
+            stages = {name: sec(name) for name in (
+                "build_all.reads", "build_all.count", "build_all.positional",
+                "positional.tables", "positional.offsets", "positional.fill",
+                "positional.copy", "positional.save") if name in ranges}
+            t_pos = stages["build_all.positional"]
+            print(f"positional build_all k={k}: {t_all:.3f} s in all (torch.profiler on); "
+                  + ", ".join(f"{n} {v:.3f} s" for n, v in stages.items()) + f"; positional "
+                  f"stage {n_bases / t_pos / 1e6:.2f} MB/s of bases; launches "
+                  f"{ {n: c for n, c in runs.items() if c} } ({card})")
+            fs, fe = ranges["positional.fill"]
+            busy = busy_in(spans, fs, fe)
+            if spans:
+                print(f"positional fill k={k}: device busy {busy / 1e3:.3f} ms of "
+                      f"{(fe - fs) / 1e3:.3f} ms, idle share {1 - busy / (fe - fs):.4f} "
+                      f"(torch.profiler, profiler on) ({card})")
+            else:
+                print(f"positional fill k={k} device idle share: not measured (the "
+                      "profiler saw no device events)")
+            check(runs["posfill"] == -(-(len(reads) * stride - (k - 1)) // (CHUNK_BYTES - k + 1))
+                  and runs["csr_offsets"] == 1, f"K8/K9 launches {runs}")
+
+            t0 = time.perf_counter()
+            store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx")
+            check(np.array_equal(store.blob, corpus_blob(reads))
+                  and np.array_equal(store.starts, np.arange(len(reads)) * stride),
+                  "the .reads blob holds the corpus reads, one a line")
+            pos = PositionalIndex.load(prefix + ".index.bin", prefix + ".indices.bin")
+            rng = np.random.default_rng(47 + k)
+            if k == K:
+                n_slots = SPACE
+                want_off = np.zeros(SPACE + 1, np.uint64)
+                np.cumsum(table, out=want_off[1:], dtype=np.uint64)
+                check(np.array_equal(pos.offsets, want_off), "dense offsets == cumsum(table)")
+                want_pos = oracle_dense_positions(reads)
+                check(pos.total == want_pos.size and np.array_equal(pos.positions, want_pos),
+                      "dense positions == stable argsort of the oracle codes + 1")
+
+                def want_lists(slots):
+                    return [want_pos[int(want_off[s]):int(want_off[s + 1])] - np.uint64(1)
+                            for s in slots]
+            else:
+                index = Sparse23Index.load(prefix, K23, device="cpu")
+                n_slots = index.n
+                order = np.argsort(index.checker_host)
+                check(np.array_equal(index.checker_host[order], keys)
+                      and np.array_equal(index.tf_host[order], counts.astype(np.uint32)),
+                      "sparse index == oracle spectrum")
+                tf = pos.offsets[1:].astype(np.int64) - pos.offsets[:-1].astype(np.int64)
+                check(pos.offsets[0] == 0 and np.array_equal(tf, index.tf_host.astype(np.int64)),
+                      "sparse offset differences == tf_host")
+                canon, ok = oracle_canon(reads)
+                check(pos.total == int(ok.sum()), f"total {pos.total} == present windows")
+                slot_of = np.repeat(np.arange(n_slots, dtype=np.int32), tf)
+                p0 = pos.positions.astype(np.int64) - 1
+                row, col = p0 // stride, p0 % stride
+                good = (p0 >= 0) & (col < canon.shape[1])
+                col = np.minimum(col, canon.shape[1] - 1)
+                check(bool(good.all()) and bool(ok[row, col].all())
+                      and np.array_equal(canon[row, col], index.checker_host[slot_of]),
+                      "every listed window holds its slot's canonical k-mer")
+                new_slot = np.zeros(pos.total, bool)
+                new_slot[pos.offsets[:-1][tf > 0].astype(np.int64)] = True
+                check(bool(((np.diff(p0) > 0) | new_slot[1:]).all()),
+                      "positions strictly ascend within each slot")
+                del slot_of, row, col, good, new_slot, p0
+
+                def want_lists(slots):
+                    # the oracle's windows of the asked slots' k-mers
+                    u = np.unique(index.checker_host[slots])
+                    flat = canon.reshape(-1)
+                    at = np.minimum(np.searchsorted(u, flat), u.size - 1)
+                    hit = np.flatnonzero((u[at] == flat) & ok.reshape(-1))
+                    w = canon.shape[1]
+                    p = (hit // w) * stride + hit % w
+                    o = np.lexsort((p, at[hit]))
+                    grp, p = at[hit][o], p[o].astype(np.uint64)
+                    bounds = np.searchsorted(grp, np.arange(u.size + 1))
+                    slot_u = np.searchsorted(u, index.checker_host[slots])
+                    return [p[bounds[j]:bounds[j + 1]] for j in slot_u]
+            slots = rng.integers(0, n_slots, size=1 << 16)
+            flat, lens = pos.positions_by_slots(slots)
+            want = want_lists(slots)
+            check(np.array_equal(lens, [len(w) for w in want])
+                  and np.array_equal(flat, np.concatenate(want)),
+                  "positions_by_slots on 2^16 slots == oracle")
+            rid = store.rid_by_pos(flat.astype(np.int64))
+            check(np.array_equal(rid, flat.astype(np.int64) // stride)
+                  and bool((store.starts[rid] <= flat.astype(np.int64)).all())
+                  and bool((flat.astype(np.int64) < store.ends[rid]).all()),
+                  "rid_by_pos resolves every position to its read")
+            print(f"positional k={k}: {pos.total} positions over {pos.n_slots} slots (max tf "
+                  f"{pos.max_tf}), == oracle; positions_by_slots on 2^16 slots -> "
+                  f"{flat.size} positions, rid_by_pos resolved ({time.perf_counter() - t0:.1f} s)")
+            del pos, store
+            for sfx in (".reads", ".ridx", ".header", ".tf.bin", ".pf", ".kmers.bin",
+                        ".index.bin", ".indices.bin"):
+                if os.path.exists(prefix + sfx):
+                    os.remove(prefix + sfx)
+            torch.cuda.empty_cache()
+    finally:
+        tpos.posfill = real_posfill
+    want_words = CHUNK_BYTES // 16
+    check(k9_shapes == {(want_words, "dense"), (want_words, "sparse")},
+          f"K9 ran at (words, kind) {sorted(k9_shapes)}, the chunk its check uses")
+    print(f"positional path: K9 launched at (words, kind) {sorted(k9_shapes)}")
+    return launched
 
 
 def main() -> int:
@@ -866,8 +1189,11 @@ def main() -> int:
               f"{os.path.getsize(fasta) / 1e6:.1f} MB FASTA ({time.perf_counter() - t0:.1f} s)")
 
         t0 = time.perf_counter()
+        table = oracle_table(reads)
+        print(f"dense oracle table {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         _cuda.reset_launches()
-        dense_path(dev, card, tmp, genome, reads, fasta)
+        dense_path(dev, card, tmp, genome, reads, fasta, table)
         dense_counts = _cuda.launches()
         print(f"phase dense path: {time.perf_counter() - t0:.1f} s")
         counts.update({name: dense_counts[name] for name in DENSE_KERNELS})
@@ -891,6 +1217,16 @@ def main() -> int:
         t0 = time.perf_counter()
         measured.update(quot_vs_plain(dev, card, index, reads))
         print(f"phase quot kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        measured.update(positional_vs_plain(dev, card, reads, table, index))
+        print(f"phase positional kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+        del index
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        counts.update(positional_path(dev, card, tmp, reads, fasta, table, oracle))
+        print(f"phase positional path: {time.perf_counter() - t0:.1f} s")
     for name in _cuda.KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on its main path")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")

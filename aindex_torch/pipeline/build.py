@@ -60,7 +60,6 @@ class BuildConfig:
     build_aindex: bool = True
     keep_dat: bool = False
     chunk: int = 1 << 22
-    lowercase_ok: bool = True
     mesh: object | None = None
     n_devices: int | None = None
     progress: bool = False        # live per-phase progress bars / log lines

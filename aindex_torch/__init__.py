@@ -12,14 +12,18 @@ artifact set from a reads file (``pipeline.build.build_all``, the
 CUDA kernel on a CUDA device and that kernel's plain PyTorch version on the
 CPU. It imports torch and numpy only, never JAX or aindex_tpu, which stays
 the reference it is tested against.
+
+``AIndex`` (api.py) is the user-facing facade over all of them, and
+``aindex-torch`` / ``python -m aindex_torch`` (cli.py) the command line.
 """
 
 __version__ = "0.1.0"
 
+from aindex_torch.api import AIndex  # noqa: E402
 from aindex_torch.core.codec import hamming_distance, revcomp  # noqa: E402
 from aindex_torch.index.dense13 import Dense13Index  # noqa: E402
 from aindex_torch.index.positional import PositionalIndex  # noqa: E402
 from aindex_torch.index.sparse23 import Sparse23Index  # noqa: E402
 
-__all__ = ["Dense13Index", "PositionalIndex", "Sparse23Index", "revcomp", "hamming_distance",
+__all__ = ["AIndex", "Dense13Index", "PositionalIndex", "Sparse23Index", "revcomp", "hamming_distance",
            "__version__"]

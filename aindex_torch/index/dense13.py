@@ -207,18 +207,20 @@ class Dense13Index:
     @classmethod
     def load(cls, tf_path: str, pf_path: str | None = None, *,
              device="cuda") -> "Dense13Index":
-        """Load a dense uint64 x 4^13 table in k-mer code order.
+        """Load a dense uint64 x 4^13 table.
 
-        Reference-built tables are in emphf slot order and need their
-        ``.pf`` to be reordered; that reader is not ported yet, so
-        ``pf_path`` raises ``NotImplementedError``."""
-        if pf_path is not None:
-            raise NotImplementedError(
-                "loading a reference-built table through its emphf .pf is "
-                "not available in aindex_torch yet")
+        Tables of this package and of aindex_tpu are in k-mer code order.
+        Reference-built tables (count_kmers13, reference:
+        src/count_kmers13.cpp:358-388) are in MPHF-slot order; pass the
+        matching emphf ``pf_path`` (the reference's 13-mer ``.pf``) to
+        reorder them on load: 4^13 Jenkins lookups on the host, once
+        (``emphf.dense_slot_permutation`` caches the permutation)."""
         raw = np.fromfile(tf_path, dtype=np.uint64, count=SPACE_13)
         if raw.size != SPACE_13:
             raise ValueError(f"{tf_path}: expected {SPACE_13} uint64 entries, got {raw.size}")
+        if pf_path is not None:
+            from aindex_torch.index.emphf import EmphfPF, unpermute_dense_tf
+            raw = unpermute_dense_tf(raw, EmphfPF.load(pf_path), K13)
         return cls._from_raw_u64(raw, tf_path, device)
 
     @classmethod

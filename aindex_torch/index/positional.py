@@ -38,6 +38,7 @@ from aindex_torch.core.reads import blob_chunks
 from aindex_torch.index.common import packed_chunks, resolve_device
 from aindex_torch.index.sparse23 import Sparse23Index
 from aindex_torch.kernels.positional import csr_offsets, fill_scratch, posfill
+from aindex_torch.kernels.probe import CANON
 
 _NO_MESH = ("the mesh build of the positional index is not ported to aindex_torch "
             "yet (multi-GPU, ROADMAP slice 5)")
@@ -96,8 +97,8 @@ class PositionalIndex:
 
     @classmethod
     def _build_streaming(cls, n_slots: int, tf, chunk_iter, k: int,
-                         tables, device: torch.device, on_progress=None
-                         ) -> "PositionalIndex":
+                         tables, device: torch.device, on_progress=None,
+                         rule: int = CANON) -> "PositionalIndex":
         """Device-streaming CSR fill over ``(ASCII piece, (off, bytes_done))``
         chunks of the blob.
 
@@ -122,7 +123,7 @@ class PositionalIndex:
             for packed, vbits, (off, done) in packed_chunks(chunk_iter, device):
                 if scratch is None and device.type == "cuda":
                     scratch = fill_scratch(16 * packed.numel() - k + 1, device)
-                posfill(positions, cursor, starts, packed, vbits, k, off, tables, scratch)
+                posfill(positions, cursor, starts, packed, vbits, k, off, tables, scratch, rule)
                 if on_progress is not None:
                     on_progress(done)
             del scratch, cursor
@@ -161,18 +162,20 @@ class PositionalIndex:
     def build_sparse23(cls, blob: np.ndarray, index: Sparse23Index,
                        chunk: int = 1 << 22, mesh=None, on_progress=None
                        ) -> "PositionalIndex":
-        """Sparse positional index keyed by the verified canonical slot
-        (reference: src/hash.cpp:960-1060 lu_compressed_worker), built on
-        the index's device. The index's own tf array sizes the CSR; absent
-        and invalid windows are dropped on the device. The quotient cuckoo
-        table the probes read is built first (``index.tables``), in a range
-        of its own, ``positional.tables``."""
+        """Sparse positional index keyed by the verified slot of each
+        window under the index's query rule (reference:
+        src/hash.cpp:960-1060 lu_compressed_worker), built on the index's
+        device, on whichever engine serves its queries (quotient table,
+        wide cuckoo table or MPHF walk). The index's own tf array sizes the
+        CSR; absent and invalid windows are dropped on the device. The
+        engine's tables are built first (``index.tables``), in a range of
+        their own, ``positional.tables``."""
         if mesh is not None:
             raise NotImplementedError(_NO_MESH)
         with record_function("positional.tables"):
             tables = index.tables
         return cls._build_streaming(index.n, index.tf_host, _chunk_iter(blob, index.k, chunk),
-                                    index.k, tables, index.device, on_progress)
+                                    index.k, tables, index.device, on_progress, index.rule)
 
     def reorder(self, old_slot_for_new: np.ndarray) -> "PositionalIndex":
         """CSR with rows permuted: new slot j holds old slot

@@ -20,8 +20,9 @@ int32 columns read through the winning row. On the device each half and
 each slot column is its own tensor (``QuotCuckoo.tables``).
 
 Eligibility: fp must fit 31 bits (0xFFFFFFFF is the empty marker), i.e.
-``lb >= 2k - 31``; the wide cuckoo table that aindex_tpu keeps for
-ineligible ``(n, k)`` is not ported (never needed for k = 23).
+``lb >= 2k - 31``; an ineligible ``(n, k)`` is served by the wide cuckoo
+table (index/cuckoo.py) for k <= 30, else by the MPHF walk
+(index/sparse23.py ``tables``).
 """
 
 from __future__ import annotations

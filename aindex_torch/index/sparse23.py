@@ -1,5 +1,5 @@
-"""Sparse canonical 23-mer index: MPHF + checker + tf, queried through the
-quotient cuckoo table on one device.
+"""Sparse canonical 23-mer index: MPHF + checker + tf, queried on one
+device through one of three engines.
 
 Counterpart of aindex_tpu/index/sparse23.py, the redesign of PHASH_MAP
 (reference: src/hash.hpp:82-353):
@@ -14,9 +14,13 @@ Counterpart of aindex_tpu/index/sparse23.py, the redesign of PHASH_MAP
   -> slot; ``checker`` holds the canonical code of every slot and ``tf``
   its count, both slot-ordered, as the reference's (reference:
   src/hash.hpp:123-140);
-* every query is a verified probe of the quotient cuckoo table
-  (index/quotcuckoo.py) on the device: K6 for k-mers and codes, K7 for
-  coverage.
+* every query is a verified probe on the device, on the engine that
+  aindex_tpu's ``_query`` chooses (aindex_tpu/index/sparse23.py:313-369):
+  the quotient cuckoo table (index/quotcuckoo.py; K6 for k-mers and codes,
+  K7 for coverage) when ``quotcuckoo.eligible(n, k)``, else the wide
+  cuckoo table for k <= 30 (index/cuckoo.py, K10), else the MPHF walk
+  (K11). ``kernels/probe.py`` holds the query and coverage wrappers of
+  all three.
 
 The index lives on one device, named by every constructor: the card
 (``"cuda"``) unless the caller asks for the CPU. On a CUDA device every
@@ -24,11 +28,13 @@ build and query step runs the kernels; on the CPU their plain versions.
 Host arrays (``checker_host``, ``tf_host``) serve persistence, statistics
 and the by-slot lookups.
 
-Only indexes keyed by the true canonical code (built here or by
-aindex_tpu, ATPF ``.pf``) are supported. Reference-built (emphf) indexes,
-with their forward-else-reverse-complement query rule, wait for the emphf
-reader (ROADMAP A.4); the wide cuckoo table and the device MPHF walk,
-needed only for k > 30 or quotient-ineligible (n, k), are ROADMAP queue B.
+Indexes built here or by aindex_tpu (ATPF ``.pf``) are keyed by the true
+canonical code: one probe of min(code, revcomp) answers a query.
+Reference-built indexes (emphf ``.pf``, index/emphf.py) are keyed by
+kmer_counter's own canonical form, which the query cannot predict; they
+take the reference's query rule, the forward code else its reverse
+complement (reference: src/hash.hpp:123-140), and have no MPHF walk, so
+k > 30 raises for them.
 
 Note on lexicographic vs numeric canonical order: ASCII 'A'<'C'<'G'<'T' is
 monotone with the 2-bit encoding, so string-min (reference get_pfid,
@@ -47,14 +53,16 @@ from aindex_torch.core import codec
 from aindex_torch.core.reads import blob_chunks, stream_blob_chunks
 from aindex_torch.index import quotcuckoo
 from aindex_torch.index.common import host_u32, packed_chunks, resolve_device
+from aindex_torch.index.cuckoo import CuckooTable
+from aindex_torch.index.emphf import EmphfMPHFAdapter, EmphfPF
 from aindex_torch.index.mphf import MPHF
-from aindex_torch.kernels.quot import quot23, quotcov23
+from aindex_torch.kernels import probe
+from aindex_torch.kernels.lookup import MphfTables
 from aindex_torch.kernels.spectrum import chunk_spectrum_packed, merge_spectra
 
-_NOT_PORTED_ENGINE = (
-    "no quotient-cuckoo engine for k={k}, n={n}: the wide cuckoo table and the "
-    "device MPHF walk that serve k > 30 and quotient-ineligible (n, k) are not "
-    "ported to aindex_torch yet (ROADMAP queue B)")
+
+def _is_reference_mphf(mphf) -> bool:
+    return isinstance(mphf, EmphfMPHFAdapter)
 
 
 def _spectrum_parts(chunk_iter, k: int, device: torch.device, on_progress=None
@@ -184,16 +192,28 @@ class SharedQueryOps:
 class Sparse23Index(SharedQueryOps):
     """Sparse canonical k-mer index (default k=23) with device queries."""
 
-    def __init__(self, mphf: MPHF, checker: np.ndarray, tf: np.ndarray,
+    def __init__(self, mphf, checker: np.ndarray, tf: np.ndarray,
                  k: int = K23, *, device="cuda"):
-        if not isinstance(mphf, MPHF):
-            raise TypeError(f"expected an ATPF MPHF, got {type(mphf).__name__}")
+        if not isinstance(mphf, (MPHF, EmphfMPHFAdapter)):
+            raise TypeError(f"expected an ATPF or emphf MPHF, got {type(mphf).__name__}")
+        if _is_reference_mphf(mphf) and k > 30:
+            # the cuckoo tables need keys < 2^62 and the emphf MPHF has no
+            # device walk: fail at construction, not at the first query
+            raise ValueError(
+                f"k={k} with a reference emphf MPHF is unsupported: no "
+                f"device query path exists for k > 30")
         self.k = k
-        self.mphf = mphf
+        self.mphf = mphf  # MPHF or emphf.EmphfMPHFAdapter (duck-typed)
         self.checker_host = np.asarray(checker, dtype=np.uint64)
         self.tf_host = np.asarray(tf, dtype=np.uint32)
         self.device = resolve_device(device)
+        # True-canonical keys (built here or by aindex_tpu) take one probe
+        # of the canonical form; reference-built keys the reference's own
+        # query rule (see the module docstring)
+        self.canonical_keys = not _is_reference_mphf(mphf)
         self._quot: quotcuckoo.QuotCuckoo | None = None
+        self._cuckoo: CuckooTable | None = None
+        self._walk: MphfTables | None = None
         #: seconds per build stage, filled by the builders
         self.build_seconds: dict[str, float] = {}
 
@@ -202,21 +222,63 @@ class Sparse23Index(SharedQueryOps):
         return self.mphf.n
 
     @property
-    def quot(self) -> quotcuckoo.QuotCuckoo:
-        """The query engine (index/quotcuckoo.py), built on first use:
-        verified (key -> tf) in two 8-byte row probes plus a slot column
-        for the pfid path."""
-        if self._quot is None:
-            if self.k > 30 or not quotcuckoo.eligible(self.n, self.k):
-                raise NotImplementedError(_NOT_PORTED_ENGINE.format(k=self.k, n=self.n))
+    def rule(self) -> int:
+        """The query rule of this index's keys (``kernels/probe.py``)."""
+        return probe.CANON if self.canonical_keys else probe.FWD_RC
+
+    @property
+    def quot(self) -> quotcuckoo.QuotCuckoo | None:
+        """The preferred engine (index/quotcuckoo.py), built on first use:
+        verified (key -> tf) in two 8-byte row probes plus a slot column;
+        None when the fingerprint-width floor makes the layout wasteful
+        for this (n, k), or k > 30."""
+        if self._quot is None and self.k <= 30 and quotcuckoo.eligible(self.n, self.k):
             self._quot = quotcuckoo.QuotCuckoo.build(
                 self.checker_host, self.tf_host, np.arange(self.n, dtype=np.int32), self.k)
         return self._quot
 
     @property
+    def cuckoo(self) -> CuckooTable | None:
+        """The wide engine (index/cuckoo.py), built on first use: verified
+        (key -> tf, slot) in two 16-byte row probes; None for k > 30."""
+        if self._cuckoo is None and self.k <= 30:
+            self._cuckoo = CuckooTable.build(
+                self.checker_host, self.tf_host, np.arange(self.n, dtype=np.int32))
+        return self._cuckoo
+
+    @property
+    def engine(self) -> str:
+        """Which engine serves the queries: "quot", "cuckoo" or "walk"."""
+        if self.quot is not None:
+            return "quot"
+        return "cuckoo" if self.k <= 30 else "walk"
+
+    @property
     def tables(self):
-        """The quotient cuckoo table on the index's device."""
-        return self.quot.tables(self.device)
+        """The serving engine's tables on the index's device, as
+        aindex_tpu's ``_query`` chooses them: the quotient table when
+        eligible, else the wide cuckoo table (k <= 30), else the MPHF walk
+        over the ATPF MPHF and the checker and tf."""
+        qc = self.quot
+        if qc is not None:
+            return qc.tables(self.device)
+        ck = self.cuckoo
+        if ck is not None:
+            return ck.tables(self.device)
+        if self._walk is None:
+            if not isinstance(self.mphf, MPHF):
+                raise RuntimeError(
+                    f"no device query path for k={self.k}: the cuckoo tables "
+                    "need k <= 30 and the emphf MPHF has no device walk")
+            dev = self.device
+            m = self.mphf
+            self._walk = MphfTables(
+                torch.from_numpy(m.g_packed.view(np.int32)).to(dev, copy=True),
+                torch.from_numpy(np.ascontiguousarray(m.slots, dtype=np.int32)).to(dev, copy=True),
+                torch.from_numpy(self.checker_host.view(np.int64)).to(dev, copy=True),
+                torch.from_numpy(self.tf_host.view(np.int32)).to(dev, copy=True),
+                int(m.n), int(m.domain), int(m.seed))
+        return self._walk
 
     # -- construction --------------------------------------------------
 
@@ -304,6 +366,25 @@ class Sparse23Index(SharedQueryOps):
         self.tf_host.tofile(prefix + SUFFIX_TF)
         self.checker_host.tofile(prefix + SUFFIX_KMERS_BIN)
 
+    def export_reference(self, prefix: str) -> None:
+        """Write a fully reference-compatible artifact set: an emphf-layout
+        .pf (loadable by the reference C++, reference:
+        src/emphf/mphf.hpp:99-113) plus .tf.bin/.kmers.bin permuted into ITS
+        slot order, so reference tooling can consume an index built here."""
+        if _is_reference_mphf(self.mphf):
+            self.save(prefix)  # already in reference slot order and format
+            return
+        keys = self.checker_host
+        adapter = EmphfMPHFAdapter.build(keys, self.k)
+        new_slot = adapter.lookup(keys)  # slot i here -> reference slot
+        tf = np.zeros_like(self.tf_host)
+        checker = np.zeros_like(self.checker_host)
+        tf[new_slot] = self.tf_host
+        checker[new_slot] = keys
+        adapter.save(prefix + SUFFIX_PF)
+        tf.tofile(prefix + SUFFIX_TF)
+        checker.tofile(prefix + SUFFIX_KMERS_BIN)
+
     @classmethod
     def load(cls, prefix: str, k: int = K23, *, device="cuda") -> "Sparse23Index":
         """Load an artifact triple by prefix (see ``load_files``)."""
@@ -315,17 +396,18 @@ class Sparse23Index(SharedQueryOps):
                    k: int = K23, *, device="cuda") -> "Sparse23Index":
         """Load from explicit artifact paths (the reference wrapper's
         ``load(hash, tf, kmers_bin, ...)`` form, reference:
-        src/python_wrapper.cpp:228-245). The .pf must be ATPF; a
-        reference-built (emphf) .pf raises NotImplementedError."""
+        src/python_wrapper.cpp:228-245). The .pf may be either the ATPF
+        format or the reference's emphf layout (auto-detected):
+        reference-built index files load as they are, with the reference's
+        own slot ids."""
         with open(pf_path, "rb") as f:
             magic = f.read(8)
-        if magic != MPHF.MAGIC:
-            if _looks_like_emphf(pf_path):
-                raise NotImplementedError(
-                    f"{pf_path} is a reference-built (emphf) .pf; its reader "
-                    "(index/emphf) is not ported to aindex_torch yet (ROADMAP A.4)")
+        if magic == MPHF.MAGIC:
+            mphf = MPHF.load(pf_path)
+        elif EmphfPF.is_emphf_file(pf_path):
+            mphf = EmphfMPHFAdapter.load(pf_path, k)
+        else:
             raise ValueError(f"{pf_path}: neither ATPF nor emphf .pf format")
-        mphf = MPHF.load(pf_path)
         tf = np.fromfile(tf_path, dtype=np.uint32)
         checker = np.fromfile(kmers_path, dtype=np.uint64)
         if tf.size != mphf.n or checker.size != mphf.n:
@@ -349,10 +431,10 @@ class Sparse23Index(SharedQueryOps):
         return torch.from_numpy(rows).to(self.device)
 
     def _resolve_ascii(self, kmers: list[str]):
-        """(tf uint32, slot int32, strand int32) per k-mer string: K6 on the
-        ASCII rows, canonical rule."""
-        tf, slot, strand = quot23(self.tables, ascii=self._ascii_rows(kmers), k=self.k,
-                                  slot=True, strand=True)
+        """(tf uint32, slot int32, strand int32) per k-mer string: the
+        engine's query kernel on the ASCII rows, under the index's rule."""
+        tf, slot, strand = probe.query(self.tables, ascii=self._ascii_rows(kmers), k=self.k,
+                                       rule=self.rule, slot=True, strand=True)
         return host_u32(tf), slot.cpu().numpy(), strand.cpu().numpy()
 
     def _codes_in(self, codes, valid):
@@ -387,47 +469,56 @@ class Sparse23Index(SharedQueryOps):
     def _ext_tf(self, ext_codes: np.ndarray, cutoff: int) -> np.ndarray:
         flat = torch.from_numpy(np.ascontiguousarray(ext_codes, dtype=np.uint64)
                                 .reshape(-1).view(np.int64)).to(self.device)
-        tf = host_u32(quot23(self.tables, flat, k=self.k)).reshape(ext_codes.shape)
+        tf = host_u32(probe.query(self.tables, flat, k=self.k, rule=self.rule))
+        tf = tf.reshape(ext_codes.shape)
         if cutoff > 0:
             tf = np.where(tf <= cutoff, 0, tf)
         return tf
 
     def _coverage_rows(self, packed: np.ndarray, vbits: np.ndarray, rows: int,
                        stride: int, cutoff: int) -> np.ndarray:
-        """Coverage of packed [rows, stride] rows: K7 computes windows,
-        canonical probes and the cutoff in one launch; returns
-        uint32[rows, stride - k] on the host."""
-        cov = quotcov23(self.tables,
-                        torch.from_numpy(packed.view(np.int32)).to(self.device),
-                        torch.from_numpy(vbits).to(self.device), rows, stride, self.k,
-                        cutoff)
+        """Coverage of packed [rows, stride] rows: the engine's coverage
+        kernel computes windows, the rule's probes and the cutoff in one
+        launch; returns uint32[rows, stride - k] on the host."""
+        cov = probe.coverage(self.tables,
+                             torch.from_numpy(packed.view(np.int32)).to(self.device),
+                             torch.from_numpy(vbits).to(self.device), rows, stride, self.k,
+                             cutoff, self.rule)
         return host_u32(cov)
 
     # -- queries -----------------------------------------------------------
 
     def get_tf_values(self, kmers: list[str]) -> np.ndarray:
         """tf per k-mer, uint32 (get_freq semantics, reference:
-        src/hash.hpp:123-140): verified probe of the canonical form; 0 for
-        absent k-mers and those with a non-ACGT base."""
-        tf = quot23(self.tables, ascii=self._ascii_rows(kmers), k=self.k)
+        src/hash.hpp:123-140): verified probe of the canonical form (or the
+        forward code, else its reverse complement, for reference-keyed
+        indexes); 0 for absent k-mers and those with a non-ACGT base."""
+        tf = probe.query(self.tables, ascii=self._ascii_rows(kmers), k=self.k, rule=self.rule)
         return host_u32(tf)
 
     def get_tf_values_codes(self, codes, valid=None) -> torch.Tensor:
         """Verified tf per pre-encoded 2-bit k-mer code: a ``torch.uint32``
-        tensor shaped like ``codes`` on the index's device, one K6 launch
-        (revcomp + canonical + two 8-byte row probes, no slot column).
-        ``valid=None`` asserts every code is a valid k-mer."""
+        tensor shaped like ``codes`` on the index's device, one launch of
+        the engine's query kernel (on the quotient table: revcomp +
+        canonical + two 8-byte row probes, no slot column). ``valid=None``
+        asserts every code is a valid k-mer."""
         codes, valid, shape = self._codes_in(codes, valid)
-        return quot23(self.tables, codes, valid, k=self.k).reshape(shape)
+        return probe.query(self.tables, codes, valid, k=self.k, rule=self.rule).reshape(shape)
 
     def get_tf_both_directions(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """(fwd tf, rc tf). Both equal the verified canonical tf: the
         reference's per-direction probe applies fwd-else-rc itself
         (get_tf_value_23mer, reference: src/python_wrapper.cpp:610-627), so
         get_tf_both_directions_23mer (:1258-1273) returns (tf, tf) for a
-        present k-mer and (0, 0) otherwise."""
+        present k-mer and (0, 0) otherwise.
+
+        A reference-keyed index may store both strands as distinct keys
+        with different counts; the reference then returns (tf[kmer],
+        tf[revcomp]), so there the second probe is resolved on its own."""
         tf = self.get_tf_values(kmers)
-        return tf, tf.copy()
+        if self.canonical_keys:
+            return tf, tf.copy()
+        return tf, self.get_tf_values([codec.revcomp(km) for km in kmers])
 
     def get_pfids(self, kmers: list[str]) -> np.ndarray:
         """Slot id per k-mer (int64); n (the invalid marker) when absent
@@ -490,22 +581,3 @@ class Sparse23Index(SharedQueryOps):
             "total_count": int(tf.sum(dtype=np.uint64)),
         }
 
-
-def _looks_like_emphf(path: str) -> bool:
-    """The emphf .pf layout check of aindex_tpu's ``EmphfPF.is_emphf_file``:
-    header sanity plus the exact expected file size."""
-    import os
-    try:
-        size = os.path.getsize(path)
-        with open(path, "rb") as f:
-            head = np.fromfile(f, dtype=np.uint64, count=4)
-    except OSError:
-        return False
-    if head.size != 4:
-        return False
-    n, domain, _seed, m_size = (int(x) for x in head)
-    if m_size != 3 * domain or n > m_size or domain == 0:
-        return False
-    n_words = (m_size + 31) // 32
-    n_blocks = (m_size + 511) // 512   # 512 bit pairs per rank block
-    return size == 8 * (4 + n_words + n_blocks)

@@ -2,8 +2,10 @@
 
 Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
 includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
-plain C interface and loaded with ctypes. Nothing is built or loaded when
-this module is imported: the first launch builds every kernel, one ``nvcc``
+plain C interface and loaded with ctypes; a source may hold several C
+entries (K10 and K11 each hold a query, a coverage and a fill entry), each
+a ``Kernel`` of its own with its own count. Nothing is built or loaded when
+this module is imported: the first launch builds every library, one ``nvcc``
 per source, all started together. Libraries are named by a hash of their
 source, every header it includes (followed transitively) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
@@ -72,7 +74,8 @@ class Kernel:
         for path in _with_headers(self.source):
             with open(path, "rb") as f:
                 h.update(f.read())
-        return os.path.join(BUILD_DIR, f"{self.name}.{h.hexdigest()[:16]}.so")
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, f"{stem}.{h.hexdigest()[:16]}.so")
 
     def _load(self, path: str) -> None:
         lib = ctypes.CDLL(path)
@@ -95,6 +98,27 @@ class Kernel:
         self.launches += 1
 
 
+# The engine entries of probe.cuh and fill.cuh take the engine as a host
+# pointer array p and a host parameter array u (``kernels/probe.py``).
+# query: p, u, codes, valid, ascii, k, n, rule, tf, slot, strand, stream
+_QUERY_ARGS = [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P]
+# coverage: p, u, packed, vbits, n_words, rows, stride, k, rule, cutoff, out, stream
+_COVERAGE_ARGS = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, ctypes.c_uint, _P, _P]
+# fill: p, u, packed, vbits, n_words, k, off, rule, n_slots, slot_bits, idx_bits,
+# offsets, cursor, positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
+_FILL_ARGS = [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P,
+              _P, _P, _P]
+
+
+def _probe_kernels(query: str, coverage: str, fill: str, source: str,
+                   replaces_query: str, replaces_coverage: str,
+                   replaces_fill: str) -> list["Kernel"]:
+    """The query, coverage and fill entries of one engine's source."""
+    return [Kernel(query, source, _QUERY_ARGS, replaces_query),
+            Kernel(coverage, source, _COVERAGE_ARGS, replaces_coverage),
+            Kernel(fill, source, _FILL_ARGS, replaces_fill)]
+
+
 KERNELS: dict[str, Kernel] = {
     k.name: k for k in (
         # counts, packed, vbits, n_words, stream
@@ -114,28 +138,19 @@ KERNELS: dict[str, Kernel] = {
         Kernel("spectrum23", "spectrum23.cu",
                [_P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
                "aindex_tpu/kernels/spectrum.py:48"),
-        # half0, half1, slot0, slot1, m, lb, w, m1a, m1b, m2a, m2b, codes, valid,
-        # ascii, k, n, canon, tf, slot, strand, stream
-        Kernel("quot23", "quot23.cu",
-               [_P, _P, _P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL, _P, _P, _P, _I, _LL,
-                _I, _P, _P, _P, _P],
-               "aindex_tpu/index/quotcuckoo.py:310"),
-        # half0, half1, m, lb, w, m1a, m1b, m2a, m2b, packed, vbits, n_words, rows,
-        # stride, k, cutoff, out, stream
-        Kernel("quotcov23", "quotcov23.cu",
-               [_P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL, _P, _P, _LL, _LL, _LL, _I,
-                ctypes.c_uint, _P, _P],
+        Kernel("quot23", "quot23.cu", _QUERY_ARGS, "aindex_tpu/index/quotcuckoo.py:310"),
+        Kernel("quotcov23", "quotcov23.cu", _COVERAGE_ARGS,
                "aindex_tpu/index/quotcuckoo.py:353"),
         # tf, n, offsets, sums, stream
         Kernel("csr_offsets", "csr.cu", [_P, _LL, _P, _P, _P],
                "aindex_tpu/index/positional.py:39"),
-        # packed, vbits, n_words, k, off, half0, half1, slot0, slot1, m, lb, w,
-        # m1a, m1b, m2a, m2b, n_slots, slot_bits, idx_bits, offsets, cursor,
-        # positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
-        Kernel("posfill", "posfill.cu",
-               [_P, _P, _LL, _I, _LL, _P, _P, _P, _P, _LL, _I, _I, _ULL, _ULL, _ULL, _ULL,
-                _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _P],
-               "aindex_tpu/index/positional.py:47"),
+        Kernel("posfill", "posfill.cu", _FILL_ARGS, "aindex_tpu/index/positional.py:47"),
+        *_probe_kernels("cuckoo64", "cuckoocov64", "cuckoofill64", "cuckoo64.cu",
+                        "aindex_tpu/index/cuckoo.py:142", "aindex_tpu/index/sparse23.py:172",
+                        "aindex_tpu/index/positional.py:205"),
+        *_probe_kernels("mphfwalk", "mphfcov", "mphffill", "mphfwalk.cu",
+                        "aindex_tpu/kernels/lookup.py:100", "aindex_tpu/index/sparse23.py:172",
+                        "aindex_tpu/index/positional.py:205"),
     )
 }
 
@@ -166,31 +181,36 @@ def build_all() -> float:
         if not todo:
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = []
+        procs = {}   # library path -> (tmp path, nvcc process or None)
         for k in todo:
             out = k.library_path()
+            if out in procs:
+                continue
             if os.path.exists(out):
-                procs.append((k, out, None, None))
+                procs[out] = (None, None)
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, k.source]
-            procs.append((k, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            procs[out] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT))
         failed = []
-        for k, out, tmp, proc in procs:
-            if proc is not None:
-                log, _ = proc.communicate()
-                k.build_log = log.decode(errors="replace")
-                if proc.returncode != 0:
-                    failed.append(f"{k.name}:\n{k.build_log}")
-                    if os.path.exists(tmp):
-                        os.remove(tmp)
-                    continue
-                os.replace(tmp, out)
+        logs = {}
+        for out, (tmp, proc) in procs.items():
+            if proc is None:
+                continue
+            log, _ = proc.communicate()
+            logs[out] = log.decode(errors="replace")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(out)}:\n{logs[out]}")
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                continue
+            os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        for k, out, _, _ in procs:
-            k._load(out)
+        for k in todo:
+            k.build_log = logs.get(k.library_path(), "")
+            k._load(k.library_path())
         return time.perf_counter() - t0
 
 

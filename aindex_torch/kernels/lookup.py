@@ -1,4 +1,5 @@
-"""K3: batched lookups in a dense 13-mer table.
+"""K3: batched lookups in a dense 13-mer table; K11: the MPHF walk of the
+sparse index.
 
 One wrapper, ``gather13``, covers every gather of aindex_tpu's dense query
 path (kernels/lookup.py:32 ``gather_tf_valid``, :49 ``gather_tf_both_13``;
@@ -10,15 +11,25 @@ version.
 Codes are uint32 bit patterns (int32 or uint32 storage). A code outside
 [0, 4^13) reads what JAX's ``table[code.astype(int32)]`` reads: the int32
 value, plus 4^13 if negative, clamped into the table.
+
+K11 (kernel ``csrc/mphfwalk.cu``) is ``kernels/probe.py``'s query,
+coverage and fill on an ``MphfTables``; ``mix64``, ``hash_triple``,
+``mphf_lookup`` and ``MphfTables.probe_plain`` are the plain versions of
+aindex_tpu/kernels/lookup.py:70-121 and index/sparse23.py:51
+``_query_kernel``, on int64 tensors holding uint64 bits: every right shift
+is masked and the remainder by the domain is taken unsigned, by a 32-bit
+split. Node ids stay int64 where aindex_tpu casts them to int32.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from aindex_torch.constants import K13, SPACE_13
 from aindex_torch.kernels import _cuda
-from aindex_torch.kernels.encode import (ascii_to_base_codes, revcomp_code13,
+from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, revcomp_code13,
                                          table_values, window_codes)
 
 KERNEL = _cuda.KERNELS["gather13"]
@@ -113,3 +124,119 @@ def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
         return out.view(torch.uint32), out_rc.view(torch.uint32)
     return out.view(torch.uint32)
 
+
+
+# -- K11: the MPHF walk -----------------------------------------------------------
+
+_U64_MASK = (1 << 64) - 1
+
+
+def _s64(x: int) -> int:
+    """A uint64 constant as the int64 of the same bits."""
+    x &= _U64_MASK
+    return x - (1 << 64) if x >> 63 else x
+
+
+_MIX_M1 = _s64(0xFF51AFD7ED558CCD)
+_MIX_M2 = _s64(0xC4CEB9FE1A85EC53)
+_TRIPLE_C1 = _s64(0x9E3779B97F4A7C15)
+_TRIPLE_C2 = _s64(0x165667B19E3779F9)
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 tensors holding uint64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3 fmix64 on int64 tensors holding uint64 bits
+    (aindex_tpu/kernels/lookup.py:70): masked shifts, wrapping multiplies."""
+    x = x ^ _shr(x, 33)
+    x = x * _MIX_M1
+    x = x ^ _shr(x, 33)
+    x = x * _MIX_M2
+    return x ^ _shr(x, 33)
+
+
+def umod(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x % d`` of the uint64 bits of int64 ``x``, for 0 < d < 2^32 / 3:
+    x = hi 2^32 + lo, and (hi % d) (2^32 % d) + lo stays below 2^63."""
+    hi, lo = _shr(x, 32), x & 0xFFFFFFFF
+    return ((hi % d) * ((1 << 32) % d) + lo) % d
+
+
+def hash_triple(keys: torch.Tensor, seed: int, domain: int):
+    """Three node ids (int64) per key, node i in partition i
+    (aindex_tpu/kernels/lookup.py:83)."""
+    h = mix64(keys ^ _s64(seed))
+    return (umod(h, domain), umod(mix64(h ^ _TRIPLE_C1), domain) + domain,
+            umod(mix64(h + _TRIPLE_C2), domain) + 2 * domain)
+
+
+def mphf_lookup(g_packed: torch.Tensor, slots: torch.Tensor, keys: torch.Tensor,
+                seed: int, domain: int) -> torch.Tensor:
+    """Unverified slot (int64) per key: the triple hash, three 2-bit
+    g-values, the owner node by (sum % 3), its slot
+    (aindex_tpu/kernels/lookup.py:100). Node ids stay int64."""
+    nodes = hash_triple(keys, seed, domain)
+    g = [(as_unsigned(g_packed[n >> 4]) >> ((n & 15) * 2)) & 3 for n in nodes]
+    v = (g[0] + g[1] + g[2]) % 3
+    node = torch.where(v == 0, nodes[0], torch.where(v == 1, nodes[1], nodes[2]))
+    return slots[node].to(torch.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MphfTables:
+    """The ATPF MPHF (index/mphf.py) and the slot-ordered checker and tf on
+    one device, the MPHF walk's engine (``kernels/probe.py``): g_packed
+    int32[ceil(3 domain / 16)] (uint32 words of 2-bit values), slots
+    int32[3 domain], checker int64[n] (uint64 keys), tf int32[n] (uint32)."""
+    g_packed: torch.Tensor
+    slots: torch.Tensor
+    checker: torch.Tensor
+    tf: torch.Tensor
+    n: int
+    domain: int
+    seed: int
+
+    QUERY = "mphfwalk"
+    COVERAGE = "mphfcov"
+    FILL = "mphffill"
+
+    @property
+    def device(self) -> torch.device:
+        return self.checker.device
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.g_packed, self.slots, self.checker, self.tf)
+
+    def engine_args(self) -> tuple[list, list]:
+        """probe.cuh ``Mphf``: p = {g_packed, slots, checker, tf}, u = {n,
+        domain, seed}."""
+        return [x.data_ptr() for x in self.tensors()], [self.n, self.domain, self.seed]
+
+    def check(self) -> None:
+        n_nodes = 3 * self.domain
+        for name, dtype, size in (("g_packed", torch.int32, -(-n_nodes // 16)),
+                                  ("slots", torch.int32, n_nodes),
+                                  ("checker", torch.int64, self.n),
+                                  ("tf", torch.int32, self.n)):
+            x = getattr(self, name)
+            if x.dtype != dtype or x.shape != (size,) or not x.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous {dtype}[{size}] tensor")
+        if not 0 < self.domain < (1 << 32) // 3:
+            raise ValueError(f"domain {self.domain} is outside (0, 2^32 / 3)")
+
+    def check_k(self, k: int) -> None:
+        if not 1 <= k <= 31:
+            raise ValueError(f"k={k} is outside 1..31")
+
+    def probe_plain(self, keys: torch.Tensor):
+        """(hit, tf int64, slot int64) per key: the walk, then the checker
+        verify (aindex_tpu/index/sparse23.py:51 ``_query_kernel``)."""
+        if self.n == 0:
+            zero = torch.zeros_like(keys)
+            return zero != 0, zero, zero - 1
+        slot = mphf_lookup(self.g_packed, self.slots, keys, self.seed, self.domain)
+        hit = self.checker[slot] == keys
+        return hit, as_unsigned(self.tf[slot]), slot

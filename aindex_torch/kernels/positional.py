@@ -4,11 +4,12 @@ Counterparts of aindex_tpu/index/positional.py's jitted functions:
 
 * ``csr_offsets`` (kernel ``csrc/csr.cu``, K8) replaces ``_csr_offsets``
   (:39): the exclusive int64 prefix sum of a uint32 per-slot table;
-* ``posfill`` (kernel ``csrc/posfill.cu``, K9) replaces ``_scatter_chunk``
+* ``posfill`` (kernel ``csrc/posfill.cu``, K9, or the fill entries of K10
+  and K11 on the wide cuckoo and MPHF engines) replaces ``_scatter_chunk``
   (:47, :77) with the window -> slot step of its callers fused in: it
   takes one packed chunk, computes each window's slot (dense: the forward
-  code; sparse: the verified canonical slot of the quotient cuckoo table)
-  and places the chunk's occurrences into their final CSR cells.
+  code; sparse: the verified slot of the index's engine under its query
+  rule) and places the chunk's occurrences into their final CSR cells.
 
 ``csr_offsets_plain``, ``scatter_chunk_plain`` (same arguments as JAX's
 ``_scatter_chunk``) and ``chunk_slots_plain`` are the plain PyTorch
@@ -22,9 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from aindex_torch.kernels import _cuda
+from aindex_torch.kernels import _cuda, probe
 from aindex_torch.kernels.encode import as_unsigned, check_packed, packed_window_codes
-from aindex_torch.kernels.quot import QuotTables, _check_tables, quot23_plain
+from aindex_torch.kernels.probe import CANON
 from aindex_torch.kernels.spectrum import INT32_LIMIT, SCAN_TILE, sort_scratch
 
 KERNEL_CSR = _cuda.KERNELS["csr_offsets"]
@@ -89,16 +90,16 @@ def scatter_chunk_plain(positions: torch.Tensor, cursor: torch.Tensor,
     return positions, cursor
 
 
-def chunk_slots_plain(packed: torch.Tensor, vbits: torch.Tensor, k: int,
-                      tables: QuotTables | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def chunk_slots_plain(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
+                      rule: int = CANON) -> tuple[torch.Tensor, torch.Tensor]:
     """(slot int64, valid bool) of every window of a packed chunk: the
     forward code of a valid window (dense, ``tables`` None), or the
-    verified canonical slot of the quotient cuckoo table, valid when the
+    verified slot of the engine ``tables`` under ``rule``, valid when the
     k-mer is present (sparse)."""
     codes, valid = packed_window_codes(packed, vbits, k)
     if tables is None:
         return codes, valid
-    _, slot = quot23_plain(tables, codes, valid, k=k, slot=True)
+    _, slot = probe.query_plain(tables, codes, valid, k=k, rule=rule, slot=True)
     slot = slot.to(torch.int64)
     return slot, slot >= 0
 
@@ -123,13 +124,13 @@ def _bits(n: int) -> int:
 
 
 def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor,
-            packed: torch.Tensor, vbits: torch.Tensor, k: int, off: int,
-            tables: QuotTables | None = None,
-            scratch: tuple[torch.Tensor, ...] | None = None) -> None:
+            packed: torch.Tensor, vbits: torch.Tensor, k: int, off: int, tables=None,
+            scratch: tuple[torch.Tensor, ...] | None = None, rule: int = CANON) -> None:
     """Fill one packed chunk's occurrences into the CSR: every valid window
     i, at blob position ``off + i``, with slot s (the forward code of a
-    k <= 16 window when ``tables`` is None; the verified canonical slot of
-    the quotient cuckoo table ``tables`` otherwise, absent windows dropped)
+    k <= 16 window when ``tables`` is None; otherwise the verified slot of
+    the sparse engine ``tables`` (``kernels/probe.py``) under ``rule``,
+    CANON or FWD_RC, absent windows dropped)
     writes ``off + i + 1`` to ``positions[offsets[s] + cursor[s] + rank]``,
     rank being its order among the chunk's windows of slot s; then
     ``cursor`` advances. The counterpart of aindex_tpu's ``_scatter_chunk``
@@ -139,7 +140,8 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
     offsets int64[n_slots] (the CSR offsets without their last entry);
     ``scratch`` (``fill_scratch``) is allocated per call when not given.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K9."""
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    engine's fill kernel (K9 dense or quotient, K10, K11)."""
     check_packed(packed, vbits)
     for name, t, dtype in (("positions", positions, torch.int64),
                            ("cursor", cursor, torch.int32), ("offsets", offsets, torch.int64)):
@@ -154,9 +156,10 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
             raise ValueError(f"dense fill takes k <= 16 and 4^k slots, got k={k}, "
                              f"{n_slots} slots")
     else:
-        _check_tables(tables)
-        if not 1 <= k <= 31 or 2 * k != tables.w:
-            raise ValueError(f"k={k} does not match the table's code width w={tables.w}")
+        tables.check()
+        tables.check_k(k)
+        if rule not in (probe.CANON, probe.FWD_RC):
+            raise ValueError(f"the sparse fill takes the CANON or FWD_RC rule, got {rule}")
     n_win = 16 * packed.numel() - k + 1
     if not 0 < n_win < INT32_LIMIT:
         raise ValueError(f"a chunk of {16 * packed.numel()} bases gives {n_win} windows "
@@ -165,9 +168,9 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
     if slot_bits + idx_bits > 64:
         raise ValueError(f"{slot_bits} slot bits + {idx_bits} window bits exceed the "
                          "64-bit sort key")
-    extra = () if tables is None else (tables.half0, tables.half1, tables.slot0, tables.slot1)
+    extra = () if tables is None else tables.tensors()
     if not _cuda.on_cuda(positions, cursor, offsets, packed, vbits, *extra):
-        slots, valid = chunk_slots_plain(packed, vbits, k, tables)
+        slots, valid = chunk_slots_plain(packed, vbits, k, tables, rule)
         pos = torch.arange(slots.numel(), dtype=torch.int64, device=slots.device) + off
         scatter_chunk_plain(positions, cursor, offsets, slots, pos, valid)
         return
@@ -179,14 +182,11 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
     if keys_a.numel() < n_win or idx.numel() < n_win + 1 or hist.numel() < n_hist \
             or sums.numel() < n_sums:
         raise ValueError(f"scratch too small for {n_win} windows")
-    if tables is None:
-        table_args = (None, None, None, None, 0, 0, 0, 0, 0, 0, 0)
-    else:
-        table_args = (tables.half0.data_ptr(), tables.half1.data_ptr(),
-                      tables.slot0.data_ptr(), tables.slot1.data_ptr(), *tables.args())
+    p, u = (None, None) if tables is None else probe.c_engine(tables)
+    kernel = KERNEL_FILL if tables is None else _cuda.KERNELS[tables.FILL]
     with torch.cuda.device(dev):
-        KERNEL_FILL.launch(
-            packed.data_ptr(), vbits.data_ptr(), packed.numel(), k, off, *table_args,
+        kernel.launch(
+            p, u, packed.data_ptr(), vbits.data_ptr(), packed.numel(), k, off, rule,
             n_slots, slot_bits, idx_bits, offsets.data_ptr(), cursor.data_ptr(),
             positions.data_ptr(), positions.numel(), *(t.data_ptr() for t in scratch),
             _cuda.stream(dev))

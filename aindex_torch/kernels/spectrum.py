@@ -168,3 +168,24 @@ def merge_spectra(parts: list[tuple[np.ndarray, np.ndarray]]
     counts = np.zeros(keys.size, dtype=np.uint64)
     np.add.at(counts, inv, all_counts)
     return keys, counts
+
+
+def host_window_codes(ascii_chunk: np.ndarray, k: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """(codes uint64, valid) for every window of an ASCII byte chunk, on the
+    host: the numpy version of kernels/encode.py's ``window_codes`` (the
+    same k-step shift-or; aindex_tpu/kernels/spectrum.py:175)."""
+    from aindex_torch.core import codec
+    base = codec.bytes_to_base_codes(ascii_chunk)
+    n_win = base.size - k + 1
+    if n_win <= 0:
+        return np.zeros(0, np.uint64), np.zeros(0, bool)
+    invalid = (base >= 4).astype(np.int32)
+    csum = np.concatenate([np.zeros(1, np.int32), np.cumsum(invalid, dtype=np.int32)])
+    valid = (csum[k:] - csum[:-k]) == 0
+    b = (base & 3).astype(np.uint64)
+    acc = b[:n_win].copy()
+    for j in range(1, k):
+        acc <<= np.uint64(2)
+        acc |= b[j:j + n_win]
+    return acc, valid

@@ -6,7 +6,9 @@ preparation. This module compiles it with ``g++`` at first use into
 ``build/native/`` (git-ignored; the source directory is never written),
 under a name hashed from the source and the flags, and loads it with
 ctypes. Only the entries that aindex_torch calls are bound:
-``mphf_try_build``, ``quot_build`` and the ``compute_reads_*`` family.
+``mphf_try_build``, ``quot_build``, ``cuckoo_build``,
+``jenkins_triple_codes``, ``emphf_peel_assign`` and the
+``compute_reads_*`` family.
 
 Nothing is built when this module is imported. A library is written under
 a temporary name and renamed, so concurrent builders (test workers) never
@@ -46,6 +48,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.quot_build.restype = _I32
     lib.quot_build.argtypes = [_P, _P, _P, _I64, _U64, _I32, _I32,
                                _U64, _U64, _U64, _U64, _P, _P]
+    lib.cuckoo_build.restype = _I32
+    lib.cuckoo_build.argtypes = [_P, _P, _P, _I64, _U64, _U64, _U64, _P]
+    lib.jenkins_triple_codes.restype = None
+    lib.jenkins_triple_codes.argtypes = [_P, _I64, _I32, _U64, _P, _P, _P]
+    lib.emphf_peel_assign.restype = _I32
+    lib.emphf_peel_assign.argtypes = [_P, _P, _P, _I64, _U64, _P]
     lib.compute_reads_fastq.restype = _I64
     lib.compute_reads_fastq.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                         ctypes.c_char_p]
@@ -137,6 +145,45 @@ def quot_build(keys: np.ndarray, tf: np.ndarray, slot: np.ndarray, m: int,
     ok = lib.quot_build(_ptr(keys), _ptr(tf), _ptr(slot), len(keys), m, lb, w,
                         *(int(x) for x in mults), _ptr(fp_tf), _ptr(slot_col))
     return (fp_tf, slot_col) if ok else None
+
+
+def cuckoo_build(keys: np.ndarray, tf: np.ndarray, slot: np.ndarray, m: int,
+                 seed1: int, seed2: int) -> np.ndarray | None:
+    """Wide cuckoo insertion: the uint32[2m, 4] table of (key_lo, key_hi,
+    tf, slot) rows, or None on an eviction cycle (the caller reseeds or
+    grows the table). The layout is index/cuckoo.py's."""
+    lib = get_lib()
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    tf = np.ascontiguousarray(tf, dtype=np.uint32)
+    slot = np.ascontiguousarray(slot, dtype=np.int32)
+    table = np.empty((2 * m, 4), dtype=np.uint32)
+    ok = lib.cuckoo_build(_ptr(keys), _ptr(tf), _ptr(slot), len(keys), m,
+                          int(seed1), int(seed2), _ptr(table))
+    return table if ok else None
+
+
+def jenkins_triple_codes(codes: np.ndarray, k: int, seed: int
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Jenkins lookup8 triple (h0, h1, h2) of each k-mer's ASCII text, bit
+    for bit the numpy version in index/emphf.py."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.uint64)
+    n = len(codes)
+    h0, h1, h2 = (np.empty(n, np.uint64) for _ in range(3))
+    lib.jenkins_triple_codes(_ptr(codes), n, k, int(seed), _ptr(h0), _ptr(h1), _ptr(h2))
+    return h0, h1, h2
+
+
+def emphf_peel_assign(nodes0: np.ndarray, nodes1: np.ndarray, nodes2: np.ndarray,
+                      domain: int) -> np.ndarray | None:
+    """The reference builder's sequential peel and assignment for one seed
+    trial: g uint8[3*domain] (0 = unassigned), or None when the hypergraph
+    does not peel. Node ids are uint32, already offset by partition."""
+    lib = get_lib()
+    n0, n1, n2 = (np.ascontiguousarray(a, dtype=np.uint32) for a in (nodes0, nodes1, nodes2))
+    g = np.zeros(3 * domain, dtype=np.uint8)
+    ok = lib.emphf_peel_assign(_ptr(n0), _ptr(n1), _ptr(n2), len(n0), domain, _ptr(g))
+    return g if ok else None
 
 
 def compute_reads_native(input1: str, input2: str | None, read_type: str,

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of aindex_torch's main paths on one CUDA card: the dense
-13-mer index, the sparse canonical 23-mer index and the positional index
-built by the compute-aindex pipeline.
+13-mer index, the sparse canonical 23-mer index, the positional index
+built by the compute-aindex pipeline, and the AIndex facade over the CLI's
+k = 31 and k = 29 artifact sets (the MPHF walk and the wide cuckoo
+engines) and over the reference-built golden sets.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the nine CUDA kernels from aindex_torch/csrc.
+   builds the eleven CUDA kernels (K1-K11, fifteen C entries) from
+   aindex_torch/csrc, one nvcc per source, all started together.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
    (all outputs are integers), and times both with CUDA events.
@@ -27,8 +30,9 @@ Run from the repository root, with no arguments:
    every query family, coverage, De Bruijn CONT and a save/load round
    trip, each checked against an independent numpy oracle (canonical
    windows of the read matrix + np.unique).
-7. Holds K6 (quotient cuckoo queries, every mode) and K7 (coverage) against
-   their plain versions on the index built in step 6.
+7. Holds K6 (quotient cuckoo queries, every mode, the forward-else-
+   reverse-complement rule of reference-keyed indexes included) and K7
+   (coverage) against their plain versions on the index built in step 6.
 8. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
    and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
    positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
@@ -39,9 +43,24 @@ Run from the repository root, with no arguments:
    the numpy oracle: offsets, every position, ``positions_by_slots`` on
    2^16 slots and ``rid_by_pos``. Fails unless K9's launches there ran at
    the chunk shape step 8 checks.
-10. Prints the kernels line (launch counts of steps 4, 6 and 9, each path
-   run with the counts set to 0 just before it), the card line and the
-   result line.
+10. Drives the facade path for k = 31 and then k = 29: ``python -m
+   aindex_torch compute-aindex -k <k>`` on the corpus FASTA as a
+   subprocess (stage seconds and MB/s from its torch.profiler trace, its
+   launch counts printed by the subprocess), then
+   ``AIndex.load_from_prefix(..., kmer_size=k, load_reads=True)`` and tf,
+   pfid, strand, codes-in, coverage, De Bruijn CONT and positions-by-slot
+   queries through the facade, each against a numpy oracle of the corpus.
+   Fails unless K11 (k = 31) or K10 (k = 29) launched on the path, with
+   no K6, K7 or K9 launch.
+11. Holds the configuration's engine kernels (K11 after k = 31, K10 after
+   k = 29: query, coverage and fill) against their plain versions at the
+   path's shapes.
+12. Loads the reference-built tests/golden_ref sets through
+   ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
+   of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
+13. Prints the kernels line (launch counts of steps 4, 6, 9 and 10, each
+   path run with the counts set to 0 just before it), the card line and
+   the result line.
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
@@ -145,16 +164,17 @@ def oracle_table(reads: np.ndarray) -> np.ndarray:
     return counts.astype(np.uint32)
 
 
-def oracle_windows23(mat: np.ndarray):
-    """(forward code, reverse-complement code, valid) of the 23-mer windows
-    of each row of an ASCII matrix, uint64. The reverse complement is built
-    base by base: base j of a window lands complemented in field j."""
+def oracle_windows23(mat: np.ndarray, k: int = K23):
+    """(forward code, reverse-complement code, valid) of the k-mer windows
+    (k <= 31; 23 unless asked) of each row of an ASCII matrix, uint64. The
+    reverse complement is built base by base: base j of a window lands
+    complemented in field j."""
     b = _LUT[mat].astype(np.uint64)
-    n_win = mat.shape[1] - K23 + 1
+    n_win = mat.shape[1] - k + 1
     fwd = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
     rc = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
     bad = np.zeros((mat.shape[0], n_win), dtype=bool)
-    for j in range(K23):
+    for j in range(k):
         bj = b[:, j:j + n_win]
         fwd = (fwd << np.uint64(2)) | (bj & np.uint64(3))
         rc |= (np.uint64(3) - (bj & np.uint64(3))) << np.uint64(2 * j)
@@ -162,11 +182,11 @@ def oracle_windows23(mat: np.ndarray):
     return fwd, rc, ~bad
 
 
-def oracle_spectrum23(reads: np.ndarray):
-    """(sorted unique canonical 23-mer codes, counts) of every valid window."""
+def oracle_spectrum23(reads: np.ndarray, k: int = K23):
+    """(sorted unique canonical k-mer codes, counts) of every valid window."""
     parts = []
     for i in range(0, len(reads), 1 << 16):
-        fwd, rc, ok = oracle_windows23(reads[i:i + (1 << 16)])
+        fwd, rc, ok = oracle_windows23(reads[i:i + (1 << 16)], k)
         parts.append(np.minimum(fwd, rc)[ok])
     return np.unique(np.concatenate(parts), return_counts=True)
 
@@ -689,13 +709,13 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
     wtf = np.where(wok, oracle_lookup(keys, counts, np.minimum(wf, wr)), 0)
     # record the (rows, stride) of every K7 call, which quot_vs_plain checks
     k7_shapes = set()
-    real_quotcov23 = sparse23.quotcov23
+    real_coverage = sparse23.probe.coverage
 
-    def quotcov23_seen(t, packed, vbits, rows, stride, *args):
+    def coverage_seen(t, packed, vbits, rows, stride, *args):
         k7_shapes.add((rows, stride))
-        return real_quotcov23(t, packed, vbits, rows, stride, *args)
+        return real_coverage(t, packed, vbits, rows, stride, *args)
 
-    sparse23.quotcov23 = quotcov23_seen
+    sparse23.probe.coverage = coverage_seen
     for cutoff in (0, 10):
         index.sequence_coverage_batch(seqs, cutoff)
         t0 = time.perf_counter()
@@ -706,7 +726,7 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
               f"sparse sequence_coverage_batch cutoff {cutoff}")
         print(f"sparse sequence_coverage_batch cutoff {cutoff}: {n_seq} x {READ_LEN} bp, "
               f"{n_seq / dt:.0f} sequences/s (host clock) ({card})")
-    sparse23.quotcov23 = real_quotcov23
+    sparse23.probe.coverage = real_coverage
     check(k7_shapes == {(N_SEQ, READ_LEN + 1)},
           f"K7 ran at rows x stride {sorted(k7_shapes)}, the shape its check uses")
     print(f"sparse coverage: K7 launched at rows x stride {sorted(k7_shapes)}")
@@ -755,7 +775,8 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     import torch
     from aindex_torch.core import codec
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
-                                             packed_window_codes, window_codes)
+                                             packed_window_codes, revcomp_code64, window_codes)
+    from aindex_torch.kernels.probe import FWD_RC
     from aindex_torch.kernels.quot import quot23, quot23_plain, quotcov23, quotcov23_plain
 
     t = index.tables
@@ -801,6 +822,20 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         rec = record(err, ms, pms, n_bytes)
         report(card, "quot23", f"{tag}, {n_codes} codes (half present)", rec)
         k6.append((tag, rec))
+    # the forward-else-reverse-complement rule of reference-keyed indexes:
+    # the forward probes, then the reverse complements of their misses
+    kw = {"codes": codes, "rule": FWD_RC, "slot": True, "strand": True}
+    got, ref = quot23(t, k=K23, **kw), quot23_plain(t, k=K23, **kw)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    ms = cuda_ms(lambda: quot23(t, k=K23, **kw), 20)
+    pms = cuda_ms(lambda: quot23_plain(t, k=K23, **kw), 2)
+    miss = ~t.probe_plain(codes)[0]
+    n_fr = distinct_probed_rows(t, torch.cat([codes, revcomp_code64(codes[miss], K23)]))
+    rec = record(err, ms, pms, n_codes * (8 + 12) + n_fr * 12)
+    report(card, "quot23", f"codes, forward else reverse complement, tf+slot+strand, "
+           f"{n_codes} codes", rec)
+    k6.append(("codes, fwd-rc, tf+slot+strand", rec))
+    del miss, got, ref
     row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K23)
     ascii_probe = distinct_probed_rows(
         t, canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)], K23))
@@ -986,13 +1021,13 @@ def oracle_dense_positions(reads: np.ndarray) -> np.ndarray:
     return (keys & np.uint64((1 << 27) - 1)) + np.uint64(1)
 
 
-def oracle_canon(reads: np.ndarray):
-    """(canonical 23-mer code, valid) of every window, [n_reads, 128]."""
-    n_win = READ_LEN - K23 + 1
+def oracle_canon(reads: np.ndarray, k: int = K23):
+    """(canonical k-mer code, valid) of every window, [n_reads, 151 - k]."""
+    n_win = READ_LEN - k + 1
     canon = np.empty((len(reads), n_win), np.uint64)
     ok = np.empty((len(reads), n_win), bool)
     for i in range(0, len(reads), 1 << 16):
-        fwd, rc, v = oracle_windows23(reads[i:i + (1 << 16)])
+        fwd, rc, v = oracle_windows23(reads[i:i + (1 << 16)], k)
         canon[i:i + len(v)] = np.minimum(fwd, rc)
         ok[i:i + len(v)] = v
     return canon, ok
@@ -1021,9 +1056,10 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
     real_posfill = tpos.posfill
 
     def posfill_seen(positions, cursor, offsets, packed, vbits, k, off, tables=None,
-                     scratch=None):
+                     scratch=None, rule=1):
         k9_shapes.add((packed.numel(), "dense" if tables is None else "sparse"))
-        return real_posfill(positions, cursor, offsets, packed, vbits, k, off, tables, scratch)
+        return real_posfill(positions, cursor, offsets, packed, vbits, k, off, tables, scratch,
+                            rule)
 
     tpos.posfill = posfill_seen
     try:
@@ -1153,6 +1189,436 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
     return launched
 
 
+# -- phases 10-12: the wide engines, the facade and the CLI, the golden sets ---
+
+#: the two facade configurations: (k, the engine aindex_tpu's routing gives
+#: the corpus's n, that engine's query, coverage and fill kernels)
+FACADE_CONFIGS = ((31, "walk", ("mphfwalk", "mphfcov", "mphffill")),
+                  (29, "cuckoo", ("cuckoo64", "cuckoocov64", "cuckoofill64")))
+#: kernels that must not launch on the wide configurations' paths (K6, K7, K9)
+QUOT_KERNELS = ("quot23", "quotcov23", "posfill")
+N_FACADE_DB = 1 << 14      # De Bruijn CONT records through the facade (dicts)
+N_POS = 1 << 14            # k-mers whose positions the facade path checks
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: runs ``python -m aindex_torch`` with the given argv, then prints the
+#: process's kernel launch counts on a line of its own
+_CLI = """import json, runpy, sys
+from aindex_torch.kernels import _cuda
+sys.argv = ["aindex_torch"] + json.loads(sys.argv[1])
+try:
+    runpy.run_module("aindex_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+else:
+    code = 0
+print("LAUNCHES " + json.dumps(_cuda.launches()))
+sys.exit(code)
+"""
+
+
+def run_cli(argv: list[str]) -> tuple[dict, str, float]:
+    """(launch counts, standard output, seconds) of ``python -m
+    aindex_torch <argv>`` run as a subprocess from the repository root."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLI, json.dumps(argv)], cwd=HERE,
+                          capture_output=True, text=True, timeout=900)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m aindex_torch {' '.join(argv)} exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    return json.loads(line[len("LAUNCHES "):]), proc.stdout, dt
+
+
+def trace_stages(path: str) -> dict[str, float]:
+    """Seconds of the first build_all.* and positional.* range of a
+    torch.profiler chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") == "X" and name.startswith(("build_all.", "positional.")) \
+                and e.get("cat") == "user_annotation" and name not in out:
+            out[name] = e["dur"] / 1e6
+    return out
+
+
+def probe_bytes(t, keys, k: int) -> int:
+    """Bytes of the table that the canonical probes of literal ``keys``
+    read, each distinct row, word or entry once: wide cuckoo rows (16 B,
+    the second only for first misses); or the walk's g-words (4 B), owner
+    slots (4 B), checker words (8 B) and, on a hit, tf entries (4 B)."""
+    import torch
+    from aindex_torch.kernels.cuckoo import CuckooTables
+    from aindex_torch.kernels.encode import canonical_code64
+    from aindex_torch.kernels.lookup import _s64, hash_triple, mix64, mphf_lookup
+    keys = canonical_code64(keys, k)
+    if isinstance(t, CuckooTables):
+        r1 = mix64(keys ^ _s64(t.seed1)) & (t.m - 1)
+        c = t.table[r1].to(torch.int64)
+        hit1 = ((c[:, 0] & 0xFFFFFFFF) == (keys & 0xFFFFFFFF)) \
+            & ((c[:, 1] & 0xFFFFFFFF) == ((keys >> 32) & 0xFFFFFFFF))
+        r2 = mix64(keys[~hit1] ^ _s64(t.seed2)) & (t.m - 1)
+        return 16 * (int(torch.unique(r1).numel()) + int(torch.unique(r2).numel()))
+    words = torch.unique(torch.cat([n >> 4 for n in hash_triple(keys, t.seed, t.domain)]))
+    hit, _, slot = t.probe_plain(keys)
+    n_owner = int(torch.unique(mphf_lookup(t.g_packed, t.slots, keys, t.seed,
+                                            t.domain)).numel())
+    return 4 * int(words.numel()) + 12 * n_owner + 4 * int(torch.unique(slot[hit]).numel())
+
+
+def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
+    """The engine's three kernels (K10 or K11) against their plain versions
+    on the configuration's index, at the path's shapes: 4 x 2^24 codes,
+    2^20 ASCII k-mers, 10,000 x 151 coverage rows, one 2^22-byte fill
+    chunk."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.kernels import probe
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, packed_window_codes,
+                                             window_codes)
+    from aindex_torch.kernels.positional import (chunk_slots_plain, csr_offsets_plain,
+                                                 fill_scratch, posfill, scatter_chunk_plain)
+    t, k = index.tables, index.k
+    q_name, c_name, f_name = names
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(53)
+    half = N_CODES // 2
+    sample = torch.from_numpy(index.checker_host.view(np.int64)).to(dev)
+    codes = torch.cat([sample[torch.randint(0, sample.numel(), (half,), device=dev,
+                                            generator=gen)],
+                       torch.randint(0, 1 << (2 * k), (half,), dtype=torch.int64, device=dev,
+                                     generator=gen)])
+    codes = codes[torch.randperm(N_CODES, device=dev, generator=gen)]
+    del sample
+    rows_np = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(59).integers(
+        0, 4, size=(N_ASCII, k))]
+    rows_np[::2] = reads[np.random.default_rng(61).integers(0, len(reads), N_ASCII // 2), :k]
+    rows_np[::97, 3] = ord("N")
+    rows = torch.from_numpy(rows_np).to(dev)
+    recs = []
+    n_probe = probe_bytes(t, codes, k)
+    for tag, kw, n_io in (("codes, tf", {"codes": codes}, N_CODES * 12),
+                          ("codes, tf+slot+strand", {"codes": codes, "slot": True,
+                                                     "strand": True}, N_CODES * 20),
+                          ("ascii, tf+slot+strand", {"ascii": rows, "slot": True,
+                                                     "strand": True}, N_ASCII * (k + 12))):
+        got = probe.query(t, k=k, **kw)
+        ref = probe.query_plain(t, k=k, **kw)
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        ms = cuda_ms(lambda: probe.query(t, k=k, **kw), 20)
+        pms = cuda_ms(lambda: probe.query_plain(t, k=k, **kw), 2)
+        if "ascii" in kw:
+            rc, rv = window_codes(ascii_to_base_codes(rows), k)
+            n_tab = probe_bytes(t, rc.reshape(-1)[rv.reshape(-1)], k)
+        else:
+            n_tab = n_probe
+        rec = record(err, ms, pms, n_io + n_tab)
+        report(card, q_name, f"{tag}, {N_CODES if 'codes' in kw else N_ASCII} k={k} queries",
+               rec)
+        recs.append(rec)
+    res[q_name] = {**recs[0], "max_abs_err": max(r["max_abs_err"] for r in recs)}
+    del codes, rows
+
+    [(members, stride, packed, vbits)] = codec.coverage_row_batches(
+        [row.tobytes() for row in reads[:N_SEQ]], k)
+    packed, vbits = upload(dev, packed, vbits)
+    wcodes, wvalid = packed_window_codes(packed, vbits, k)
+    n_tab = probe_bytes(t, wcodes[wvalid], k)
+    recs = []
+    for cutoff in (0, 10):
+        args = (t, packed, vbits, len(members), stride, k, cutoff, index.rule)
+        err = max_abs_err(probe.coverage(*args), probe.coverage_plain(*args))
+        ms = cuda_ms(lambda: probe.coverage(*args), 50)
+        pms = cuda_ms(lambda: probe.coverage_plain(*args), 5)
+        n_bytes = packed.numel() * 4 + vbits.numel() + len(members) * (stride - k) * 4 + n_tab
+        rec = record(err, ms, pms, n_bytes)
+        report(card, c_name, f"cutoff {cutoff}, {len(members)} x {stride}, k={k}", rec)
+        recs.append(rec)
+    res[c_name] = {**recs[0], "max_abs_err": max(r["max_abs_err"] for r in recs)}
+
+    # the fill of the second corpus chunk, from a nonzero cursor (as K9's)
+    piece, off = list(itertools.islice(blob_chunks(corpus_blob(reads), k, CHUNK_BYTES), 2))[1]
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(piece))
+    slots, valid = chunk_slots_plain(packed, vbits, k, t, index.rule)
+    live = slots[valid]
+    n_valid, n_distinct = live.numel(), int(torch.unique(live).numel())
+    cursor = torch.randint(0, 4, (index.n,), dtype=torch.int32, device=dev, generator=gen)
+    tf = torch.bincount(live, minlength=index.n).to(torch.int32) + cursor
+    offsets = csr_offsets_plain(tf)
+    total = int(offsets[-1])
+    got = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+    ref = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+    scratch = fill_scratch(16 * packed.numel() - k + 1, dev)
+    posfill(*got, offsets[:-1], packed, vbits, k, off, t, scratch, index.rule)
+    scatter_chunk_plain(*ref, offsets[:-1], slots, torch.arange(slots.numel(), device=dev) + off,
+                        valid)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    check(int((got[0] > 0).sum()) == n_valid, f"{f_name} wrote every valid window")
+    work = (got[0].clone(), got[1].clone())
+    ms = cuda_ms(lambda: posfill(*work, offsets[:-1], packed, vbits, k, off, t, scratch,
+                                 index.rule), 20)
+
+    def plain():
+        s, v = chunk_slots_plain(packed, vbits, k, t, index.rule)
+        scatter_chunk_plain(*work, offsets[:-1], s, torch.arange(s.numel(), device=dev) + off, v)
+    pms = cuda_ms(plain, 3)
+    idx_bits = max(1, (16 * packed.numel() - k).bit_length())
+    keys = (live << idx_bits) | torch.nonzero(valid).reshape(-1)
+    lib = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
+    fcodes, fvalid = packed_window_codes(packed, vbits, k)
+    n_bytes = (packed.numel() * 4 + vbits.numel() + 8 * n_valid + 16 * n_distinct
+               + probe_bytes(t, fcodes[fvalid], k))
+    rec = record(err, ms, pms, n_bytes, lib)
+    report(card, f_name, f"corpus chunk 2^22 B at {off}, k={k}, {n_valid} valid windows, "
+           f"{n_distinct} slots", rec)
+    res[f_name] = rec
+    return res
+
+
+def facade_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, k: int,
+                engine: str, names) -> tuple[dict, object]:
+    """``python -m aindex_torch compute-aindex -k <k>`` on the corpus FASTA
+    (a subprocess, under --profile-dir), then ``AIndex.load_from_prefix``
+    and the facade's queries, each against the numpy oracle. Returns the
+    launch counts of the two (CLI and facade) and the loaded AIndex."""
+    import torch
+    from aindex_torch import AIndex
+    from aindex_torch.kernels import _cuda
+
+    t0 = time.perf_counter()
+    wcanon, wvalid = oracle_canon(reads, k)     # every window; also the positions' oracle
+    keys, counts = np.unique(wcanon[wvalid], return_counts=True)
+    print(f"facade k={k}: oracle spectrum {keys.size} distinct canonical {k}-mers "
+          f"({time.perf_counter() - t0:.1f} s)")
+    prefix = os.path.join(tmp, f"ecoli_25x.c{k}")
+    prof_dir = os.path.join(tmp, f"prof{k}")
+    n_bases = reads.size
+    cli_launches, out, t_cli = run_cli(["compute-aindex", "-i", fasta, "-o", prefix, "-k",
+                                        str(k), "--profile-dir", prof_dir])
+    stages = trace_stages(os.path.join(prof_dir, "build_all.trace.json"))
+    t_all = sum(stages[n] for n in ("build_all.reads", "build_all.count",
+                                    "build_all.positional"))
+    print(f"facade k={k} compute-aindex: {t_cli:.3f} s for the subprocess (interpreter, "
+          f"imports, kernel load, torch.profiler on); stages " + ", ".join(
+              f"{n} {v:.3f} s" for n, v in stages.items()) + f"; build_all "
+          f"{n_bases / t_all / 1e6:.2f} MB/s of bases, positional stage "
+          f"{n_bases / stages['build_all.positional'] / 1e6:.2f} MB/s; launches "
+          f"{ {n: c for n, c in cli_launches.items() if c} } ({card})")
+    check("pipeline complete" in out, "compute-aindex reports its artifacts")
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    ai = AIndex.load_from_prefix(prefix, kmer_size=k, load_reads=True, device=dev)
+    index = ai.sparse23
+    tables = index.tables
+    torch.cuda.synchronize()
+    print(f"facade k={k}: load_from_prefix + {index.engine} tables {time.perf_counter() - t0:.3f} s")
+    check(index.engine == engine, f"k={k} is served by the {engine} engine, got {index.engine}")
+    order = np.argsort(index.checker_host)
+    check(np.array_equal(index.checker_host[order], keys)
+          and np.array_equal(index.tf_host[order], counts.astype(np.uint32)),
+          f"k={k} index == oracle spectrum")
+    check(ai.n_reads == len(reads) and ai.aindex_loaded, "reads and positions loaded")
+
+    # tf, pfid and strand of 2^20 ASCII k-mers: half windows of the reads
+    rng = np.random.default_rng(71 + k)
+    r = rng.integers(0, len(reads), size=N_ASCII)
+    o = rng.integers(0, READ_LEN - k + 1, size=N_ASCII)
+    mat = reads[r[:, None], o[:, None] + np.arange(k)[None, :]]
+    mat[1::2] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_ASCII // 2, k))]
+    mat[::64, 7] = ord("N")
+    text = mat.tobytes().decode("ascii")
+    kmers = [text[i:i + k] for i in range(0, len(text), k)]
+    fwd, rc, ok = (a[:, 0] for a in oracle_windows23(mat, k))
+    canon = np.minimum(fwd, rc)
+    want = np.where(ok, oracle_lookup(keys, counts, canon), 0).astype(np.uint32)
+    for name, call, check_fn in (
+            ("get_tf_values", lambda: ai.get_tf_values(kmers),
+             lambda g: np.array_equal(np.asarray(g, np.uint32), want)),
+            ("get_pfids", lambda: index.get_pfids(kmers),
+             lambda g: np.array_equal(g == index.n, want == 0)
+             and np.array_equal(index.checker_host[g[want > 0]], canon[want > 0])),
+            ("get_strands", lambda: index.get_strands(kmers),
+             lambda g: np.array_equal(g, np.where(want > 0, np.where(fwd <= rc, 1, 2), 0)))):
+        t0 = time.perf_counter()
+        got = call()
+        dt = time.perf_counter() - t0
+        check(check_fn(got), f"facade k={k} {name}")
+        print(f"facade k={k} {name}: {N_ASCII} ASCII k-mers, {N_ASCII / dt / 1e6:.2f} M "
+              f"queries/s (host clock) ({card})")
+    check(ai.get_kid_by_kmer(kmers[0]) == (index.get_pfids(kmers[:1])[0] if want[0] else 0),
+          "get_kid_by_kmer")
+
+    # codes-in, 4 x 2^24 device codes: half windows of the reads, half random
+    gen = torch.Generator(device=dev).manual_seed(73)
+    half = N_CODES // 2
+    reads_dev = torch.from_numpy(reads).to(dev)
+    lut = torch.from_numpy(_LUT.astype(np.int64)).to(dev)
+    rr = torch.randint(0, len(reads), (half,), device=dev, generator=gen)
+    oo = torch.randint(0, READ_LEN - k + 1, (half,), device=dev, generator=gen)
+    sampled = torch.zeros(half, dtype=torch.int64, device=dev)
+    for j in range(k):
+        sampled = (sampled << 2) | lut[reads_dev[rr, oo + j].to(torch.int64)]
+    codes = torch.cat([sampled, torch.randint(0, 1 << (2 * k), (half,), dtype=torch.int64,
+                                              device=dev, generator=gen)])
+    del reads_dev, rr, oo, sampled
+    from aindex_torch.kernels.encode import canonical_code64
+    keys_dev = torch.from_numpy(keys.view(np.int64)).to(dev)
+    counts_dev = torch.from_numpy(counts.astype(np.int64)).to(dev)
+    c = canonical_code64(codes, k)
+    at = torch.searchsorted(keys_dev, c).clamp_(max=keys.size - 1)
+    want_codes = torch.where(keys_dev[at] == c, counts_dev[at], 0)
+    del c, at, keys_dev, counts_dev
+    got = ai.get_tf_values_codes_23mer(codes)
+    check(got.dtype == torch.uint32 and bool((bits64(got) == want_codes).all()),
+          f"facade k={k} get_tf_values_codes == oracle")
+    ms = cuda_ms(lambda: ai.get_tf_values_codes_23mer(codes), 20)
+    print(f"facade k={k} get_tf_values_codes_23mer: {N_CODES} device codes, "
+          f"{N_CODES / ms / 1e6:.3f} G queries/s ({ms:.4f} ms, CUDA events) ({card})")
+    del got, want_codes, codes
+
+    # coverage of 10,000 reads, cutoff 0 and 10
+    seqs = [row.tobytes().decode("ascii") for row in reads[:N_SEQ]]
+    wf, wr, wok = oracle_windows23(reads[:N_SEQ], k)
+    wtf = np.where(wok, oracle_lookup(keys, counts, np.minimum(wf, wr)), 0)
+    for cutoff in (0, 10):
+        t0 = time.perf_counter()
+        covs = ai.get_sequence_coverage_batch(seqs, cutoff)
+        dt = time.perf_counter() - t0
+        check(np.array_equal(np.array(covs, dtype=np.int64), np.where(wtf >= cutoff, wtf, 0)),
+              f"facade k={k} coverage cutoff {cutoff}")
+        print(f"facade k={k} get_sequence_coverage_batch cutoff {cutoff}: {N_SEQ} x "
+              f"{READ_LEN} bp, {N_SEQ / dt:.0f} sequences/s (host clock) ({card})")
+
+    # De Bruijn CONT of 2^14 k-mers of the reads
+    dmat = reads[r[:2 * N_FACADE_DB:2, None], o[:2 * N_FACADE_DB:2, None]
+                 + np.arange(k)[None, :]]
+    dtext = dmat.tobytes().decode("ascii")
+    dkmers = [dtext[i:i + k] for i in range(0, len(dtext), k)]
+    dfwd, _, _ = oracle_windows23(dmat, k)
+    ext = ((dfwd[:, :1] << np.uint64(2)) | np.arange(4, dtype=np.uint64)) \
+        & np.uint64((1 << (2 * k)) - 1)
+    ext_rc = np.zeros_like(ext)
+    for j in range(k):
+        ext_rc |= (np.uint64(3) - ((ext >> np.uint64(2 * (k - 1 - j))) & np.uint64(3))) \
+            << np.uint64(2 * j)
+    etf = oracle_lookup(keys, counts, np.minimum(ext, ext_rc).reshape(-1)).reshape(-1, 4)
+    best = np.array([max(i for i in range(4) if row[i] == row.max()) for row in etf])
+    t0 = time.perf_counter()
+    info = ai.debruijn_next_info_batch(dkmers)
+    dt = time.perf_counter() - t0
+    check([[d[b] for b in "ACGT"] for d in info] == etf.tolist()
+          and [d["best_hit"] for d in info] == ["ACGT"[b] for b in best]
+          and [d["best_ukmer"] for d in info] == ext[np.arange(len(best)), best].tolist(),
+          f"facade k={k} debruijn_next_info_batch")
+    print(f"facade k={k} debruijn_next_info_batch: {N_FACADE_DB} k-mers, "
+          f"{N_FACADE_DB / dt:.0f} CONT records/s (host clock) ({card})")
+
+    # positions by slot of 2^14 present k-mers, from the oracle's windows
+    pk = kmers[:2 * N_POS:2]
+    t0 = time.perf_counter()
+    got_pos = ai.get_positions_batch(pk)
+    dt = time.perf_counter() - t0
+    u = np.unique(canon[:2 * N_POS:2])
+    flat = wcanon.reshape(-1)
+    at = np.minimum(np.searchsorted(u, flat), u.size - 1)
+    hit = np.flatnonzero((u[at] == flat) & wvalid.reshape(-1))
+    w = wcanon.shape[1]
+    p = (hit // w) * (READ_LEN + 1) + hit % w
+    srt = np.lexsort((p, at[hit]))
+    grp, p = at[hit][srt], p[srt]
+    bounds = np.searchsorted(grp, np.arange(u.size + 1))
+    slot_u = np.searchsorted(u, canon[:2 * N_POS:2])
+    want_pos = [p[bounds[j]:bounds[j + 1]].tolist() if ok[2 * i] else []
+                for i, j in enumerate(slot_u)]
+    check(got_pos == want_pos, f"facade k={k} get_positions_batch == oracle")
+    print(f"facade k={k} get_positions_batch: {N_POS} k-mers -> "
+          f"{sum(map(len, got_pos))} positions, {N_POS / dt:.0f} k-mers/s (host clock) ({card})")
+    flat_pos = [q for lst in got_pos for q in lst][:4096]
+    check([ai.get_rid(q) for q in flat_pos] == [q // (READ_LEN + 1) for q in flat_pos],
+          f"facade k={k} get_rid of the positions")
+    del wcanon, wvalid, flat, at, hit, p
+
+    facade = _cuda.launches()
+    launched = {n: cli_launches[n] + facade[n] for n in facade}
+    print(f"facade k={k} launches: compute-aindex "
+          f"{ {n: c for n, c in cli_launches.items() if c} }, facade "
+          f"{ {n: c for n, c in facade.items() if c} }")
+    for name in names:
+        check(launched[name] > 0, f"{name} launched on the k={k} path")
+    for name in QUOT_KERNELS:
+        check(launched[name] == 0, f"no {name} launch on the k={k} path")
+    for sfx in (".reads", ".ridx", ".header", ".tf.bin", ".pf", ".kmers.bin", ".index.bin",
+                ".indices.bin"):
+        if os.path.exists(prefix + sfx):
+            os.remove(prefix + sfx)
+    return launched, ai
+
+
+def golden_path(dev, tmp: str) -> None:
+    """The reference-built sets of tests/golden_ref through
+    ``AIndex.load_from_prefix``, against p.23.dat and counts of p.reads."""
+    import gzip
+    import shutil
+    from aindex_torch import AIndex
+    from aindex_torch.core.codec import revcomp
+
+    gold = os.path.join(HERE, "tests", "golden_ref")
+    blob = open(os.path.join(gold, "p.reads")).read()
+
+    def occurrences(km):
+        out = set()
+        for q in {km, revcomp(km)}:
+            start = blob.find(q)
+            while start >= 0:
+                out.add(start)
+                start = blob.find(q, start + 1)
+        return out
+
+    t0 = time.perf_counter()
+    ai = AIndex.load_from_prefix(os.path.join(gold, "p.23"), load_reads=True, device=dev)
+    dat = [line.split() for line in open(os.path.join(gold, "p.23.dat"))]
+    kms = [km for km, _ in dat]
+    check(not ai.sparse23.canonical_keys and ai.get_tf_values(kms) == [int(c) for _, c in dat]
+          and ai.get_tf_values([revcomp(km) for km in kms]) == [int(c) for _, c in dat],
+          "golden p.23: tf of every .dat k-mer and its reverse complement == its count")
+    filled = 0
+    for km, pos in zip(kms, ai.get_positions_batch(kms)):
+        want = {p for p in occurrences(km) if min(km, revcomp(km)) == km}
+        check(set(pos) == want, f"golden p.23 positions of {km}")
+        filled += bool(want)
+    check(filled == 81, f"golden p.23: {filled} slots with positions (the reference's 81)")
+    d = os.path.join(tmp, "gold13")
+    os.makedirs(d, exist_ok=True)
+    for name in ("p.13.pf", "p.13.tf.bin", "p.13.indices.bin"):
+        with gzip.open(os.path.join(gold, name + ".gz"), "rb") as f, \
+                open(os.path.join(d, name), "wb") as out:
+            shutil.copyfileobj(f, out)
+    for name in ("p.13.index.bin", "p.reads", "p.ridx"):
+        shutil.copy(os.path.join(gold, name), os.path.join(d, name))
+    ai13 = AIndex.load_from_prefix(os.path.join(d, "p.13"), load_reads=True, device=dev)
+    occ = {}
+    for i in range(len(blob) - K + 1):
+        km = blob[i:i + K]
+        if set(km) <= set("ACGT"):
+            occ[km] = occ.get(km, 0) + 1
+    kms13 = sorted(occ)
+    check(ai13.get_tf_values_13mer(kms13) == [occ[km] for km in kms13]
+          and ai13.n_reads == ai.n_reads,
+          "golden p.13: the re-keyed reference table == counts of p.reads")
+    from aindex_torch.index import emphf
+    emphf.clear_perm_cache()
+    shutil.rmtree(d)
+    print(f"golden sets: p.23 ({ai.sparse23.n} reference-keyed slots, {filled} with positions) "
+          f"and p.13 ({len(kms13)} 13-mers of p.reads) through AIndex.load_from_prefix, == "
+          f".dat and p.reads counts ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1227,6 +1693,22 @@ def main() -> int:
         t0 = time.perf_counter()
         counts.update(positional_path(dev, card, tmp, reads, fasta, table, oracle))
         print(f"phase positional path: {time.perf_counter() - t0:.1f} s")
+        del table, oracle
+
+        for k, engine, names in FACADE_CONFIGS:
+            t0 = time.perf_counter()
+            launched, ai = facade_path(dev, card, tmp, reads, fasta, k, engine, names)
+            counts.update({name: launched[name] for name in names})
+            print(f"phase facade path k={k}: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            measured.update(engines_vs_plain(dev, card, ai.sparse23, reads, names))
+            print(f"phase {engine} kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+            del ai
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        golden_path(dev, tmp)
+        print(f"phase golden sets: {time.perf_counter() - t0:.1f} s")
     for name in _cuda.KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on its main path")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")

@@ -214,9 +214,14 @@ class TestFiles:
                     os.remove(path)
 
     def test_load_pf_path_not_ported(self, tmp_path):
-        with pytest.raises(NotImplementedError):
+        """The emphf re-keying load is ported (tests/test_torch_emphf.py
+        holds it to aindex_tpu on the golden 13-mer set); missing files
+        raise as aindex_tpu's do."""
+        with pytest.raises(FileNotFoundError):
             td.Dense13Index.load(str(tmp_path / "x.tf.bin"), str(tmp_path / "x.pf"),
                                  device="cpu")
+        with pytest.raises(FileNotFoundError):
+            jd.Dense13Index.load(str(tmp_path / "x.tf.bin"), str(tmp_path / "x.pf"))
 
     def test_from_numpy_on_jax_table(self, built, kmers):
         _, j = built

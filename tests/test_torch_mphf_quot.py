@@ -24,6 +24,7 @@ from aindex_torch import native as tnative
 from aindex_torch.index import mphf as tmphf
 from aindex_torch.index import quotcuckoo as tq
 from aindex_torch.io import fastq as tfastq
+from aindex_torch.kernels import probe as tprobe
 from aindex_torch.kernels import quot as tquot
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -192,13 +193,13 @@ def test_quot_query_and_query_tf_match_jax(built, probe_inputs, masked):
     tv = None if v is None else torch.from_numpy(v)
     jv = None if v is None else jnp.asarray(v)
     tk = torch.from_numpy(canon.view(np.int64))
-    tf, slot = tquot.quot23(_tables(t), tk, tv, k=23, canon=False, slot=True)
+    tf, slot = tquot.quot23(_tables(t), tk, tv, k=23, rule=tprobe.KEYS, slot=True)
     jtf, jslot = jq.quot_query(*j.device, *j.slot_device, jnp.asarray(canon), jv, *j.mults,
                                m=j.m, lb=j.lb, w=j.w)
     np.testing.assert_array_equal(_u32(tf), np.asarray(jtf))
     assert slot.dtype == torch.int32
     np.testing.assert_array_equal(slot.numpy(), np.asarray(jslot))
-    tf_only = tquot.quot23(_tables(t), tk, tv, k=23, canon=False)
+    tf_only = tquot.quot23(_tables(t), tk, tv, k=23, rule=tprobe.KEYS)
     jtf_only = jq.quot_query_tf(*j.device, jnp.asarray(canon), jv, *j.mults,
                                 m=j.m, lb=j.lb, w=j.w)
     np.testing.assert_array_equal(_u32(tf_only), np.asarray(jtf_only))

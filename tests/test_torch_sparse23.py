@@ -204,12 +204,12 @@ class TestCoverageAndCont:
         import aindex_torch.index.sparse23 as tsparse
         seen = []
 
-        def spy(t, packed, vbits, rows, stride, k, cutoff):
+        def spy(t, packed, vbits, rows, stride, k, cutoff, rule):
             seen.append((rows, stride))
-            return real(t, packed, vbits, rows, stride, k, cutoff)
+            return real(t, packed, vbits, rows, stride, k, cutoff, rule)
 
-        real = tsparse.quotcov23
-        monkeypatch.setattr(tsparse, "quotcov23", spy)
+        real = tsparse.probe.coverage
+        monkeypatch.setattr(tsparse.probe, "coverage", spy)
         rng = np.random.default_rng(3)
         seqs = ["".join(rng.choice(list("ACGT"), n)) for n in lengths]
         covs = built[0].sequence_coverage_batch(seqs)
@@ -266,9 +266,12 @@ class TestStatsAndPersistence:
         _same_index(t, JIndex.load(str(tmp_path / "t")))
 
     def test_load_rejects_emphf_garbage_and_mismatch(self, built, tmp_path):
+        """A reference-built (emphf) set loads, reference-keyed, but not at
+        k > 30 (it has no MPHF walk); garbage and size mismatches raise."""
         golden = os.path.join(HERE, "golden_ref", "p.23")
-        with pytest.raises(NotImplementedError, match="emphf"):
-            TIndex.load(golden, device="cpu")
+        assert not TIndex.load(golden, device="cpu").canonical_keys
+        with pytest.raises(ValueError, match="emphf"):
+            TIndex.load(golden, k=31, device="cpu")
         t, _ = built
         t.save(str(tmp_path / "t"))
         (tmp_path / "bad.pf").write_bytes(b"garbage!" * 8)
@@ -281,13 +284,15 @@ class TestStatsAndPersistence:
                               str(tmp_path / "t.kmers.bin"), device="cpu")
 
     def test_unported_engine_raises(self, random_reads):
-        """k = 31 is quotient-ineligible at this n: aindex_tpu would use its
-        wide cuckoo table, which the port does not have yet."""
+        """k = 31 is quotient-ineligible at this n: the MPHF walk serves it,
+        as in aindex_tpu (tests/test_torch_engines.py holds it to every
+        query family), and the index raises for no k up to 31."""
         t = TIndex.build_from_sequences(random_reads, k=31, device="cpu")
         j = JIndex.build_from_sequences(random_reads, k=31)
         _same_index(t, j)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.get_tf_values(["A" * 31])
+        kmers = [r[i:i + 31] for r in random_reads for i in range(len(r) - 30)] + ["A" * 31]
+        _eq(t.get_tf_values(kmers), j.get_tf_values(kmers))
+        assert t.engine == "walk"
 
 
 def test_sparse23_imports_without_jax_or_aindex_tpu():

@@ -15,6 +15,9 @@ the reference it is tested against.
 
 ``AIndex`` (api.py) is the user-facing facade over all of them, and
 ``aindex-torch`` / ``python -m aindex_torch`` (cli.py) the command line.
+``parallel`` holds the multi-device paths on ``torch.distributed``: the
+data-parallel builds and the slot-sharded query engine over a (data,
+index) device mesh.
 """
 
 __version__ = "0.1.0"

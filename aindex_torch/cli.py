@@ -7,9 +7,10 @@ compute-reads, compute-aindex, compute-aindex-direct, compute-index,
 reads-to-fasta, version, info, platform, api-docs, plus analyze), every
 subcommand in-process. The subcommands that build or load an index take
 ``--device`` (default ``cuda``: the card, and there the kernels; ``cpu``
-runs their plain versions). Multi-device builds (``--devices`` above 1,
-``--distributed``) raise ``NotImplementedError`` until the multi-device
-slice.
+runs their plain versions). ``compute-aindex --devices N`` builds on a
+``data`` mesh over min(N, world size) ranks (a world of one when the
+process has joined no job), and ``--distributed`` joins the job
+``torchrun`` started and builds over every rank of it.
 """
 
 from __future__ import annotations
@@ -175,10 +176,6 @@ def cmd_compute_aindex(args) -> int:
     from aindex_torch.pipeline.build import BuildConfig, build_all
     inputs = _split_inputs(args.input)
     _check_distinct(inputs, [args.output + ".reads"])
-    if getattr(args, "distributed", False):
-        raise NotImplementedError(
-            "--distributed: multi-host builds are not ported to aindex_torch yet "
-            "(multi-device slice, ROADMAP A.9)")
     cfg = BuildConfig(prefix=args.output, k=args.kmer_size,
                       min_tf=args.min_count, build_aindex=not args.no_aindex,
                       keep_dat=args.keep_dat,
@@ -187,6 +184,12 @@ def cmd_compute_aindex(args) -> int:
                       profile_dir=getattr(args, "profile_dir", None),
                       skip_existing=getattr(args, "skip_existing", False),
                       dat_path=getattr(args, "dat", None), device=args.device)
+    if getattr(args, "distributed", False):
+        import torch
+        from aindex_torch.parallel import distributed
+        distributed.initialize(device=args.device)
+        distributed.ensure_group(device=args.device)  # outside a job: a world of one
+        cfg.mesh = distributed.global_mesh(device_type=torch.device(args.device).type)
     artifacts = build_all(inputs, cfg, read_type=args.type)
     print("pipeline complete:")
     for name, path in artifacts.items():
@@ -347,10 +350,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "counting — the reference pipeline's jellyfish "
                         "option, counter-agnostic")
     p.add_argument("--devices", type=int, default=None,
-                   help="count on a data-parallel mesh over N devices (above 1: "
-                        "not ported yet)")
+                   help="build on a data-parallel mesh over min(N, world size) ranks "
+                        "(one rank a device; a world of one outside a torchrun job)")
     p.add_argument("--distributed", action="store_true",
-                   help="join a multi-host build (not ported yet)")
+                   help="join the torchrun job (MASTER_ADDR, MASTER_PORT, RANK, "
+                        "WORLD_SIZE, LOCAL_RANK) and build over every rank's device; "
+                        "run as torchrun --nproc-per-node N -m aindex_torch "
+                        "compute-aindex ... --distributed")
     p.add_argument("--progress", action="store_true",
                    help="live per-phase progress (bar on a TTY, log lines "
                         "otherwise)")

@@ -187,6 +187,47 @@ def stream_blob_chunks(pieces: Iterator[np.ndarray], k: int,
             yield padded, off
 
 
+def blob_chunk_batches(blob: np.ndarray, k: int, chunk: int, rows: int,
+                       row_range: range | None = None) -> Iterator[np.ndarray]:
+    """Group consecutive overlapping chunks into [rows, chunk] batches.
+
+    Each row is one ``blob_chunks`` chunk, so stacking preserves the
+    exactly-once window invariant (a chunk's last k-1 window starts are
+    incomplete/invalid and re-produced by the next chunk). The final batch
+    is padded with all-newline rows (zero valid windows). This is the unit
+    of data-parallel streaming: the row axis shards over the mesh's
+    ``data`` axis.
+
+    ``row_range`` selects which rows of each batch to materialise (a
+    rank's input shard: each rank packs only its own mesh rows).
+    Non-selected rows are never copied out of ``blob``: with a memmapped
+    blob their file pages are never read. Yielded batches then have
+    ``len(row_range)`` rows at the same global chunk grid, and every rank
+    gets the same number of batches.
+    """
+    sel = row_range if row_range is not None else range(rows)
+    batch: list[np.ndarray] = []
+    i = 0
+    width = None
+    for piece, _ in blob_chunks_lazy(blob, k, chunk):
+        if width is None:
+            width = piece.width
+        if i in sel:
+            batch.append(piece.materialise())
+        i += 1
+        if i == rows:
+            yield np.stack(batch)
+            batch, i = [], 0
+    if i:
+        n_sel = sum(1 for r in sel if r < i)
+        pad_rows = len(sel) - n_sel
+        if batch or pad_rows:
+            stacked = (np.stack(batch) if batch
+                       else np.zeros((0, width), np.uint8))
+            pad = np.full((pad_rows, width), ord("\n"), dtype=np.uint8)
+            yield np.concatenate([stacked, pad]) if pad.size else stacked
+
+
 @dataclasses.dataclass
 class _LazyChunk:
     """A blob chunk that is sliced (and padded) only when materialised —

@@ -29,6 +29,13 @@
 //      same launch writes.
 // The valid count stays on the device (counters[0]); the host never waits
 // inside the chunk.
+//
+// pairs() is the same fill over the records the mesh build exchanges
+// (aindex_tpu/parallel/positional.py:133-182): step 1 reads a record's
+// slot instead of a window's, only the slots of this shard's range are
+// kept, and a record's position comes from its source's first window and
+// its in-chunk offset. Records are indexed in (source, offset) order, so
+// the stable sort keeps the single-device order.
 #pragma once
 
 #include "probe.cuh"
@@ -74,8 +81,32 @@ __device__ __forceinline__ long long lower_bound(const unsigned long long* __res
   return lo;
 }
 
+// The blob position of sorted key i's original index: a chunk's window i
+// lies at off + i.
+struct ChunkPos {
+  long long off;
+  __device__ __forceinline__ long long operator()(long long i) const { return off + i; }
+};
+
+// The records of the positional exchange (parallel/positional.py), rows of
+// cols entries, row r from source r, whose windows start at roff[r]:
+// packed records ((slot + 1) << DELTA_BITS) | delta, a window at roff[r] +
+// delta; or, unpacked, slot ids in window order, column j at roff[r] + j.
+constexpr int DELTA_BITS = 24;
+struct PairPos {
+  const long long* rec;
+  const long long* roff;
+  long long cols;
+  bool packed;
+  __device__ __forceinline__ long long operator()(long long i) const {
+    const long long r = i / cols;
+    return roff[r] + (packed ? (rec[i] & ((1LL << DELTA_BITS) - 1)) : i - r * cols);
+  }
+};
+
+template <class Pos>
 __global__ void fill_kernel(const unsigned long long* __restrict__ s, const int* __restrict__ n_ptr,
-                            int idx_bits, long long off, const long long* __restrict__ offsets,
+                            int idx_bits, Pos pos, const long long* __restrict__ offsets,
                             const int* __restrict__ cursor, long long total,
                             long long* __restrict__ positions) {
   const long long n = *n_ptr;
@@ -88,8 +119,30 @@ __global__ void fill_kernel(const unsigned long long* __restrict__ s, const int*
     const long long head = lower_bound(s, i, key & ~idx_mask);
     const long long cell = offsets[slot] + static_cast<long long>(cursor[slot]) + (i - head);
     if (cell >= 0 && cell < total)
-      positions[cell] = off + static_cast<long long>(key & idx_mask) + 1;
+      positions[cell] = pos(static_cast<long long>(key & idx_mask)) + 1;
   }
+}
+
+// The keys of exchanged records (see PairPos): record i with slot s in
+// [lo, lo + n_slots) gets the key ((s - lo) << idx_bits) | i; others
+// (empty records, slot -1, other shards' slots) are flagged off.
+template <bool PACKED>
+__global__ void pair_keys(const long long* __restrict__ rec, long long n, long long lo,
+                          long long n_slots, int idx_bits, unsigned long long* __restrict__ keys,
+                          int* __restrict__ flags) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    const long long r = rec[i];
+    const long long slot = PACKED ? (r >> DELTA_BITS) - 1 : r;
+    const long long local = slot - lo;
+    const bool ok = slot >= 0 && local >= 0 && local < n_slots;
+    keys[i] = ok ? (static_cast<unsigned long long>(local) << idx_bits) |
+                       static_cast<unsigned long long>(i)
+                 : 0ull;
+    flags[i] = ok ? 1 : 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) flags[n] = 0;
 }
 
 __global__ void advance_kernel(const unsigned long long* __restrict__ s,
@@ -118,6 +171,42 @@ __global__ void advance_kernel(const unsigned long long* __restrict__ s,
 // int32[n_win + 1]; hist int32[256 * ceil(n_win / 1024)]; sums
 // int32[ceil(max(n_win + 1, 256 * ceil(n_win / 1024)) / 2048)]. Returns
 // the first CUDA error of the launches, or 0.
+// Steps 2-5 over the n keys in kb flagged in ix (idx int32[n + 1]): the
+// compaction, the sort on the slot bits and the fill at pos(index).
+template <class Pos>
+int sort_and_fill(unsigned long long* ka, unsigned long long* kb, int* ix, int* cn, long long n,
+                  int slot_bits, int idx_bits, Pos pos, const void* offsets, void* cursor,
+                  void* positions, long long total, void* hist, void* sums, cudaStream_t s) {
+  const unsigned grid = dna13::grid_for(n);
+  auto* sm = static_cast<int*>(sums);
+  if (int err = scan::exclusive_scan<int, int>(ix, ix, n + 1, sm, cn, s)) return err;
+  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, n, ka);
+  KERNEL_CHECK();
+
+  unsigned long long* sorted = nullptr;
+  if (int err = radix::sort(ka, kb, cn, n, idx_bits, idx_bits + slot_bits,
+                            static_cast<int*>(hist), sm, s, &sorted))
+    return err;
+  fill_kernel<Pos><<<grid, dna13::BLOCK, 0, s>>>(sorted, cn, idx_bits, pos,
+                                                static_cast<const long long*>(offsets),
+                                                static_cast<const int*>(cursor), total,
+                                                static_cast<long long*>(positions));
+  KERNEL_CHECK();
+  advance_kernel<<<grid, dna13::BLOCK, 0, s>>>(sorted, cn, idx_bits, static_cast<int*>(cursor));
+  KERNEL_CHECK();
+  return 0;
+}
+
+// packed uint32[n_words] + vbits uint8[2 * n_words]: the chunk, whose
+// n_win = 16 * n_words - k + 1 windows start at blob positions off + i.
+// Slots run over [0, n_slots), slot_bits = bits of n_slots - 1, idx_bits =
+// bits of n_win - 1, and slot_bits + idx_bits <= 64. offsets:
+// int64[n_slots]; cursor: int32[n_slots], advanced in place; positions:
+// int64[total], written in place. Scratch, all device memory of the
+// caller: counters int32[1]; keys_a, keys_b uint64[n_win]; idx
+// int32[n_win + 1]; hist int32[256 * ceil(n_win / 1024)]; sums
+// int32[ceil(max(n_win + 1, 256 * ceil(n_win / 1024)) / 2048)]. Returns
+// the first CUDA error of the launches, or 0.
 template <class E, int RULE>
 int run(const E& e, int max_k, const void* packed, const void* vbits, long long n_words, int k,
         long long off, long long n_slots, int slot_bits, int idx_bits, const void* offsets,
@@ -128,33 +217,47 @@ int run(const E& e, int max_k, const void* packed, const void* vbits, long long 
       slot_bits < 1 || idx_bits < 1 || slot_bits + idx_bits > 64 ||
       (n_slots - 1) >> slot_bits != 0 || (n_win - 1) >> idx_bits != 0)
     return probe::BAD;
-  auto* ka = static_cast<unsigned long long*>(keys_a);
   auto* kb = static_cast<unsigned long long*>(keys_b);
   auto* ix = static_cast<int*>(idx);
-  auto* cn = static_cast<int*>(counters);
-  const unsigned grid = dna13::grid_for(n_win);
-
-  window_keys<E, RULE><<<grid, dna13::BLOCK, 0, s>>>(
+  window_keys<E, RULE><<<dna13::grid_for(n_win), dna13::BLOCK, 0, s>>>(
       static_cast<const unsigned*>(packed), static_cast<const unsigned char*>(vbits), n_words, k,
       n_win, e, n_slots, idx_bits, kb, ix);
   KERNEL_CHECK();
-  auto* sm = static_cast<int*>(sums);
-  if (int err = scan::exclusive_scan<int, int>(ix, ix, n_win + 1, sm, cn, s)) return err;
-  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, n_win, ka);
-  KERNEL_CHECK();
+  return sort_and_fill(static_cast<unsigned long long*>(keys_a), kb, ix,
+                       static_cast<int*>(counters), n_win, slot_bits, idx_bits, ChunkPos{off},
+                       offsets, cursor, positions, total, hist, sums, s);
+}
 
-  unsigned long long* sorted = nullptr;
-  if (int err = radix::sort(ka, kb, cn, n_win, idx_bits, idx_bits + slot_bits,
-                            static_cast<int*>(hist), sm, s, &sorted))
-    return err;
-  fill_kernel<<<grid, dna13::BLOCK, 0, s>>>(sorted, cn, idx_bits, off,
-                                           static_cast<const long long*>(offsets),
-                                           static_cast<const int*>(cursor), total,
-                                           static_cast<long long*>(positions));
+// The receive side of the positional exchange (K9's pairs-in entry): rec
+// int64[n_src, cols] as PairPos describes (packed != 0: packed records;
+// else slot ids), roff int64[n_src]; the slots of [lo, lo + n_slots) are
+// filled in (source, column) order, the order of the single-device fill.
+// slot_bits and idx_bits as in run(), idx_bits for n_src * cols records;
+// the scratch of run() for n_src * cols keys.
+inline int pairs(const void* rec, long long n_src, long long cols, int packed, const void* roff,
+                 long long lo, long long n_slots, int slot_bits, int idx_bits,
+                 const void* offsets, void* cursor, void* positions, long long total,
+                 void* counters, void* keys_a, void* keys_b, void* idx, void* hist, void* sums,
+                 cudaStream_t s) {
+  const long long n = n_src * cols;
+  if (n_src <= 0 || cols <= 0 || n >= (1LL << 31) - 1 || n_slots <= 0 || slot_bits < 1 ||
+      idx_bits < 1 || slot_bits + idx_bits > 64 || (n_slots - 1) >> slot_bits != 0 ||
+      (n - 1) >> idx_bits != 0)
+    return probe::BAD;
+  const auto* r = static_cast<const long long*>(rec);
+  auto* kb = static_cast<unsigned long long*>(keys_b);
+  auto* ix = static_cast<int*>(idx);
+  if (packed)
+    pair_keys<true><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(r, n, lo, n_slots, idx_bits, kb,
+                                                               ix);
+  else
+    pair_keys<false><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(r, n, lo, n_slots, idx_bits, kb,
+                                                                ix);
   KERNEL_CHECK();
-  advance_kernel<<<grid, dna13::BLOCK, 0, s>>>(sorted, cn, idx_bits, static_cast<int*>(cursor));
-  KERNEL_CHECK();
-  return 0;
+  return sort_and_fill(static_cast<unsigned long long*>(keys_a), kb, ix,
+                       static_cast<int*>(counters), n, slot_bits, idx_bits,
+                       PairPos{r, static_cast<const long long*>(roff), cols, packed != 0}, offsets,
+                       cursor, positions, total, hist, sums, s);
 }
 
 // The sparse fill entry of an engine: rule CANON or FWD_RC.

@@ -10,6 +10,11 @@
 // (positional.py:208-216, index/sparse23.py:371 _resolve ->
 // index/quotcuckoo.py:378 quot_query), K6's probe (probe.cuh).
 //
+// The second entry, posfill_pairs, is the receive side of the mesh build's
+// exchange (fill.cuh pairs()): it replaces the _scatter_chunk calls of
+// aindex_tpu/parallel/positional.py:119-182 on the records a data shard
+// receives (alltoall) or gathers (allgather).
+//
 // Bound: bytes. The chunk comes in packed (0.375 bytes a base), each valid
 // window writes one 8-byte position, and each distinct slot reads its
 // 8-byte offset and reads and writes its 4-byte cursor; the sparse probe
@@ -36,4 +41,19 @@ extern "C" int posfill(const void* const* p, const unsigned long long* u, const 
   return fill::sparse<probe::Quot>(p, u, packed, vbits, n_words, k, off, rule, n_slots,
                                    slot_bits, idx_bits, offsets, cursor, positions, total,
                                    counters, keys_a, keys_b, idx, hist, sums, stream);
+}
+
+// rec int64[n_src, cols]: packed records ((slot + 1) << 24) | delta (packed
+// != 0) or slot ids (-1 for none); roff int64[n_src], each source's first
+// window position; this shard's slots are [lo, lo + n_slots), offsets and
+// cursor indexed from lo. The other arguments as fill::run takes them, for
+// n_src * cols keys.
+extern "C" int posfill_pairs(const void* rec, long long n_src, long long cols, int packed,
+                             const void* roff, long long lo, long long n_slots, int slot_bits,
+                             int idx_bits, const void* offsets, void* cursor, void* positions,
+                             long long total, void* counters, void* keys_a, void* keys_b,
+                             void* idx, void* hist, void* sums, void* stream) {
+  return fill::pairs(rec, n_src, cols, packed, roff, lo, n_slots, slot_bits, idx_bits, offsets,
+                     cursor, positions, total, counters, keys_a, keys_b, idx, hist, sums,
+                     static_cast<cudaStream_t>(stream));
 }

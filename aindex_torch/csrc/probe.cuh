@@ -182,16 +182,22 @@ struct Mphf {
     return (g[node >> 4] >> (2 * static_cast<unsigned>(node & 15))) & 3u;
   }
 
-  // ref: the slot. hash_triple (lookup.py:83): node i lies in partition i.
-  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
-    if (n == 0) return false;
+  // The owner node of a key (lookup.py:124 mphf_owner_node): hash_triple
+  // (lookup.py:83) puts node i in partition i; the sum of the three
+  // g-values mod 3 picks one. Reads only the g-words.
+  __device__ __forceinline__ uint64_t owner(uint64_t key) const {
     const uint64_t h = mix64(key ^ seed);
     const uint64_t n0 = h % domain;
     const uint64_t n1 = mix64(h ^ 0x9E3779B97F4A7C15ull) % domain + domain;
     const uint64_t n2 = mix64(h + 0x165667B19E3779F9ull) % domain + 2 * domain;
     const unsigned v = (gval(n0) + gval(n1) + gval(n2)) % 3u;
-    const uint64_t node = v == 0 ? n0 : (v == 1 ? n1 : n2);
-    const int s = slots[node];
+    return v == 0 ? n0 : (v == 1 ? n1 : n2);
+  }
+
+  // ref: the slot.
+  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
+    if (n == 0) return false;
+    const int s = slots[owner(key)];
     if (checker[s] != key) return false;
     *tf_out = tf[s];
     *ref = s;

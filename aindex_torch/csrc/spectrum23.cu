@@ -29,6 +29,7 @@
 // never waits inside the chunk.
 #include "dna23.cuh"
 #include "radix.cuh"
+#include "runs.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -60,31 +61,6 @@ __global__ void keys_kernel(const unsigned long long* __restrict__ in, long long
     flags[p] = key != SENTINEL ? 1 : 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[n] = 0;
-}
-
-__global__ void run_flags(const unsigned long long* __restrict__ s, const int* __restrict__ n_ptr,
-                          long long cap, int* __restrict__ flags) {
-  const long long n = *n_ptr;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < cap;
-       i += step)
-    flags[i] = (i < n && (i == 0 || s[i] != s[i - 1])) ? 1 : 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) flags[cap] = 0;
-}
-
-__global__ void run_write(const unsigned long long* __restrict__ s, const int* __restrict__ n_ptr,
-                          const int* __restrict__ idx, unsigned long long* __restrict__ keys_out,
-                          int* __restrict__ start) {
-  const long long n = *n_ptr;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    if (i == 0 || s[i] != s[i - 1]) {
-      const int u = idx[i];
-      keys_out[u] = s[i];
-      start[u] = static_cast<int>(i);
-    }
-  }
 }
 
 __global__ void run_count(const int* __restrict__ start, const int* __restrict__ counters,
@@ -155,10 +131,10 @@ extern "C" int spectrum23(const void* packed, const void* vbits, long long n_wor
   unsigned long long* cur = nullptr;
   if (int e = radix::sort(ka, kb, cn, cap, 0, bits, hs, sm, s, &cur)) return e;
 
-  run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, cap, ix);
+  runs::run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, cap, ix);
   KERNEL_CHECK();
   if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn + 1, s)) return e;
-  run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, static_cast<int*>(start));
+  runs::run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, static_cast<int*>(start));
   KERNEL_CHECK();
   run_count<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const int*>(start), cn, cap, ko,
                                           static_cast<unsigned*>(counts_out));

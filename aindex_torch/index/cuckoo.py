@@ -54,6 +54,10 @@ class CuckooTable:
             self._tables = CuckooTables(t.contiguous(), self.m, self.seed1, self.seed2)
         return self._tables
 
+    def release_device(self) -> None:
+        """Drop the device copy of the table (``tables`` uploads it again)."""
+        self._tables = None
+
     @property
     def nbytes(self) -> int:
         return self.table_host.nbytes

@@ -93,6 +93,21 @@ def _count(counts: torch.Tensor, chunk_iter, on_progress) -> None:
         torch.cuda.synchronize(counts.device)
 
 
+def _count_blob_sharded(blob: np.ndarray, mesh, chunk: int, on_progress=None) -> torch.Tensor:
+    """Mesh-streamed dense count (aindex_tpu/index/dense13.py:39): this
+    rank's row of every [n_data, chunk] batch through K1 (double-buffered,
+    ``_count``), then one all_reduce over ``data``. Summing each rank's
+    whole table once after the last batch gives the bits of a sum per
+    batch: uint32 addition wraps associatively."""
+    from aindex_torch.parallel.count13 import merge_counts
+    from aindex_torch.parallel.distributed import local_row_chunks
+    from aindex_torch.parallel.mesh import mesh_device
+
+    counts = torch.zeros(SPACE_13, dtype=torch.int32, device=mesh_device(mesh))
+    _count(counts, local_row_chunks(blob, K13, chunk, mesh), on_progress)
+    return merge_counts(counts, mesh).view(torch.uint32)
+
+
 class Dense13Index:
     """Complete dense 13-mer frequency table on one device."""
 
@@ -139,11 +154,18 @@ class Dense13Index:
     # -- construction --------------------------------------------------
 
     @classmethod
-    def build_from_blob(cls, blob: np.ndarray, chunk: int = 1 << 22,
+    def build_from_blob(cls, blob: np.ndarray, chunk: int = 1 << 22, mesh=None,
                         on_progress=None, *, device="cuda") -> "Dense13Index":
         """Count all forward-strand 13-mers of a concatenated sequence blob,
         streamed through the device in overlapping chunks (newlines and
-        non-ACGT bytes invalidate their windows)."""
+        non-ACGT bytes invalidate their windows).
+
+        With ``mesh``, each rank counts its own ``data`` row of every batch
+        of chunks and one all_reduce merges the tables
+        (``_count_blob_sharded``); the table lives on the mesh's device on
+        every rank."""
+        if mesh is not None:
+            return cls(_count_blob_sharded(blob, mesh, chunk, on_progress))
         total = blob.size
         return cls._count_chunk_iter(
             ((p, min(o + chunk, total)) for p, o in blob_chunks(blob, K13, chunk)),

@@ -14,9 +14,12 @@ materialised in ``slots``. The hash is a Murmur-style 64-bit mixer.
 
 g-value convention: 3 = unassigned (and 3 === 0 mod 3), {0,1,2} = assigned.
 
-The sparse index queries through the quotient cuckoo table
-(index/quotcuckoo.py), not by walking the MPHF on the device; the host
-``lookup`` serves ``get_hash_values``.
+The sparse index walks this MPHF on the device where neither cuckoo
+table serves (k = 31: K11, ``csrc/mphfwalk.cu``), and the sharded engine
+walks its owner step on every rank (K12, ``csrc/shard23.cu``); otherwise
+it queries through the quotient cuckoo table (index/quotcuckoo.py) or the
+wide cuckoo table (index/cuckoo.py). The host ``lookup`` serves
+``get_hash_values`` of the single-device index.
 """
 
 from __future__ import annotations

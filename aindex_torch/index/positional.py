@@ -40,11 +40,8 @@ from aindex_torch.index.sparse23 import Sparse23Index
 from aindex_torch.kernels.positional import csr_offsets, fill_scratch, posfill
 from aindex_torch.kernels.probe import CANON
 
-_NO_MESH = ("the mesh build of the positional index is not ported to aindex_torch "
-            "yet (multi-GPU, ROADMAP slice 5)")
 
-
-def _tf_tensor(tf, n_slots: int, device: torch.device) -> torch.Tensor:
+def tf_tensor(tf, n_slots: int, device: torch.device) -> torch.Tensor:
     """The per-slot tf table as a uint32 tensor on ``device``: a uint32 (or
     int32 storage) tensor as it is, or a host array of unsigned counts that
     fit in uint32."""
@@ -111,7 +108,7 @@ class PositionalIndex:
         ``.copy``) for a profiler trace; the fill's ends when the device
         has finished it."""
         with record_function("positional.offsets"):
-            offsets = csr_offsets(_tf_tensor(tf, n_slots, device))
+            offsets = csr_offsets(tf_tensor(tf, n_slots, device))
             total = int(offsets[-1])
         if total == 0:
             return cls(offsets.cpu().numpy().view(np.uint64), np.zeros(0, np.uint64))
@@ -146,15 +143,24 @@ class PositionalIndex:
         output; with None the 13-mer table is counted in a first streaming
         pass (``Dense13Index.build_from_blob``), mirroring the reference,
         whose CSR sizing also reads the counting phase's .tf.bin
-        (reference: src/compute_aindex13.cpp:59-64)."""
+        (reference: src/compute_aindex13.cpp:59-64).
+
+        With ``mesh``, the fill runs data-parallel with the positions
+        sharded by slot range (``parallel/positional.py``) on the mesh's
+        device; the result is byte-identical to the single-device build."""
         if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+            from aindex_torch.parallel.mesh import mesh_device
+            device = mesh_device(mesh)
         device = resolve_device(device)
         if tf is None:
             if k != K13:
                 raise ValueError(f"tf=None counts 13-mers; give the 4^{k} table for k={k}")
             from aindex_torch.index.dense13 import Dense13Index
-            tf = Dense13Index.build_from_blob(blob, chunk=chunk, device=device).tf
+            tf = Dense13Index.build_from_blob(blob, chunk=chunk, mesh=mesh, device=device).tf
+        if mesh is not None:
+            from aindex_torch.parallel.positional import build_positional_sharded
+            return build_positional_sharded(blob, 4 ** k, tf, None, mesh, k, chunk,
+                                            on_progress)
         return cls._build_streaming(4 ** k, tf, _chunk_iter(blob, k, chunk), k, None,
                                     device, on_progress)
 
@@ -169,11 +175,17 @@ class PositionalIndex:
         wide cuckoo table or MPHF walk). The index's own tf array sizes the
         CSR; absent and invalid windows are dropped on the device. The
         engine's tables are built first (``index.tables``), in a range of
-        their own, ``positional.tables``."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
+        their own, ``positional.tables``.
+
+        With ``mesh``, the fill runs data-parallel and slot-range-sharded
+        (see ``build_dense13``); the verified slot probe is the index's own
+        engine on the rank's device, which must be the mesh's."""
         with record_function("positional.tables"):
             tables = index.tables
+        if mesh is not None:
+            from aindex_torch.parallel.positional import build_positional_sharded
+            return build_positional_sharded(blob, index.n, index.tf_host, tables, mesh, index.k,
+                                            chunk, on_progress, rule=index.rule)
         return cls._build_streaming(index.n, index.tf_host, _chunk_iter(blob, index.k, chunk),
                                     index.k, tables, index.device, on_progress, index.rule)
 

@@ -133,6 +133,10 @@ class QuotCuckoo:
                 m, self.lb, self.w, tuple(int(x) for x in self.mults))
         return self._tables
 
+    def release_device(self) -> None:
+        """Drop the device copy of the table (``tables`` uploads it again)."""
+        self._tables = None
+
     @property
     def nbytes(self) -> int:
         return self.fp_tf_host.nbytes + self.slot_host.nbytes

@@ -90,11 +90,25 @@ def _stream_iter(pieces, k: int, chunk: int):
 
 
 def count_canonical_kmers(blob: np.ndarray, k: int = K23, chunk: int = 1 << 22,
-                          on_progress=None, *, device="cuda"
-                          ) -> tuple[np.ndarray, np.ndarray]:
+                          reduce: str = "auto", mesh=None, on_progress=None, *,
+                          device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """(unique canonical codes uint64, counts uint64) over all valid
-    windows of the blob: the device reduce of aindex_tpu's
-    ``count_canonical_kmers`` (per-chunk K5, host merge)."""
+    windows of the blob: aindex_tpu's ``count_canonical_kmers``.
+
+    * ``mesh`` given: the data-parallel reduction, key-range sharded with
+      one all-gather per batch (``parallel/spectrum23.py``), on the mesh's
+      device;
+    * otherwise per-chunk K5 on ``device`` and a host merge.
+
+    ``reduce`` takes aindex_tpu's values ("auto", "device", "host") and
+    raises ValueError for others; all three run the device reduce, since
+    the port does not route chunk spectra between host and device (the
+    result is the same bits)."""
+    if reduce not in ("auto", "device", "host"):
+        raise ValueError(f"reduce must be 'auto', 'device' or 'host', got {reduce!r}")
+    if mesh is not None:
+        from aindex_torch.parallel.spectrum23 import count_canonical_kmers_sharded
+        return count_canonical_kmers_sharded(blob, mesh, k, chunk, on_progress=on_progress)
     device = resolve_device(device)
     return merge_spectra(_spectrum_parts(_blob_iter(blob, k, chunk), k, device,
                                          on_progress))
@@ -108,6 +122,34 @@ def count_canonical_kmers_stream(pieces, k: int = K23, chunk: int = 1 << 22,
     device = resolve_device(device)
     return merge_spectra(_spectrum_parts(_stream_iter(pieces, k, chunk), k, device,
                                          on_progress))
+
+
+def codes_tensor(codes, valid, device: torch.device):
+    """Codes (tensor, array or list of integers, read as uint64 bit
+    patterns as aindex_tpu's ``astype(uint64)`` reads them) and an optional
+    mask, as 1-D int64 / bool tensors on ``device``, and the codes' shape."""
+    if isinstance(codes, torch.Tensor):
+        if codes.dtype == torch.uint64:
+            codes = codes.view(torch.int64)
+        elif codes.dtype == torch.uint32:
+            codes = codes.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        elif codes.dtype.is_floating_point or codes.dtype == torch.bool:
+            raise TypeError(f"codes must be integers, got {codes.dtype}")
+        else:
+            codes = codes.to(torch.int64)
+    else:
+        arr = np.asarray(codes)
+        if arr.dtype.kind not in "iu":
+            raise TypeError(f"codes must be integers, got {arr.dtype}")
+        codes = torch.from_numpy(np.ascontiguousarray(arr.astype(np.uint64)).view(np.int64))
+    shape = tuple(codes.shape)
+    codes = codes.to(device).reshape(-1).contiguous()
+    if valid is not None:
+        valid = torch.as_tensor(valid).to(device=device, dtype=torch.bool)
+        if tuple(valid.shape) != shape:
+            raise ValueError(f"valid shape {tuple(valid.shape)} differs from codes shape {shape}")
+        valid = valid.reshape(-1).contiguous()
+    return codes, valid, shape
 
 
 class SharedQueryOps:
@@ -214,6 +256,7 @@ class Sparse23Index(SharedQueryOps):
         self._quot: quotcuckoo.QuotCuckoo | None = None
         self._cuckoo: CuckooTable | None = None
         self._walk: MphfTables | None = None
+        self._device_released = False
         #: seconds per build stage, filled by the builders
         self.build_seconds: dict[str, float] = {}
 
@@ -258,7 +301,12 @@ class Sparse23Index(SharedQueryOps):
         """The serving engine's tables on the index's device, as
         aindex_tpu's ``_query`` chooses them: the quotient table when
         eligible, else the wide cuckoo table (k <= 30), else the MPHF walk
-        over the ATPF MPHF and the checker and tf."""
+        over the ATPF MPHF and the checker and tf. Raises after
+        ``release_device``."""
+        if self._device_released:
+            raise RuntimeError(
+                "device arrays were released by shard_to(); query through the sharded "
+                "engine (AIndex facade) or the host paths")
         qc = self.quot
         if qc is not None:
             return qc.tables(self.device)
@@ -279,6 +327,22 @@ class Sparse23Index(SharedQueryOps):
                 torch.from_numpy(self.tf_host.view(np.int32)).to(dev, copy=True),
                 int(m.n), int(m.domain), int(m.seed))
         return self._walk
+
+    def release_device(self) -> None:
+        """Drop every device-resident table (the quotient or wide cuckoo
+        table, the MPHF walk's arrays) and pin the device paths shut
+        (aindex_tpu/index/sparse23.py:535).
+
+        Called by ``AIndex.shard_to`` once the mesh-sharded engine owns the
+        queries: without it every rank would keep a whole replica of the
+        index on its device and sharding would save nothing. Host arrays
+        stay (save, iteration, statistics, host lookups)."""
+        if self._quot is not None:
+            self._quot.release_device()
+        if self._cuckoo is not None:
+            self._cuckoo.release_device()
+        self._walk = None
+        self._device_released = True
 
     # -- construction --------------------------------------------------
 
@@ -302,11 +366,21 @@ class Sparse23Index(SharedQueryOps):
 
     @classmethod
     def build_from_blob(cls, blob: np.ndarray, k: int = K23, min_tf: int = 1,
-                        chunk: int = 1 << 22, on_progress=None, *,
+                        chunk: int = 1 << 22, mesh=None, *, on_progress=None,
                         device="cuda") -> "Sparse23Index":
         """Count every valid canonical k-mer of a concatenated sequence blob
         (newlines and non-ACGT bytes invalidate their windows), keep those
-        seen at least ``min_tf`` times, and index them."""
+        seen at least ``min_tf`` times, and index them. With ``mesh``, the
+        count runs data-parallel over the mesh (``count_canonical_kmers``)
+        and the index lives on the mesh's device."""
+        if mesh is not None:
+            from aindex_torch.parallel.mesh import mesh_device
+            keys, counts = count_canonical_kmers(blob, k, chunk, mesh=mesh,
+                                                 on_progress=on_progress)
+            if min_tf > 1:
+                keep = counts >= min_tf
+                keys, counts = keys[keep], counts[keep]
+            return cls.from_spectrum(keys, counts, k, device=mesh_device(mesh))
         return cls._build(_blob_iter(blob, k, chunk), k, min_tf, on_progress, device)
 
     @classmethod
@@ -437,35 +511,6 @@ class Sparse23Index(SharedQueryOps):
                                        rule=self.rule, slot=True, strand=True)
         return host_u32(tf), slot.cpu().numpy(), strand.cpu().numpy()
 
-    def _codes_in(self, codes, valid):
-        """Codes (tensor, array or list of integers, read as uint64 bit
-        patterns as aindex_tpu's ``astype(uint64)`` reads them) and an
-        optional mask, as 1-D int64 / bool tensors on the index's device."""
-        if isinstance(codes, torch.Tensor):
-            if codes.dtype == torch.uint64:
-                codes = codes.view(torch.int64)
-            elif codes.dtype == torch.uint32:
-                codes = codes.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-            elif codes.dtype.is_floating_point or codes.dtype == torch.bool:
-                raise TypeError(f"codes must be integers, got {codes.dtype}")
-            else:
-                codes = codes.to(torch.int64)
-        else:
-            arr = np.asarray(codes)
-            if arr.dtype.kind not in "iu":
-                raise TypeError(f"codes must be integers, got {arr.dtype}")
-            codes = torch.from_numpy(np.ascontiguousarray(arr.astype(np.uint64))
-                                     .view(np.int64))
-        shape = tuple(codes.shape)
-        codes = codes.to(self.device).reshape(-1).contiguous()
-        if valid is not None:
-            valid = torch.as_tensor(valid).to(device=self.device, dtype=torch.bool)
-            if tuple(valid.shape) != shape:
-                raise ValueError(f"valid shape {tuple(valid.shape)} differs "
-                                 f"from codes shape {shape}")
-            valid = valid.reshape(-1).contiguous()
-        return codes, valid, shape
-
     def _ext_tf(self, ext_codes: np.ndarray, cutoff: int) -> np.ndarray:
         flat = torch.from_numpy(np.ascontiguousarray(ext_codes, dtype=np.uint64)
                                 .reshape(-1).view(np.int64)).to(self.device)
@@ -502,7 +547,7 @@ class Sparse23Index(SharedQueryOps):
         the engine's query kernel (on the quotient table: revcomp +
         canonical + two 8-byte row probes, no slot column). ``valid=None``
         asserts every code is a valid k-mer."""
-        codes, valid, shape = self._codes_in(codes, valid)
+        codes, valid, shape = codes_tensor(codes, valid, self.device)
         return probe.query(self.tables, codes, valid, k=self.k, rule=self.rule).reshape(shape)
 
     def get_tf_both_directions(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray]:

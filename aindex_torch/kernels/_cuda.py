@@ -3,7 +3,8 @@
 Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
 includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with ctypes; a source may hold several C
-entries (K10 and K11 each hold a query, a coverage and a fill entry), each
+entries (K10 and K11 each hold a query, a coverage and a fill entry, K12
+an owner and a verify entry, K9 a chunk and a pairs-in entry), each
 a ``Kernel`` of its own with its own count. Nothing is built or loaded when
 this module is imported: the first launch builds every library, one ``nvcc``
 per source, all started together. Libraries are named by a hash of their
@@ -151,6 +152,30 @@ KERNELS: dict[str, Kernel] = {
         *_probe_kernels("mphfwalk", "mphfcov", "mphffill", "mphfwalk.cu",
                         "aindex_tpu/kernels/lookup.py:100", "aindex_tpu/index/sparse23.py:172",
                         "aindex_tpu/index/positional.py:205"),
+        # g, slots_local, node_lo, n_nodes, domain, seed, codes, packed, vbits, n_words,
+        # stride, k, canonical, n, key_out, fwd_out, valid_out, slot_part, stream
+        Kernel("shardowner", "shard23.cu",
+               [_P, _P, _LL, _LL, _ULL, _ULL, _P, _P, _P, _LL, _LL, _I, _I, _LL, _P, _P, _P, _P,
+                _P], "aindex_tpu/kernels/lookup.py:124"),
+        # slot, tf_local, checker_local, slot_lo, n_slots, key, valid, n, tf_part,
+        # found_part, stream
+        Kernel("shardverify", "shard23.cu", [_P, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P],
+               "aindex_tpu/parallel/query23.py:62"),
+        # keys_in, weights_in, weight_bytes, n, lo, hi, key_bits, keys_out, counts_out,
+        # counters, keys_a, keys_b, vals_a, vals_b, idx, start, hist, sums, sums64, stream
+        Kernel("spectrummerge", "merge23.cu",
+               [_P, _P, _I, _LL, _ULL, _ULL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                _P], "aindex_tpu/kernels/spectrum.py:149"),
+        # engine, p, u, rule, packed, vbits, n_words, k, n_slots, m, n_dest, cap, slots,
+        # buckets, counters, dest, hist, sums, stream
+        Kernel("posbucket", "posbucket.cu",
+               [_I, _P, _P, _I, _P, _P, _LL, _I, _LL, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P],
+               "aindex_tpu/parallel/positional.py:133"),
+        # rec, n_src, cols, packed, roff, lo, n_slots, slot_bits, idx_bits, offsets, cursor,
+        # positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
+        Kernel("posfill_pairs", "posfill.cu",
+               [_P, _LL, _LL, _I, _P, _LL, _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
+                _P], "aindex_tpu/parallel/positional.py:119"),
     )
 }
 

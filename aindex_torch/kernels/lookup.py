@@ -12,6 +12,13 @@ Codes are uint32 bit patterns (int32 or uint32 storage). A code outside
 [0, 4^13) reads what JAX's ``table[code.astype(int32)]`` reads: the int32
 value, plus 4^13 if negative, clamped into the table.
 
+K12 (kernel ``csrc/shard23.cu``: ``shard_owner`` and ``shard_verify``)
+is one index shard's part of a query against the slot-sharded index
+(``parallel/query23.py``): the owner node from the replicated g-values and
+the shard's node -> slot range, then the verify against the shard's slot
+range; ``mphf_owner_node`` (aindex_tpu/kernels/lookup.py:124),
+``shard_owner_plain`` and ``shard_verify_plain`` are its plain versions.
+
 K11 (kernel ``csrc/mphfwalk.cu``) is ``kernels/probe.py``'s query,
 coverage and fill on an ``MphfTables``; ``mix64``, ``hash_triple``,
 ``mphf_lookup`` and ``MphfTables.probe_plain`` are the plain versions of
@@ -29,10 +36,13 @@ import torch
 
 from aindex_torch.constants import K13, SPACE_13
 from aindex_torch.kernels import _cuda
-from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, revcomp_code13,
-                                         table_values, window_codes)
+from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check_packed,
+                                         packed_window_codes, revcomp_code13, revcomp_code64,
+                                         table_values, u64_le, window_codes)
 
 KERNEL = _cuda.KERNELS["gather13"]
+KERNEL_OWNER = _cuda.KERNELS["shardowner"]
+KERNEL_VERIFY = _cuda.KERNELS["shardverify"]
 
 #: table dtype -> bits per entry (the narrowed widths of ``_narrow``)
 WIDTHS = {torch.uint8: 8, torch.uint16: 16, torch.uint32: 32}
@@ -173,16 +183,23 @@ def hash_triple(keys: torch.Tensor, seed: int, domain: int):
             umod(mix64(h + _TRIPLE_C2), domain) + 2 * domain)
 
 
-def mphf_lookup(g_packed: torch.Tensor, slots: torch.Tensor, keys: torch.Tensor,
-                seed: int, domain: int) -> torch.Tensor:
-    """Unverified slot (int64) per key: the triple hash, three 2-bit
-    g-values, the owner node by (sum % 3), its slot
-    (aindex_tpu/kernels/lookup.py:100). Node ids stay int64."""
+def mphf_owner_node(g_packed: torch.Tensor, keys: torch.Tensor, seed: int,
+                    domain: int) -> torch.Tensor:
+    """Owner node (int64) per key, without the node -> slot read: the
+    triple hash, three 2-bit g-values, node by (sum % 3)
+    (aindex_tpu/kernels/lookup.py:124, whose int32 node ids these equal
+    below 2^31)."""
     nodes = hash_triple(keys, seed, domain)
     g = [(as_unsigned(g_packed[n >> 4]) >> ((n & 15) * 2)) & 3 for n in nodes]
     v = (g[0] + g[1] + g[2]) % 3
-    node = torch.where(v == 0, nodes[0], torch.where(v == 1, nodes[1], nodes[2]))
-    return slots[node].to(torch.int64)
+    return torch.where(v == 0, nodes[0], torch.where(v == 1, nodes[1], nodes[2]))
+
+
+def mphf_lookup(g_packed: torch.Tensor, slots: torch.Tensor, keys: torch.Tensor,
+                seed: int, domain: int) -> torch.Tensor:
+    """Unverified slot (int64) per key: the owner node's slot
+    (aindex_tpu/kernels/lookup.py:100). Node ids stay int64."""
+    return slots[mphf_owner_node(g_packed, keys, seed, domain)].to(torch.int64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,3 +257,143 @@ class MphfTables:
         slot = mphf_lookup(self.g_packed, self.slots, keys, self.seed, self.domain)
         hit = self.checker[slot] == keys
         return hit, as_unsigned(self.tf[slot]), slot
+
+
+# -- K12: one index shard's part of a sharded query ---------------------------------
+
+def _check_i32(name: str, t: torch.Tensor) -> None:
+    if t.dtype not in (torch.int32, torch.uint32) or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32/uint32 tensor")
+
+
+def shard_owner_plain(g_packed, slots_local, node_lo: int, seed: int, domain: int,
+                      codes=None, windows=None, k: int = 23, canonical: bool = False):
+    """Plain version of ``shard_owner``, same arguments and results."""
+    valid = None
+    if codes is None:
+        packed, vbits, rows, stride = windows
+        all_codes, all_valid = packed_window_codes(packed, vbits, k)
+        pos = (torch.arange(rows, device=packed.device)[:, None] * stride
+               + torch.arange(stride - k, device=packed.device)[None, :]).reshape(-1)
+        codes, valid = all_codes[pos], all_valid[pos]
+    key, fwd = codes, None
+    if canonical:
+        rc = revcomp_code64(codes, k)
+        fwd = u64_le(codes, rc)
+        key = torch.where(fwd, codes, rc)
+    local = mphf_owner_node(g_packed, key, seed, domain) - node_lo
+    inside = (local >= 0) & (local < slots_local.numel())
+    part = torch.where(inside, slots_local.view(torch.int32)[torch.where(inside, local, 0)], 0)
+    return key, part.to(torch.int32), fwd, valid
+
+
+def shard_owner(g_packed: torch.Tensor, slots_local: torch.Tensor, node_lo: int, seed: int,
+                domain: int, codes: torch.Tensor | None = None, windows=None, k: int = 23,
+                canonical: bool = False):
+    """One index shard's slot part per key: the owner node of the MPHF walk
+    from the replicated ``g_packed`` (int32[ceil(3 domain / 16)]), then
+    ``slots_local[node - node_lo]`` when the node lies in this shard's node
+    range (``slots_local``, int32[n_nodes]), else 0 (the local body of
+    aindex_tpu/parallel/query23.py:62 before its first psum).
+
+    The keys are ``codes`` (1-D int64 of uint64 bits), or with ``windows`` =
+    (packed, vbits, rows, stride) the windows of ``rows`` packed rows of
+    ``stride`` bases (``codec.pack_ascii_chunk`` of newline-padded rows, as
+    coverage takes them); ``canonical`` probes min(code, revcomp).
+
+    Returns (key int64[n], slot_part int32[n], fwd bool[n] or None (with
+    ``canonical``: code <= revcomp), valid bool[n] or None (with
+    ``windows``)). A CPU tensor runs the plain version; a CUDA tensor
+    launches K12's owner entry."""
+    _check_i32("g_packed", g_packed)
+    _check_i32("slots_local", slots_local)
+    if not 1 <= k <= 31:
+        raise ValueError(f"k={k} is outside 1..31")
+    if not 0 < domain < (1 << 32) // 3:
+        raise ValueError(f"domain {domain} is outside (0, 2^32 / 3)")
+    if (codes is None) == (windows is None):
+        raise ValueError("give exactly one of codes and windows")
+    if codes is not None:
+        if codes.dtype != torch.int64 or codes.dim() != 1 or not codes.is_contiguous():
+            raise ValueError("codes must be a contiguous 1-D int64 tensor")
+        inputs = (codes,)
+        n = codes.numel()
+    else:
+        packed, vbits, rows, stride = windows
+        check_packed(packed, vbits)
+        if stride <= k or rows < 0 or 16 * packed.numel() < rows * stride:
+            raise ValueError(f"packed holds {16 * packed.numel()} bases, fewer than "
+                             f"rows * stride = {rows} * {stride} (stride > {k})")
+        inputs = (packed, vbits)
+        n = rows * (stride - k)
+    if not _cuda.on_cuda(g_packed, slots_local, *inputs):
+        return shard_owner_plain(g_packed, slots_local, node_lo, seed, domain, codes, windows,
+                                 k, canonical)
+    dev = g_packed.device
+    key = torch.empty(n, dtype=torch.int64, device=dev) if (canonical or codes is None) \
+        else codes
+    part = torch.empty(n, dtype=torch.int32, device=dev)
+    fwd = torch.empty(n, dtype=torch.bool, device=dev) if canonical else None
+    valid = torch.empty(n, dtype=torch.bool, device=dev) if codes is None else None
+    if n:
+        packed, vbits, _, stride = windows if windows is not None else (None, None, 0, 0)
+        with torch.cuda.device(dev):
+            KERNEL_OWNER.launch(
+                g_packed.data_ptr(), slots_local.data_ptr(), node_lo, slots_local.numel(),
+                domain, seed & ((1 << 64) - 1), None if codes is None else codes.data_ptr(),
+                None if packed is None else packed.data_ptr(),
+                None if vbits is None else vbits.data_ptr(),
+                0 if packed is None else packed.numel(), stride, k, int(canonical), n,
+                None if key is codes else key.data_ptr(),
+                None if fwd is None else fwd.data_ptr(),
+                None if valid is None else valid.data_ptr(), part.data_ptr(), _cuda.stream(dev))
+    return key, part, fwd, valid
+
+
+def shard_verify_plain(slot, tf_local, checker_local, slot_lo: int, key, valid=None):
+    """Plain version of ``shard_verify``, same arguments and results."""
+    local = slot.to(torch.int64) - slot_lo
+    inside = (local >= 0) & (local < checker_local.numel())
+    safe = torch.where(inside, local, 0)
+    ok = inside & (checker_local[safe] == key)
+    if valid is not None:
+        ok = ok & valid
+    tf = torch.where(ok, tf_local.view(torch.int32)[safe], 0)
+    return tf.view(torch.uint32), ok.to(torch.int32)
+
+
+def shard_verify(slot: torch.Tensor, tf_local: torch.Tensor, checker_local: torch.Tensor,
+                 slot_lo: int, key: torch.Tensor, valid: torch.Tensor | None = None):
+    """One index shard's verified tf part per key: for a summed ``slot``
+    (int32) in this shard's slot range from ``slot_lo`` (``tf_local``
+    uint32 and ``checker_local`` int64 of uint64 keys, one entry a slot),
+    the shard's tf when its checker holds ``key`` (int64) and ``valid``
+    (bool or None) holds, else 0 (the local body of
+    aindex_tpu/parallel/query23.py:62 between its two psums).
+
+    Returns (tf_part uint32[n], found_part int32[n]). A CPU tensor runs the
+    plain version; a CUDA tensor launches K12's verify entry."""
+    _check_i32("slot", slot)
+    _check_i32("tf_local", tf_local)
+    if checker_local.dtype != torch.int64 or checker_local.shape != tf_local.shape \
+            or not checker_local.is_contiguous():
+        raise ValueError("checker_local must be a contiguous int64 tensor shaped like tf_local")
+    if key.dtype != torch.int64 or key.shape != slot.shape or not key.is_contiguous():
+        raise ValueError("key must be a contiguous int64 tensor shaped like slot")
+    if valid is not None and (valid.dtype != torch.bool or valid.shape != slot.shape
+                              or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous bool tensor shaped like slot")
+    extra = (valid,) if valid is not None else ()
+    if not _cuda.on_cuda(slot, tf_local, checker_local, key, *extra):
+        return shard_verify_plain(slot, tf_local, checker_local, slot_lo, key, valid)
+    dev = slot.device
+    n = slot.numel()
+    tf = torch.empty(n, dtype=torch.int32, device=dev)
+    found = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            KERNEL_VERIFY.launch(
+                slot.data_ptr(), tf_local.data_ptr(), checker_local.data_ptr(), slot_lo,
+                tf_local.numel(), key.data_ptr(), None if valid is None else valid.data_ptr(),
+                n, tf.data_ptr(), found.data_ptr(), _cuda.stream(dev))
+    return tf.view(torch.uint32), found

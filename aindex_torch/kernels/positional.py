@@ -11,9 +11,20 @@ Counterparts of aindex_tpu/index/positional.py's jitted functions:
   code; sparse: the verified slot of the index's engine under its query
   rule) and places the chunk's occurrences into their final CSR cells.
 
+The mesh build (``parallel/positional.py``) adds two more:
+
+* ``posbucket`` (kernel ``csrc/posbucket.cu``, K14) replaces the send side
+  of aindex_tpu/parallel/positional.py:133-172 ``local_alltoall``: each
+  window's slot, its destination shard, its rank among the chunk's windows
+  of that destination, and the packed record ((slot + 1) << 24) | window
+  in a fixed-capacity bucket per destination, with the overflow count;
+* ``posfill_pairs`` (K9's pairs-in entry, ``csrc/posfill.cu``) fills a
+  shard's slot range from the records it receives (alltoall) or the slots
+  it gathers (allgather), in (source, window) order.
+
 ``csr_offsets_plain``, ``scatter_chunk_plain`` (same arguments as JAX's
-``_scatter_chunk``) and ``chunk_slots_plain`` are the plain PyTorch
-versions. Offsets and positions are int64 tensors (JAX's uint64 positions
+``_scatter_chunk``), ``chunk_slots_plain``, ``posbucket_plain`` and
+``posfill_pairs_plain`` are the plain PyTorch versions. Offsets and positions are int64 tensors (JAX's uint64 positions
 never reach 2^63); the cursor is int32, as JAX's. ``posfill`` and
 ``scatter_chunk_plain`` update ``positions`` and ``cursor`` in place, where
 JAX donates and replaces them.
@@ -30,6 +41,13 @@ from aindex_torch.kernels.spectrum import INT32_LIMIT, SCAN_TILE, sort_scratch
 
 KERNEL_CSR = _cuda.KERNELS["csr_offsets"]
 KERNEL_FILL = _cuda.KERNELS["posfill"]
+KERNEL_BUCKET = _cuda.KERNELS["posbucket"]
+KERNEL_PAIRS = _cuda.KERNELS["posfill_pairs"]
+
+#: in-chunk window offsets are packed into this many low bits of a record
+DELTA_BITS = 24
+#: posbucket's engine ids (csrc/posbucket.cu), by the engine's fill entry
+_ENGINE = {"posfill": 1, "cuckoofill64": 2, "mphffill": 3}
 
 
 # -- K8 -----------------------------------------------------------------------
@@ -105,15 +123,16 @@ def chunk_slots_plain(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=
 
 
 def fill_scratch(n_win: int, device) -> tuple[torch.Tensor, ...]:
-    """K9's scratch for chunks of up to ``n_win`` windows: (counters,
-    keys_a, keys_b, idx, hist, sums). A build allocates it once and passes
-    it to every ``posfill`` call."""
+    """The scratch of K9 and K14 for chunks of up to ``n_win`` windows (or
+    records): (counters, keys_a, keys_b, idx, hist, sums). A build
+    allocates it once and passes it to every ``posfill``, ``posbucket`` and
+    ``posfill_pairs`` call."""
     n_hist, n_sums = sort_scratch(n_win)
 
     def ints(n):
         return torch.empty(n, dtype=torch.int32, device=device)
 
-    return (ints(1), torch.empty(n_win, dtype=torch.int64, device=device),
+    return (ints(2), torch.empty(n_win, dtype=torch.int64, device=device),
             torch.empty(n_win, dtype=torch.int64, device=device), ints(n_win + 1),
             ints(n_hist), ints(n_sums))
 
@@ -187,6 +206,163 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
     with torch.cuda.device(dev):
         kernel.launch(
             p, u, packed.data_ptr(), vbits.data_ptr(), packed.numel(), k, off, rule,
+            n_slots, slot_bits, idx_bits, offsets.data_ptr(), cursor.data_ptr(),
+            positions.data_ptr(), positions.numel(), *(t.data_ptr() for t in scratch),
+            _cuda.stream(dev))
+
+
+# -- K14 and K9's pairs-in entry: the mesh build's exchange ------------------------
+
+def posbucket_plain(packed, vbits, k: int, tables=None, rule: int = CANON, n_slots: int = 0,
+                    m: int = 1, n_dest: int = 0, cap: int = 0):
+    """Plain version of ``posbucket``, same arguments and results, the
+    formulation of aindex_tpu's ``local_alltoall``: a stable argsort by
+    destination and each window's rank from the start of its run."""
+    slot, ok = chunk_slots_plain(packed, vbits, k, tables, rule)
+    slot = torch.where(ok & (slot < n_slots), slot, -1)
+    if not n_dest:
+        return slot, None, torch.zeros((), dtype=torch.int32, device=slot.device)
+    dest = torch.where(slot >= 0, slot // m, n_dest)
+    order = torch.argsort(dest, stable=True)
+    dest_s, slot_s = dest[order], slot[order]
+    start = torch.searchsorted(dest_s, torch.arange(n_dest + 1, device=dest.device))
+    rank = torch.arange(dest.numel(), device=dest.device) - start[dest_s]
+    keep = (rank < cap) & (dest_s < n_dest)
+    overflow = ((rank >= cap) & (dest_s < n_dest)).sum().to(torch.int32)
+    buckets = torch.zeros((n_dest, cap), dtype=torch.int64, device=dest.device)
+    buckets[dest_s[keep], rank[keep]] = ((slot_s[keep] + 1) << DELTA_BITS) | order[keep]
+    return slot, buckets, overflow
+
+
+def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
+              rule: int = CANON, n_slots: int = 0, m: int = 1, n_dest: int = 0, cap: int = 0,
+              scratch: tuple[torch.Tensor, ...] | None = None):
+    """The send side of the positional exchange for one packed chunk.
+
+    Every window's slot (the forward code of a k <= 16 window when
+    ``tables`` is None, else the verified slot of the sparse engine under
+    ``rule``; -1 when invalid, absent or not below ``n_slots``). With
+    ``n_dest`` > 0, also the records ``((slot + 1) << 24) | window`` of the
+    windows bound for each destination shard d (the slots of [d * m, (d +
+    1) * m)), in window order, in ``buckets[d, :cap]``, zero past the end,
+    and the count of windows that found their bucket full.
+
+    Returns (slots int64[n_win], buckets int64[n_dest, cap] or None,
+    overflow int32 scalar tensor). ``scratch`` (``fill_scratch``) is
+    allocated per call when not given. A CPU tensor runs the plain
+    version; a CUDA tensor launches K14."""
+    check_packed(packed, vbits)
+    n_win = 16 * packed.numel() - k + 1
+    if not 0 < n_win < INT32_LIMIT:
+        raise ValueError(f"a chunk of {16 * packed.numel()} bases gives {n_win} windows "
+                         f"of k={k}; the kernel takes 1 .. 2^31 - 2")
+    if n_slots <= 0 or m <= 0:
+        raise ValueError(f"n_slots {n_slots} and m {m} must be positive")
+    if tables is None:
+        if not 1 <= k <= 16:
+            raise ValueError(f"the dense slot step takes k <= 16, got k={k}")
+    else:
+        tables.check()
+        tables.check_k(k)
+        if rule not in (probe.CANON, probe.FWD_RC):
+            raise ValueError(f"the sparse slot step takes the CANON or FWD_RC rule, got {rule}")
+    if n_dest and not (n_dest < 256 and cap > 0 and n_win <= 1 << DELTA_BITS
+                       and n_slots < 1 << (63 - DELTA_BITS)):
+        raise ValueError(f"buckets take 1..255 destinations, cap > 0, at most 2^{DELTA_BITS} "
+                         f"windows and slots below 2^{63 - DELTA_BITS}; got {n_dest}, {cap}, "
+                         f"{n_win}, {n_slots}")
+    extra = () if tables is None else tables.tensors()
+    if not _cuda.on_cuda(packed, vbits, *extra):
+        return posbucket_plain(packed, vbits, k, tables, rule, n_slots, m, n_dest, cap)
+    dev = packed.device
+    if scratch is None:
+        scratch = fill_scratch(n_win, dev)
+    counters, dest, _, _, hist, sums = scratch
+    n_hist, n_sums = sort_scratch(n_win)
+    if dest.numel() < n_win or hist.numel() < n_hist or sums.numel() < n_sums:
+        raise ValueError(f"scratch too small for {n_win} windows")
+    slots = torch.empty(n_win, dtype=torch.int64, device=dev)
+    buckets = torch.empty((n_dest, cap), dtype=torch.int64, device=dev) if n_dest else None
+    p, u = (None, None) if tables is None else probe.c_engine(tables)
+    with torch.cuda.device(dev):
+        KERNEL_BUCKET.launch(
+            0 if tables is None else _ENGINE[tables.FILL], p, u, rule, packed.data_ptr(),
+            vbits.data_ptr(), packed.numel(), k, n_slots, m, n_dest, cap, slots.data_ptr(),
+            None if buckets is None else buckets.data_ptr(), counters.data_ptr(),
+            dest.data_ptr(), hist.data_ptr(), sums.data_ptr(), _cuda.stream(dev))
+    return slots, buckets, counters[1]
+
+
+def _pair_positions(rec: torch.Tensor, roff: torch.Tensor, packed: bool):
+    """(slot int64, position int64) of every record of rec[n_src, cols]."""
+    cols = rec.shape[1]
+    if packed:
+        slot = (rec >> DELTA_BITS) - 1
+        delta = rec & ((1 << DELTA_BITS) - 1)
+    else:
+        slot = rec
+        delta = torch.arange(cols, device=rec.device).expand_as(rec)
+    return slot.reshape(-1), (roff[:, None] + delta).reshape(-1)
+
+
+def posfill_pairs_plain(positions, cursor, offsets, rec, roff, lo: int, packed: bool = True):
+    """Plain version of ``posfill_pairs``: ``scatter_chunk_plain`` over the
+    records in (source, column) order, as aindex_tpu's ``_scatter_chunk``
+    takes them."""
+    slot, pos = _pair_positions(rec, roff, packed)
+    local = slot - lo
+    sel = (slot >= 0) & (local >= 0) & (local < cursor.numel())
+    return scatter_chunk_plain(positions, cursor, offsets, local, pos, sel)
+
+
+def posfill_pairs(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor,
+                  rec: torch.Tensor, roff: torch.Tensor, lo: int, packed: bool = True,
+                  scratch: tuple[torch.Tensor, ...] | None = None) -> None:
+    """Fill a data shard's slot range [lo, lo + len(cursor)) of the CSR from
+    the exchange's records ``rec`` (int64[n_src, cols], row r from source
+    r, whose first window lies at blob position ``roff[r]``): packed
+    records ((slot + 1) << 24) | window (``packed``), or the slot of every
+    window in window order. Each record in the range writes its position +
+    1 at ``offsets[s] + cursor[s] + rank``, rank counted in (source,
+    column) order, then ``cursor`` advances: aindex_tpu's ``_scatter_chunk``
+    over the received (alltoall) or gathered (allgather) pairs.
+
+    positions int64[seg] and cursor int32[n] are updated in place; offsets
+    int64[n] (the range's CSR offsets from its first cell). A CPU tensor
+    runs the plain version; a CUDA tensor launches K9's pairs-in entry."""
+    for name, t, dtype in (("positions", positions, torch.int64),
+                           ("cursor", cursor, torch.int32), ("offsets", offsets, torch.int64),
+                           ("roff", roff, torch.int64)):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
+    if rec.dtype != torch.int64 or rec.dim() != 2 or not rec.is_contiguous() \
+            or rec.shape[0] != roff.numel():
+        raise ValueError("rec must be a contiguous int64[n_src, cols] tensor, one roff a row")
+    n_slots = cursor.numel()
+    if offsets.numel() != n_slots or n_slots == 0:
+        raise ValueError(f"offsets ({offsets.numel()}) and cursor ({n_slots}) must hold "
+                         "one entry per slot, at least one")
+    n = rec.numel()
+    if not 0 < n < INT32_LIMIT:
+        raise ValueError(f"{n} records: the kernel takes 1 .. 2^31 - 2")
+    slot_bits, idx_bits = _bits(n_slots), _bits(n)
+    if slot_bits + idx_bits > 64:
+        raise ValueError(f"{slot_bits} slot bits + {idx_bits} record bits exceed the "
+                         "64-bit sort key")
+    if not _cuda.on_cuda(positions, cursor, offsets, rec, roff):
+        posfill_pairs_plain(positions, cursor, offsets, rec, roff, lo, packed)
+        return
+    dev = positions.device
+    if scratch is None:
+        scratch = fill_scratch(n, dev)
+    _, keys_a, _, idx, hist, sums = scratch
+    n_hist, n_sums = sort_scratch(n)
+    if keys_a.numel() < n or idx.numel() < n + 1 or hist.numel() < n_hist \
+            or sums.numel() < n_sums:
+        raise ValueError(f"scratch too small for {n} records")
+    with torch.cuda.device(dev):
+        KERNEL_PAIRS.launch(
+            rec.data_ptr(), rec.shape[0], rec.shape[1], int(packed), roff.data_ptr(), lo,
             n_slots, slot_bits, idx_bits, offsets.data_ptr(), cursor.data_ptr(),
             positions.data_ptr(), positions.numel(), *(t.data_ptr() for t in scratch),
             _cuda.stream(dev))

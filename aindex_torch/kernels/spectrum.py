@@ -1,12 +1,16 @@
-"""K5: the canonical k-mer spectrum of one chunk, on the device.
+"""K5: the canonical k-mer spectrum of one chunk, on the device; K13: the
+weighted merge of partial spectra.
 
 Counterpart of aindex_tpu/kernels/spectrum.py. The kernel
 ``csrc/spectrum23.cu`` replaces ``chunk_spectrum_packed`` (:48) and
 ``sorted_spectrum`` (:121): windows -> canonical -> drop invalid -> sort
 -> run-length reduce, the sort written by hand (an LSD radix sort over
 the code's 2k significant bits). ``spectrum23_plain`` is its plain PyTorch
-version. ``SENTINEL`` and ``merge_spectra`` (host numpy) are copied as they
-are.
+version. The kernel ``csrc/merge23.cu`` (K13) replaces
+``sorted_spectrum_weighted`` (:149; the TPU's pair-sort form :81): sort the
+keys of a key range, add their weights per run; its plain version is
+``sorted_spectrum_weighted_plain``. ``SENTINEL`` and ``merge_spectra``
+(host numpy) are copied as they are.
 
 Keys are int64 tensors holding uint64 bit patterns. Results are padded to
 the input's window (or key) count as aindex_tpu's are: the unique keys
@@ -21,9 +25,11 @@ import numpy as np
 import torch
 
 from aindex_torch.kernels import _cuda
-from aindex_torch.kernels.encode import canonical_code64, check_packed, packed_window_codes
+from aindex_torch.kernels.encode import (as_unsigned, canonical_code64, check_packed,
+                                         packed_window_codes)
 
 KERNEL = _cuda.KERNELS["spectrum23"]
+KERNEL_MERGE = _cuda.KERNELS["spectrummerge"]
 
 #: Sort key for ignored entries (> any 2k-bit k-mer code, k <= 31).
 SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -148,6 +154,92 @@ def sorted_spectrum(keyed: torch.Tensor):
     """Segment-reduce a flat int64 array of uint64 keys, SENTINEL = ignore
     (aindex_tpu/kernels/spectrum.py:121): K5 in its keys mode."""
     return spectrum23(keys=keyed)
+
+
+# -- K13 -------------------------------------------------------------------------
+
+_U64_MAX = (1 << 64) - 1
+
+
+def _u64_bits(x: int) -> int:
+    """A uint64 value as the int64 of the same bits."""
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _weights_u64(weights: torch.Tensor) -> torch.Tensor:
+    """uint32 weights (uint32 or int32 storage) widened to int64; int64
+    weights (uint64 bits) as they are."""
+    return weights if weights.dtype == torch.int64 else as_unsigned(weights)
+
+
+def sorted_spectrum_weighted_plain(keys: torch.Tensor, weights: torch.Tensor, lo: int = 0,
+                                   hi: int = _U64_MAX):
+    """Plain version of ``sorted_spectrum_weighted``, same arguments and
+    results: a stable sort of the live keys in uint64 order, then the
+    weight sums of each run in int64 (wrapping as uint64 adds do)."""
+    flipped = _flip(keys)
+    live = ((keys != SENTINEL_I64) & (flipped >= (_u64_bits(lo) ^ _I64_MIN))
+            & (flipped < (_u64_bits(hi) ^ _I64_MIN)))
+    k = keys[live]
+    w = _weights_u64(weights)[live]
+    order = torch.sort(_flip(k), stable=True).indices
+    s, w = k[order], w[order]
+    uniq, inverse = torch.unique_consecutive(s, return_inverse=True)
+    n = uniq.numel()
+    cap = keys.numel()
+    out_keys = torch.full((cap,), SENTINEL_I64, dtype=torch.int64, device=keys.device)
+    out_counts = torch.zeros(cap, dtype=torch.int64, device=keys.device)
+    out_keys[:n] = uniq
+    out_counts.index_add_(0, inverse, w)
+    return out_keys, out_counts, torch.tensor(n, dtype=torch.int32, device=keys.device)
+
+
+def sorted_spectrum_weighted(keys: torch.Tensor, weights: torch.Tensor, lo: int = 0,
+                             hi: int = _U64_MAX):
+    """Segment-reduce (key, weight) pairs: the keys of [lo, hi) other than
+    the sentinel, sorted ascending in uint64 order, each with the sum of
+    its weights (aindex_tpu/kernels/spectrum.py:149; the default range
+    takes every key). The merge step of the sharded spectrum
+    (``parallel/spectrum23.py``): a data shard's range of the gathered
+    partial spectra.
+
+    keys: contiguous 1-D int64 (uint64 bit patterns, -1 the sentinel);
+    weights: uint32 (uint32 or int32 storage) or int64 (uint64 bits) of the
+    same length. Returns (keys int64[n], counts int64[n] (uint64 bits),
+    n_unique int32 scalar tensor), the unique keys first, padded with the
+    sentinel and count 0.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K13."""
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous 1-D int64 tensor (uint64 bits)")
+    if weights.dtype not in (torch.int32, torch.uint32, torch.int64) \
+            or weights.shape != keys.shape or not weights.is_contiguous():
+        raise ValueError("weights must be a contiguous uint32/int32/int64 tensor shaped "
+                         "like keys")
+    n = keys.numel()
+    if not 0 < n < INT32_LIMIT:
+        raise ValueError(f"{n} keys: the kernel takes 1 .. 2^31 - 2")
+    if not 0 <= lo <= _U64_MAX or not 0 <= hi <= _U64_MAX:
+        raise ValueError(f"range [{lo}, {hi}) is not of uint64 values")
+    if not _cuda.on_cuda(keys, weights):
+        return sorted_spectrum_weighted_plain(keys, weights, lo, hi)
+    dev = keys.device
+    n_hist, n_sums = sort_scratch(n)
+
+    def buf(m, dtype=torch.int64):
+        return torch.empty(m, dtype=dtype, device=dev)
+
+    keys_out, counts_out = buf(n), buf(n)
+    counters = buf(2, torch.int32)
+    scratch = (buf(n), buf(n), buf(n + 1), buf(n + 1), buf(n + 1, torch.int32),
+               buf(n, torch.int32), buf(n_hist, torch.int32), buf(n_sums, torch.int32),
+               buf(-(-(n + 1) // SCAN_TILE)))
+    with torch.cuda.device(dev):
+        KERNEL_MERGE.launch(keys.data_ptr(), weights.data_ptr(), weights.element_size(), n, lo,
+                            hi, max(1, (max(hi, 1) - 1).bit_length()), keys_out.data_ptr(),
+                            counts_out.data_ptr(), counters.data_ptr(),
+                            *(t.data_ptr() for t in scratch), _cuda.stream(dev))
+    return keys_out, counts_out, counters[1]
 
 
 def merge_spectra(parts: list[tuple[np.ndarray, np.ndarray]]

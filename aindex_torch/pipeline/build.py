@@ -14,9 +14,12 @@ aindex_tpu's, so a failed phase can be rerun from its input artifacts
   <prefix>.pf, .tf.bin, .kmers.bin      frequency index
   <prefix>.index.bin, .indices.bin      positional index
 
-The port runs in one process on one device, ``BuildConfig.device``: the
-card unless the caller asks for the CPU. The multi-device paths (``mesh``,
-``n_devices`` > 1) are not ported yet and raise.
+Every phase runs on ``BuildConfig.device``, the card unless the caller
+asks for the CPU, or, with ``BuildConfig.mesh`` (or ``n_devices``), on
+the mesh: the counts data-parallel, the positional fill slot-range
+sharded, every rank on its own device (``aindex_torch.parallel``). Rank 0
+alone writes the artifacts; the other ranks wait at a barrier before they
+read them, so the files are byte-identical to a single-device build's.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import os
 import time
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 from aindex_torch.constants import K13, K23, SPACE_13
@@ -38,22 +42,23 @@ from aindex_torch.index.positional import PositionalIndex
 from aindex_torch.index.sparse23 import Sparse23Index, count_canonical_kmers
 from aindex_torch.io import fastq as io_fastq
 from aindex_torch.kernels.spectrum import merge_spectra
+from aindex_torch.parallel import distributed as dist
 from aindex_torch.pipeline.progress import make_progress
 
 logger = logging.getLogger("aindex_torch.pipeline")
-
-_NO_MESH = ("multi-device builds (mesh, n_devices > 1) are not ported to "
-            "aindex_torch yet (multi-GPU, ROADMAP slice 5)")
-
 
 @dataclasses.dataclass
 class BuildConfig:
     """One typed config for the whole pipeline (the reference's settings are
     three uncoordinated layers of globals and argv).
 
-    ``device`` is the one device every phase runs on. ``mesh`` and
-    ``n_devices`` > 1 select aindex_tpu's multi-device paths, which are not
-    ported: they raise ``NotImplementedError``."""
+    ``mesh`` (a ``parallel.mesh.make_mesh`` mesh) switches the phases to
+    the multi-device paths (all_reduce-merged dense table, key-sharded
+    sparse spectrum, slot-range-sharded positional fill) on the mesh's
+    device; None = the single device ``device``. ``n_devices`` is the
+    CLI-friendly alternative: a ``data`` mesh over that many ranks,
+    clamped to the world size (a world of one when no process group
+    exists), of ``device``'s type, built at pipeline start."""
     prefix: str
     k: int = K23
     min_tf: int = 1
@@ -74,9 +79,23 @@ class BuildConfig:
     # reference: scripts/compute_aindex.py:185-228)
     device: str = "cuda"
 
-    def check_single_device(self) -> None:
-        if self.mesh is not None or (self.n_devices is not None and self.n_devices > 1):
-            raise NotImplementedError(_NO_MESH)
+    def resolve_mesh(self):
+        if self.mesh is None and self.n_devices is not None:
+            from aindex_torch.parallel import distributed
+            from aindex_torch.parallel.mesh import make_mesh
+            device_type = torch.device(self.device).type
+            distributed.ensure_group(device=self.device)
+            self.mesh = make_mesh(n_data=min(self.n_devices, distributed.world_size()),
+                                  device_type=device_type)
+        return self.mesh
+
+    def build_device(self):
+        """The device the phases' indexes live on: the mesh's, else
+        ``device``."""
+        if self.resolve_mesh() is None:
+            return self.device
+        from aindex_torch.parallel.mesh import mesh_device
+        return mesh_device(self.mesh)
 
 
 def _artifacts_ok(*paths: str, min_size: int = 1) -> bool:
@@ -98,9 +117,21 @@ def prepare_reads(inputs: list[str], read_type: str | None, prefix: str,
     inputs (reference: scripts/compute_aindex.py:125-131). Format is
     sniffed when ``read_type`` is None.
     """
+    multi = dist.is_multiprocess()
     t0 = time.time()
+    if multi and not dist.should_write():
+        # rank 0 prepares the shared artifacts; every other rank waits at
+        # the barrier, then memory-maps them: a rank only faults in the
+        # pages of its own mesh rows
+        dist.barrier("aindex:reads-ready")
+        store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx", mmap=True)
+        logger.info("prepare_reads: mapped shared artifacts (%d reads, %d bytes)",
+                    store.n_reads, store.reads_size)
+        return store
     if skip_existing and _artifacts_ok(prefix + ".reads", prefix + ".ridx"):
-        store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx")
+        if multi:
+            dist.barrier("aindex:reads-ready")
+        store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx", mmap=multi)
         logger.info("prepare_reads: resumed from existing artifacts "
                     "(%d reads, %d bytes)", store.n_reads, store.reads_size)
         return store
@@ -117,7 +148,9 @@ def prepare_reads(inputs: list[str], read_type: str | None, prefix: str,
         io_fastq.compute_reads(inputs[0], inputs[1], read_type, prefix)
     else:
         io_fastq.compute_reads(list(inputs), None, read_type, prefix)
-    store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx")
+    if multi:
+        dist.barrier("aindex:reads-ready")
+    store = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx", mmap=multi)
     logger.info("prepare_reads: %d reads, %d bytes (%.2fs)",
                 store.n_reads, store.reads_size, time.time() - t0)
     return store
@@ -191,34 +224,34 @@ def _phase_progress(cfg: BuildConfig, total: int, label: str):
 
 def build_dense13(store: ReadsStore, cfg: BuildConfig) -> Dense13Index:
     """Phase 2a (13-mer): dense count -> <prefix>.tf.bin (uint64 x 4^13)."""
-    cfg.check_single_device()
     t0 = time.time()
     tf_path = cfg.prefix + ".tf.bin"
     if cfg.skip_existing and _artifacts_ok(tf_path) \
             and os.path.getsize(tf_path) == SPACE_13 * 8:
-        index = Dense13Index.load(tf_path, device=cfg.device)
+        index = Dense13Index.load(tf_path, device=cfg.build_device())
         logger.info("build_dense13: resumed from %s", tf_path)
         return index
     prog = _phase_progress(cfg, store.reads_size, "count 13-mers")
     index = Dense13Index.build_from_blob(
-        store.blob, chunk=cfg.chunk, on_progress=prog.step if prog else None,
-        device=cfg.device)
+        store.blob, chunk=cfg.chunk, mesh=cfg.resolve_mesh(),
+        on_progress=prog.step if prog else None, device=cfg.device)
     if prog:
         prog.close()
-    index.save(tf_path)
+    if dist.should_write():
+        index.save(tf_path)
+    dist.barrier("aindex:dense13-saved")
     logger.info("build_dense13: %s (%.2fs)", index.stats(), time.time() - t0)
     return index
 
 
 def build_sparse(store: ReadsStore, cfg: BuildConfig) -> Sparse23Index:
     """Phase 2b (sparse k): canonical count -> MPHF -> .pf/.tf.bin/.kmers.bin."""
-    cfg.check_single_device()
     t0 = time.time()
     triple = (cfg.prefix + ".pf", cfg.prefix + ".tf.bin",
               cfg.prefix + ".kmers.bin")
     if cfg.skip_existing and _artifacts_ok(*triple):
         try:
-            index = Sparse23Index.load(cfg.prefix, cfg.k, device=cfg.device)
+            index = Sparse23Index.load(cfg.prefix, cfg.k, device=cfg.build_device())
             logger.info("build_sparse: resumed from %s.{pf,tf.bin,kmers.bin}",
                         cfg.prefix)
             return index
@@ -231,24 +264,25 @@ def build_sparse(store: ReadsStore, cfg: BuildConfig) -> Sparse23Index:
     else:
         prog = _phase_progress(cfg, store.reads_size, f"count {cfg.k}-mers")
         keys, counts = count_canonical_kmers(
-            store.blob, cfg.k, cfg.chunk, on_progress=prog.step if prog else None,
-            device=cfg.device)
+            store.blob, cfg.k, cfg.chunk, mesh=cfg.resolve_mesh(),
+            on_progress=prog.step if prog else None, device=cfg.device)
         if prog:
             prog.close()
     if cfg.min_tf > 1:
         keep = counts >= cfg.min_tf
         keys, counts = keys[keep], counts[keep]
-    if cfg.keep_dat:
+    if cfg.keep_dat and dist.should_write():
         save_dat(keys, counts, cfg.k, cfg.prefix + ".dat")
-    index = Sparse23Index.from_spectrum(keys, counts, cfg.k, device=cfg.device)
-    index.save(cfg.prefix)
+    index = Sparse23Index.from_spectrum(keys, counts, cfg.k, device=cfg.build_device())
+    if dist.should_write():
+        index.save(cfg.prefix)
+    dist.barrier("aindex:sparse-saved")
     logger.info("build_sparse: n=%d (%.2fs)", index.n, time.time() - t0)
     return index
 
 
 def build_positional(store: ReadsStore, index, cfg: BuildConfig) -> PositionalIndex:
     """Phase 3: positional index -> .index.bin + .indices.bin."""
-    cfg.check_single_device()
     t0 = time.time()
     idx_path = cfg.prefix + ".index.bin"
     ind_path = cfg.prefix + ".indices.bin"
@@ -263,18 +297,21 @@ def build_positional(store: ReadsStore, index, cfg: BuildConfig) -> PositionalIn
         logger.warning("build_positional: stale artifacts; rebuilding")
     prog = _phase_progress(cfg, store.reads_size, "positional index")
     cb = prog.step if prog else None
+    mesh = cfg.resolve_mesh()
     if isinstance(index, Dense13Index):
         # the uint32 device table sizes the CSR, as in aindex_tpu, even
         # where the host keeps an exact uint64 table
         pos = PositionalIndex.build_dense13(store.blob, chunk=cfg.chunk, tf=index.tf,
-                                            on_progress=cb, device=cfg.device)
+                                            mesh=mesh, on_progress=cb, device=cfg.device)
     else:
-        pos = PositionalIndex.build_sparse23(store.blob, index, chunk=cfg.chunk,
+        pos = PositionalIndex.build_sparse23(store.blob, index, chunk=cfg.chunk, mesh=mesh,
                                              on_progress=cb)
     if prog:
         prog.close()
     with record_function("positional.save"):
-        pos.save(cfg.prefix)
+        if dist.should_write():
+            pos.save(cfg.prefix)
+    dist.barrier("aindex:positional-saved")
     logger.info("build_positional: %d positions (%.2fs)", pos.total,
                 time.time() - t0)
     return pos
@@ -308,7 +345,6 @@ def build_all(inputs: list[str], cfg: BuildConfig,
     ``cfg.profile_dir``, the whole build runs under a torch.profiler trace
     (view in Perfetto or chrome://tracing); each phase is a
     ``record_function`` range named ``build_all.<phase>``."""
-    cfg.check_single_device()
     out_dir = os.path.dirname(cfg.prefix)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)

@@ -10,7 +10,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the eleven CUDA kernels (K1-K11, fifteen C entries) from
+   builds the fourteen CUDA kernels (K1-K14, twenty C entries) from
    aindex_torch/csrc, one nvcc per source, all started together.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
@@ -58,14 +58,34 @@ Run from the repository root, with no arguments:
 12. Loads the reference-built tests/golden_ref sets through
    ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
    of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
-13. Prints the kernels line (launch counts of steps 4, 6, 9 and 10, each
-   path run with the counts set to 0 just before it), the card line and
-   the result line.
+13. Drives the mesh path at world size 1 on NCCL (the chip host has one
+   card; NCCL takes one rank a card): ``init_process_group("nccl")``,
+   ``make_mesh(1, 1)``, ``build_all(BuildConfig(mesh=...))`` on the corpus
+   FASTA for k = 13 and k = 23, every artifact's SHA-256 against step 9's
+   single-device build, the k = 23 positional stage again through the
+   allgather exchange (the same bytes), then ``AIndex.shard_to(mesh)`` and
+   codes-in (4 x 2^24), ASCII tf, pfids, hash values and strands (2^20),
+   coverage (10,000 reads) and next/prev (2^16) against the single-device
+   engine's answers.
+14. Holds K12 (owner and verify), K13, K14 and K9's pairs-in entry against
+   their plain versions at 1, 2, 4 and 8 simulated shards on the card (each
+   shard called with its own slice; the collectives stood in for by sums
+   and concatenations): K12 on 4 x 2^24 codes, summed over the shards, also
+   against K11's single-device walk; K13 on the concatenated K5 spectra of
+   8 corpus chunks, per key range, also against ``merge_spectra``; K14 per
+   source on corpus chunks (with a forced small cap that overflows, and the
+   dense k = 13 windows) and the pairs-in fill per destination, at one
+   shard also against K9's fill of the same chunk. Each is timed at the
+   world-of-one path's shape.
+15. Prints the kernels line (launch counts of steps 4, 6, 9, 10 and 13,
+   each path run with the counts set to 0 just before it), the card line
+   and the result line.
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
 """
 
+import hashlib
 import itertools
 import json
 import os
@@ -1034,10 +1054,11 @@ def oracle_canon(reads: np.ndarray, k: int = K23):
 
 
 def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
-                    table: np.ndarray, oracle) -> dict[str, int]:
+                    table: np.ndarray, oracle, hashes: dict) -> dict[str, int]:
     """build_all on the corpus FASTA for k = 13 and k = 23 under the
     profiler, each against the numpy oracle; returns the K8 and K9 launch
-    counts of the two runs."""
+    counts of the two runs, and keeps each run's artifact SHA-256s in
+    ``hashes[k]`` (the mesh path's reference)."""
     import torch
     from torch import profiler
     from aindex_torch import PositionalIndex, Sparse23Index
@@ -1175,8 +1196,8 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
                   f"{pos.max_tf}), == oracle; positions_by_slots on 2^16 slots -> "
                   f"{flat.size} positions, rid_by_pos resolved ({time.perf_counter() - t0:.1f} s)")
             del pos, store
-            for sfx in (".reads", ".ridx", ".header", ".tf.bin", ".pf", ".kmers.bin",
-                        ".index.bin", ".indices.bin"):
+            hashes[k] = artifact_hashes(prefix)
+            for sfx in ARTIFACTS:
                 if os.path.exists(prefix + sfx):
                     os.remove(prefix + sfx)
             torch.cuda.empty_cache()
@@ -1619,6 +1640,384 @@ def golden_path(dev, tmp: str) -> None:
           f".dat and p.reads counts ({time.perf_counter() - t0:.1f} s)")
 
 
+# -- phases 13-14: the mesh path on NCCL, K12-K14 against their plain versions ---
+
+#: kernels that only the mesh path runs (K12's two entries, K13, K14, K9's
+#: pairs-in entry)
+MESH_KERNELS = ("shardowner", "shardverify", "spectrummerge", "posbucket", "posfill_pairs")
+#: the simulated shard counts at which K12-K14 meet their plain versions
+SHARDS = (1, 2, 4, 8)
+ARTIFACTS = (".reads", ".ridx", ".header", ".tf.bin", ".pf", ".kmers.bin", ".index.bin",
+             ".indices.bin")
+
+
+def sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def artifact_hashes(prefix: str) -> dict[str, str]:
+    return {sfx: sha256(prefix + sfx) for sfx in ARTIFACTS if os.path.exists(prefix + sfx)}
+
+
+def query_codes(dev, reads: np.ndarray, index) -> object:
+    """4 x 2^24 device codes: half present k-mers of the index, half random,
+    shuffled (the codes-in shape of the sparse path)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(67)
+    half = N_CODES // 2
+    sample = torch.from_numpy(index.checker_host.view(np.int64)).to(dev)
+    codes = torch.cat([sample[torch.randint(0, sample.numel(), (half,), device=dev,
+                                            generator=gen)],
+                       torch.randint(0, 1 << (2 * K23), (half,), dtype=torch.int64, device=dev,
+                                     generator=gen)])
+    return codes[torch.randperm(N_CODES, device=dev, generator=gen)]
+
+
+def mesh_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
+              hashes: dict) -> tuple[dict, object]:
+    """The multi-device path at world size 1 on NCCL: build_all on a (1, 1)
+    mesh for k = 13 and k = 23 (artifacts against the single-device
+    build's SHA-256), the k = 23 positional stage again through the
+    allgather exchange, then AIndex.shard_to and the sparse queries against
+    the single-device engine's answers. Returns the launch counts of the
+    path and the k = 23 index (loaded on the card)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch import profiler
+    from aindex_torch import AIndex, Sparse23Index
+    from aindex_torch.core.reads import ReadsStore
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.parallel import positional as ppos
+    from aindex_torch.parallel.mesh import make_mesh
+    from aindex_torch.pipeline.build import BuildConfig, build_all
+
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'pg')}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = make_mesh(1, 1)
+        print(f"mesh: {mesh} on {dist.get_backend()}, world size {dist.get_world_size()}")
+        n_bases = reads.size
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        acts = [profiler.ProfilerActivity.CPU, profiler.ProfilerActivity.CUDA]
+        for k in (K, K23):
+            prefix = os.path.join(tmp, f"ecoli_25x.m{k}")
+            with profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                build_all([fasta], BuildConfig(prefix=prefix, k=k, chunk=CHUNK_BYTES, mesh=mesh))
+                t_all = time.perf_counter() - t0
+            ranges, spans = profile_ranges(prof)
+            stages = {name: (e - s) / 1e6 for name, (s, e) in ranges.items()
+                      if name.startswith(("build_all.", "positional."))}
+            got = artifact_hashes(prefix)
+            check(got == hashes[k], f"mesh build_all k={k}: every artifact's SHA-256 == the "
+                  f"single-device build's ({sorted(got)})")
+            fs, fe = ranges["positional.fill"]
+            idle = (f"idle share {1 - busy_in(spans, fs, fe) / (fe - fs):.4f} of the fill"
+                    if spans else "fill idle share not measured (no device events)")
+            print(f"mesh build_all k={k} (alltoall exchange): {t_all:.3f} s in all "
+                  f"(torch.profiler on), {n_bases / t_all / 1e6:.2f} MB/s of bases; "
+                  + ", ".join(f"{n} {v:.3f} s" for n, v in stages.items())
+                  + f"; {idle}; {len(got)} artifacts byte-identical to the single-device "
+                  f"build ({card})")
+        blob = ReadsStore.from_reads_file(prefix + ".reads", prefix + ".ridx").blob
+        index = Sparse23Index.load(prefix, K23, device=dev)
+        t0 = time.perf_counter()
+        pos = ppos.build_positional_sharded(blob, index.n, index.tf_host, index.tables, mesh,
+                                            K23, CHUNK_BYTES, exchange="allgather")
+        t_pos = time.perf_counter() - t0
+        pos.save(prefix + ".ag")
+        check(sha256(prefix + ".ag.index.bin") == hashes[K23][".index.bin"]
+              and sha256(prefix + ".ag.indices.bin") == hashes[K23][".indices.bin"],
+              "allgather exchange: the same CSR bytes")
+        print(f"mesh positional k={K23} (allgather exchange): {t_pos:.3f} s, "
+              f"{n_bases / t_pos / 1e6:.2f} MB/s of bases, the same bytes ({card})")
+        del pos, blob
+
+        # the sharded engine against the single-device engine
+        ai = AIndex.load_from_prefix(prefix, device=dev)
+        sp = ai.sparse23
+        codes = query_codes(dev, reads, sp)
+        rng = np.random.default_rng(71)
+        r = rng.integers(0, len(reads), size=N_ASCII)
+        o = rng.integers(0, READ_LEN - K23 + 1, size=N_ASCII)
+        mat = reads[r[:, None], o[:, None] + np.arange(K23)[None, :]]
+        mat[1::2] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=(N_ASCII // 2, K23))]
+        mat[::64, 7] = ord("N")
+        text = mat.tobytes().decode("ascii")
+        kmers = [text[i:i + K23] for i in range(0, len(text), K23)]
+        seqs = [reads[i].tobytes().decode("ascii") for i in rng.integers(0, len(reads), N_SEQ)]
+        db = kmers[:N_DB]
+
+        def answers(engine):
+            return {"codes": bits64(engine.get_tf_values_codes(codes)),
+                    "tf": engine.get_tf_values(kmers), "pfids": engine.get_pfids(kmers),
+                    "hash": engine.get_hash_values(kmers),
+                    "strands": engine.get_strands(kmers),
+                    "coverage": np.concatenate(engine.sequence_coverage_batch(seqs)),
+                    "next": engine.debruijn_next(db), "prev": engine.debruijn_prev(db, 1)}
+        want = answers(sp)
+        ai.shard_to(mesh)
+        eng = ai._engine23
+        check(eng is not sp and sp._device_released, "shard_to: the sharded engine serves")
+        got = answers(eng)
+        for name in want:
+            same = (bool((got[name] == want[name]).all()) if name == "codes"
+                    else np.array_equal(got[name], want[name]))
+            check(same, f"sharded {name} == single-device")
+        check(ai.get_tf_values(kmers[:1000]) == [int(v) for v in want["tf"][:1000]],
+              "the facade's tf goes through the sharded engine")
+        ms = cuda_ms(lambda: eng.get_tf_values_codes(codes), 10)
+        t0 = time.perf_counter()
+        eng.get_tf_values(kmers)
+        dt = time.perf_counter() - t0
+        print(f"mesh shard_to: codes-in {N_CODES} device codes {ms:.4f} ms = "
+              f"{N_CODES / ms / 1e6:.3f} G queries/s (CUDA events); ASCII tf {N_ASCII / dt / 1e6:.2f} "
+              f"M k-mers/s (host clock); tf, pfids, hash, strands, coverage of {N_SEQ} reads, "
+              f"next/prev of {N_DB}: == the single-device engine; {eng.per_device_bytes} "
+              f"bytes on the device ({card})")
+        launched = _cuda.launches()
+        print(f"mesh path launches: { {n: c for n, c in launched.items() if c} }")
+        del ai, eng, sp, codes, want, got
+        for sfx in ARTIFACTS + (".ag.index.bin", ".ag.indices.bin"):
+            for p in (os.path.join(tmp, f"ecoli_25x.m{k}{sfx}") for k in (K, K23)):
+                if os.path.exists(p):
+                    os.remove(p)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launched, index
+
+
+def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
+    """K12, K13, K14 and K9's pairs-in entry against their plain versions at
+    1, 2, 4 and 8 simulated shards on the card (rank d of N, the collective
+    stood in for by a sum or a concatenation), each timed at the world-of-
+    one mesh path's shape."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.kernels import probe
+    from aindex_torch.kernels.lookup import (MphfTables, shard_owner, shard_owner_plain,
+                                             shard_verify, shard_verify_plain)
+    from aindex_torch.kernels.positional import (chunk_slots_plain, fill_scratch, posbucket,
+                                                 posbucket_plain, posfill, posfill_pairs,
+                                                 posfill_pairs_plain)
+    from aindex_torch.kernels.spectrum import (chunk_spectrum_packed, merge_spectra,
+                                               sorted_spectrum_weighted,
+                                               sorted_spectrum_weighted_plain)
+    from aindex_torch.parallel.positional import bucket_cap, range_layout
+    from aindex_torch.parallel.query23 import shard_slice
+    from aindex_torch.parallel.spectrum23 import key_range
+
+    res = {}
+    m = index.mphf
+    g = torch.from_numpy(m.g_packed.view(np.int32)).to(dev)
+    codes = query_codes(dev, reads, index)
+    n = codes.numel()
+
+    # K12: per shard its node range (owner), a sum, its slot range (verify)
+    walk = MphfTables(g, torch.from_numpy(np.asarray(m.slots, np.int32)).to(dev),
+                      torch.from_numpy(index.checker_host.view(np.int64)).to(dev),
+                      torch.from_numpy(index.tf_host.view(np.int32)).to(dev),
+                      int(m.n), int(m.domain), int(m.seed))
+    want_tf, want_slot = probe.query(walk, codes, k=K23, rule=probe.CANON, slot=True)
+    err = {"shardowner": 0, "shardverify": 0}
+    for n_sh in SHARDS:
+        t0 = time.perf_counter()
+        parts, plain_parts, shards = [], [], []
+        for i in range(n_sh):
+            s_i, _ = shard_slice(np.asarray(m.slots, np.int32), n_sh, i, 0)
+            tf_i, _ = shard_slice(index.tf_host.view(np.int32), n_sh, i, 0)
+            ck_i, _ = shard_slice(index.checker_host.view(np.int64), n_sh, i, -1)
+            shards.append(tuple(torch.from_numpy(x).to(dev) for x in (s_i, tf_i, ck_i)))
+            args = (g, shards[-1][0], i * s_i.size, int(m.seed), int(m.domain), codes)
+            got = shard_owner(*args, k=K23, canonical=True)
+            ref = shard_owner_plain(*args, k=K23, canonical=True)
+            err["shardowner"] = max(err["shardowner"], max_abs_err(got[0], ref[0]),
+                                    max_abs_err(got[1], ref[1]),
+                                    max_abs_err(got[2].to(torch.int64), ref[2].to(torch.int64)))
+            parts.append(got)
+        key = parts[0][0]
+        slot = torch.stack([p[1] for p in parts]).sum(0, dtype=torch.int32)
+        tf = torch.zeros(n, dtype=torch.int32, device=dev)
+        found = torch.zeros(n, dtype=torch.int32, device=dev)
+        for i, (_, tf_i, ck_i) in enumerate(shards):
+            got = shard_verify(slot, tf_i, ck_i, i * tf_i.numel(), key)
+            ref = shard_verify_plain(slot, tf_i, ck_i, i * tf_i.numel(), key)
+            err["shardverify"] = max(err["shardverify"], max_abs_err(got[0], ref[0]),
+                                     max_abs_err(got[1], ref[1]))
+            tf += got[0].view(torch.int32)
+            found += got[1]
+        check(bool((tf == want_tf.view(torch.int32)).all())
+              and bool((torch.where(found > 0, slot, -1) == want_slot).all()),
+              f"K12 at {n_sh} shards == K11's single-device tf and slot")
+        print(f"K12 at {n_sh} shards: owner, sum, verify, sums of {n} codes == plain and == "
+              f"K11 ({time.perf_counter() - t0:.1f} s)")
+    # timed at the path's shape: one shard holds everything
+    s_all, tf_all, ck_all = shards_1 = tuple(torch.from_numpy(x).to(dev) for x in (
+        np.asarray(m.slots, np.int32), index.tf_host.view(np.int32),
+        index.checker_host.view(np.int64)))
+    args = (g, s_all, 0, int(m.seed), int(m.domain), codes)
+    key, slot, _, _ = shard_owner(*args, k=K23, canonical=True)
+    hit = torch.unique(slot)
+    n_nodes = int(torch.unique(key).numel())
+    ms = cuda_ms(lambda: shard_owner(*args, k=K23, canonical=True), 20)
+    pms = cuda_ms(lambda: shard_owner_plain(*args, k=K23, canonical=True), 3)
+    # codes in; key, fwd and slot out; the g-vector once; a slot a distinct key
+    rec = record(err["shardowner"], ms, pms, n * (8 + 8 + 1 + 4) + g.numel() * 4 + 4 * n_nodes)
+    report(card, "shardowner", f"{n} codes, canonical, 1 shard", rec)
+    res["shardowner"] = rec
+    ms = cuda_ms(lambda: shard_verify(slot, tf_all, ck_all, 0, key), 20)
+    pms = cuda_ms(lambda: shard_verify_plain(slot, tf_all, ck_all, 0, key), 3)
+    rec = record(err["shardverify"], ms, pms, n * (4 + 8 + 4 + 4) + hit.numel() * 12)
+    report(card, "shardverify", f"{n} codes, 1 shard", rec)
+    res["shardverify"] = rec
+    del codes, key, slot, hit, shards, parts, walk, want_tf, want_slot, shards_1, s_all
+    torch.cuda.empty_cache()
+
+    # K13: the concatenated K5 spectra of 8 corpus chunks, per key range
+    blob = corpus_blob(reads)
+    chunks = [upload(dev, *codec.pack_ascii_chunk(piece))
+              for piece, _ in itertools.islice(blob_chunks(blob, K23, CHUNK_BYTES), 8)]
+    spectra = [chunk_spectrum_packed(p, v, K23) for p, v in chunks]
+    all_k = torch.cat([s[0] for s in spectra])
+    all_c = torch.cat([s[1].view(torch.int32) for s in spectra])
+    want_k, want_c = merge_spectra([(s[0][:int(s[2])].cpu().numpy().view(np.uint64),
+                                     s[1][:int(s[2])].view(torch.int32).cpu().numpy()
+                                     .view(np.uint32)) for s in spectra])
+    err13 = 0
+    for n_sh in SHARDS:
+        t0 = time.perf_counter()
+        outs = []
+        for d in range(n_sh):
+            lo, hi = key_range(d, n_sh, K23)
+            got = sorted_spectrum_weighted(all_k, all_c, lo, hi)
+            ref = sorted_spectrum_weighted_plain(all_k, all_c, lo, hi)
+            err13 = max(err13, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+            u = int(got[2])
+            outs.append((got[0][:u].cpu().numpy().view(np.uint64),
+                         got[1][:u].cpu().numpy().view(np.uint64)))
+        check(np.array_equal(np.concatenate([o[0] for o in outs]), want_k)
+              and np.array_equal(np.concatenate([o[1] for o in outs]), want_c),
+              f"K13 at {n_sh} shards == merge_spectra")
+        print(f"K13 at {n_sh} shards: {all_k.numel()} keys of 8 chunks, {want_k.size} unique, "
+              f"== plain and == merge_spectra ({time.perf_counter() - t0:.1f} s)")
+    # timed at the path's shape: one chunk's spectrum, the whole key range
+    k1, c1 = spectra[1][0], spectra[1][1]
+    lo, hi = key_range(0, 1, K23)
+    ms = cuda_ms(lambda: sorted_spectrum_weighted(k1, c1, lo, hi), 20)
+    pms = cuda_ms(lambda: sorted_spectrum_weighted_plain(k1, c1, lo, hi), 3)
+    live = k1[:int(spectra[1][2])]
+    lib = cuda_ms(lambda: torch.sort(live), 20)
+    ms8 = cuda_ms(lambda: sorted_spectrum_weighted(all_k, all_c, lo, hi), 5)
+    lib8 = cuda_ms(lambda: torch.sort(all_k[all_k >= 0]), 5)
+    # keys and uint32 counts in; keys and uint64 counts out
+    rec = record(err13, ms, pms, k1.numel() * (8 + 4 + 8 + 8), lib)
+    report(card, "spectrummerge", f"one chunk's spectrum, {k1.numel()} keys; 8 chunks "
+           f"{ms8:.4f} ms (bound {bound_ms(all_k.numel() * 28):.4f}, torch.sort {lib8:.4f})", rec)
+    res["spectrummerge"] = rec
+    del spectra, all_k, all_c, chunks
+    torch.cuda.empty_cache()
+
+    # K14 per simulated source on corpus chunks, K9's pairs-in entry per
+    # destination, against the plain versions; at one shard against K9
+    tables = index.tables
+    pieces = list(itertools.islice(blob_chunks(blob, K23, CHUNK_BYTES), 9))[1:]
+    ups = [upload(dev, *codec.pack_ascii_chunk(p)) for p, _ in pieces]
+    n_win = CHUNK_BYTES - K23 + 1
+    offsets = np.zeros(index.n + 1, np.int64)
+    np.cumsum(index.tf_host.astype(np.int64), out=offsets[1:])
+    err14 = errp = 0
+    for n_sh in SHARDS:
+        t0 = time.perf_counter()
+        mm, bounds, _ = range_layout(offsets, index.n, n_sh)
+        cap = bucket_cap(n_win, n_sh)
+        sent = []
+        for s in range(n_sh):
+            args = (*ups[s], K23, tables, probe.CANON, index.n, mm, n_sh, cap)
+            got, ref = posbucket(*args), posbucket_plain(*args)
+            err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+            check(int(got[2]) == 0, "no overflow at 2x the mean")
+            sent.append(got)
+        roff = torch.arange(n_sh, device=dev) * n_win + int(pieces[0][1])
+        for d in range(n_sh):
+            rec_d = torch.stack([x[1][d] for x in sent])
+            fills = []
+            for _ in range(2):
+                fills.append((torch.zeros(int(offsets[bounds[d + 1]] - offsets[bounds[d]]),
+                                          dtype=torch.int64, device=dev),
+                              torch.zeros(int(bounds[d + 1] - bounds[d]), dtype=torch.int32,
+                                          device=dev)))
+            loc = torch.from_numpy(offsets[bounds[d]:bounds[d + 1]] - offsets[bounds[d]]).to(dev)
+            posfill_pairs(*fills[0], loc, rec_d, roff, int(bounds[d]))
+            posfill_pairs_plain(*fills[1], loc, rec_d, roff, int(bounds[d]))
+            errp = max(errp, *(max_abs_err(a, b) for a, b in zip(*fills)))
+        if n_sh == 1:
+            # one shard: the records' fill == K9's fill of the same chunk
+            ref = (torch.zeros(int(offsets[-1]), dtype=torch.int64, device=dev),
+                   torch.zeros(index.n, dtype=torch.int32, device=dev))
+            posfill(*ref, torch.from_numpy(offsets[:-1]).to(dev), *ups[0], K23,
+                    int(pieces[0][1]), tables)
+            check(bool((fills[0][0] == ref[0]).all()) and bool((fills[0][1] == ref[1]).all()),
+                  "K14 + pairs-in at one shard == K9's chunk fill")
+        print(f"K14 + K9 pairs at {n_sh} shards: {n_sh} sources x {n_win} windows, cap {cap}, "
+              f"== plain ({time.perf_counter() - t0:.1f} s)")
+    # a forced small cap (a quarter of the mean) overflows: the kept
+    # records and the count == plain
+    args = (*ups[0], K23, tables, probe.CANON, index.n, -(-index.n // 4), 4, n_win // 16)
+    got, ref = posbucket(*args), posbucket_plain(*args)
+    err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+    check(int(got[2]) > 0, "the forced small cap overflows")
+    print(f"K14 with cap {n_win // 16} at 4 shards: overflow {int(got[2])} == plain")
+    # dense windows (k = 13) at 2 shards
+    args = (*ups[0], K, None, probe.CANON, SPACE, SPACE // 2, 2, bucket_cap(CHUNK_BYTES - K + 1, 2))
+    got, ref = posbucket(*args), posbucket_plain(*args)
+    err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+    print("K14 dense k=13 at 2 shards == plain")
+    # timed at the path's shape: one shard, the corpus chunk
+    cap = bucket_cap(n_win, 1)
+    scratch = fill_scratch(n_win, dev)
+    args = (*ups[0], K23, tables, probe.CANON, index.n, index.n, 1, cap)
+    slots, buckets, _ = posbucket(*args, scratch)
+    ms = cuda_ms(lambda: posbucket(*args, scratch), 20)
+    pms = cuda_ms(lambda: posbucket_plain(*args), 3)
+    dest = torch.where(slots >= 0, 0, 1)
+    lib = cuda_ms(lambda: torch.sort(dest, stable=True), 20)
+    s_ok, v_ok = chunk_slots_plain(*ups[0], K23, tables)
+    live = s_ok[v_ok]
+    n_live, n_distinct = live.numel(), int(torch.unique(live).numel())
+    from aindex_torch.kernels.encode import canonical_code64, packed_window_codes
+    wc, wv = packed_window_codes(*ups[0], K23)
+    n_bytes = (ups[0][0].numel() * 4 + ups[0][1].numel() + 8 * n_win + 8 * n_live
+               + 4 * n_distinct + 8 * distinct_probed_rows(tables, canonical_code64(wc[wv], K23)))
+    rec = record(err14, ms, pms, n_bytes, lib)
+    report(card, "posbucket", f"corpus chunk {CHUNK_BYTES} B, {n_live} present windows, "
+           f"1 shard, cap {cap}", rec)
+    res["posbucket"] = rec
+    roff = torch.tensor([int(pieces[0][1])], device=dev)
+    work = (torch.zeros(int(offsets[-1]), dtype=torch.int64, device=dev),
+            torch.zeros(index.n, dtype=torch.int32, device=dev))
+    loc = torch.from_numpy(offsets[:-1]).to(dev)
+    pscratch = fill_scratch(buckets.numel(), dev)
+    ms = cuda_ms(lambda: posfill_pairs(*work, loc, buckets, roff, 0, True, pscratch), 20)
+    pms = cuda_ms(lambda: posfill_pairs_plain(*work, loc, buckets, roff, 0), 3)
+    idx_bits = max(1, (buckets.numel() - 1).bit_length())
+    keys = (live << idx_bits) | torch.nonzero(v_ok).reshape(-1)
+    lib = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
+    # the records in; a position out a record; an offset and a cursor a slot
+    rec = record(errp, ms, pms, 8 * buckets.numel() + 8 * n_live + 16 * n_distinct, lib)
+    report(card, "posfill_pairs", f"{buckets.numel()} records of one source, {n_live} live, "
+           f"{n_distinct} slots", rec)
+    res["posfill_pairs"] = rec
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1691,9 +2090,21 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
-        counts.update(positional_path(dev, card, tmp, reads, fasta, table, oracle))
+        hashes: dict = {}
+        counts.update(positional_path(dev, card, tmp, reads, fasta, table, oracle, hashes))
         print(f"phase positional path: {time.perf_counter() - t0:.1f} s")
         del table, oracle
+
+        t0 = time.perf_counter()
+        launched, index = mesh_path(dev, card, tmp, reads, fasta, hashes)
+        counts.update({name: launched[name] for name in MESH_KERNELS})
+        print(f"phase mesh path (world size 1, NCCL): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        measured.update(mesh_kernels_vs_plain(dev, card, index, reads))
+        print(f"phase mesh kernels-vs-plain at {SHARDS} shards: "
+              f"{time.perf_counter() - t0:.1f} s")
+        del index
+        torch.cuda.empty_cache()
 
         for k, engine, names in FACADE_CONFIGS:
             t0 = time.perf_counter()

@@ -17,6 +17,8 @@ import torch
 from aindex_tpu.api import AIndex as JAIndex
 from aindex_tpu.core import codec as jcodec
 from aindex_torch import AIndex as TAIndex
+from aindex_torch.parallel import distributed as tdist
+from aindex_torch.parallel.mesh import make_mesh as t_make_mesh
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden_ref")
 KS = [13, 23, 27, 31]
@@ -249,9 +251,13 @@ def test_error_cases(random_reads):
     with pytest.raises(ValueError, match="Only 13-mers and 23-mers"):
         t31.get_positions("A" * 31)
     assert t.get_tf_value("ACGTN" * 4 + "ACG") == 0 and t["N" * 23] == 0
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TAIndex.build_from_sequences(random_reads, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        t.shard_to(object())
+    # a mesh build shards its sparse index and closes the index's own
+    # device path, which then raises (the facade serves the queries)
+    tdist.ensure_group(device="cpu")
+    s = TAIndex.build_from_sequences(random_reads, build_aindex=False,
+                                     mesh=t_make_mesh(1, 1, device_type="cpu"), device="cpu")
+    assert s.get_tf_values(["A" * 23]) == t.get_tf_values(["A" * 23])
+    with pytest.raises(RuntimeError, match="released by shard_to"):
+        s.sparse23.get_tf_values(["A" * 23])
     with pytest.raises(FileNotFoundError, match="auto-detect"):
         TAIndex.load_from_prefix(os.path.join(GOLD, "missing"), device="cpu")

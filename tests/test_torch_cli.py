@@ -128,12 +128,16 @@ def test_platform_and_errors(tmp_path, monkeypatch, capsys):
     assert "torch" in capsys.readouterr().out
     assert tmain([]) == 1
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tmain(["compute-aindex", "-i", f"{DATA}/test.fasta", "-o", "x", "--distributed",
-               "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        tmain(["compute-aindex", "-i", f"{DATA}/test.fasta", "-o", "y", "--devices", "2",
-               "--device", "cpu"])
+    # outside a torchrun job --distributed and --devices build on a world of
+    # one rank, byte for byte as the single-device build
+    for out, extra in (("w", []), ("x", ["--distributed"]), ("y", ["--devices", "2"])):
+        assert tmain(["compute-aindex", "-i", f"{DATA}/test.fasta", "-o", out, "--device",
+                      "cpu", *extra]) == 0
+    for sfx in (".reads", ".pf", ".tf.bin", ".kmers.bin", ".index.bin", ".indices.bin"):
+        for out in ("x", "y"):
+            assert filecmp.cmp(f"w{sfx}", f"{out}{sfx}", shallow=False), (out, sfx)
+    with pytest.raises(SystemExit):
+        tmain(["compute-aindex", "-i", f"{DATA}/test.fasta", "-o", "z", "--devices", "two"])
 
 
 def test_python_m_runs_without_jax(tmp_path):

@@ -1,0 +1,459 @@
+"""The multi-device slice of aindex_torch in one process, with no process
+group: each sharded step's local function (a kernel's plain version on the
+CPU) runs for N = 1, 2, 4 and 8 shards, the collective stood in for by a
+sum or a concatenation, and the result is held exactly to aindex_tpu's
+sharded function on the 8 virtual CPU devices of tests/conftest.py. Also
+the plain K12/K13 twins on random keys with sentinels, the world-of-one
+mesh entry points, and the positional order of the mesh signatures
+aindex_tpu gives (ROADMAP C.1). Every compared value is an integer:
+equality is exact."""
+
+import logging
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aindex_tpu.core import codec as jcodec
+from aindex_tpu.core.reads import ReadsStore
+from aindex_tpu.index import positional as jpos
+from aindex_tpu.index.dense13 import Dense13Index as JDense
+from aindex_tpu.index.sparse23 import Sparse23Index as JSparse
+from aindex_tpu.index.sparse23 import count_canonical_kmers as j_count_canonical
+from aindex_tpu.kernels import lookup as jlookup
+from aindex_tpu.kernels import spectrum as jspectrum
+from aindex_tpu.parallel import count13 as jcount13
+from aindex_tpu.parallel import positional as jppos
+from aindex_tpu.parallel.mesh import make_mesh as j_make_mesh
+from aindex_tpu.parallel.query23 import ShardedSparse23 as JSharded
+from aindex_tpu.parallel.query23 import resolve23_sharded as j_resolve
+from aindex_tpu.parallel.spectrum23 import spectrum23_sharded as j_spectrum
+from aindex_torch import Dense13Index as TDense
+from aindex_torch import PositionalIndex as TPos
+from aindex_torch import Sparse23Index as TSparse
+from aindex_torch.core import codec as tcodec
+from aindex_torch.core.reads import blob_chunk_batches
+from aindex_torch.index.sparse23 import count_canonical_kmers as t_count_canonical
+from aindex_torch.kernels import lookup as tlookup
+from aindex_torch.kernels import spectrum as tspectrum
+from aindex_torch.kernels.positional import posbucket
+from aindex_torch.kernels.probe import CANON
+from aindex_torch.parallel import count13 as tcount13
+from aindex_torch.parallel import distributed as tdist
+from aindex_torch.parallel import positional as tppos
+from aindex_torch.parallel.mesh import make_mesh as t_make_mesh
+from aindex_torch.parallel.query23 import shard_slice
+from aindex_torch.parallel.spectrum23 import merge_range
+
+import oracle
+
+SHARDS = (1, 2, 4, 8)
+
+
+@pytest.fixture(scope="module")
+def reads():
+    """tests/test_parallel.py's reads: 37 random reads (not a multiple of
+    8), a repeat and a read with an N run."""
+    rng = np.random.default_rng(99)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads = [bytes(bases[rng.integers(0, 4, size=40 + int(rng.integers(0, 30)))]).decode()
+             for _ in range(37)]
+    reads.append("ACGT" * 12)
+    reads.append("AATT" + "N" * 4 + "GGCCGGCCGGCCGGCCGGCCGGC")
+    return reads
+
+
+@pytest.fixture(scope="module")
+def blob(reads):
+    return ReadsStore.from_sequences(reads).blob
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor (uint32 through its int32 view)."""
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _u64(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint64)
+
+
+def _j_mesh(n_data: int, n_index: int, eight_devices):
+    return j_make_mesh(n_data=n_data, n_index=n_index, devices=eight_devices[:n_data * n_index])
+
+
+@pytest.fixture(scope="module")
+def world():
+    """A world-of-one gloo group and its (1, 1) cpu mesh."""
+    tdist.ensure_group(device="cpu")
+    return t_make_mesh(1, 1, device_type="cpu")
+
+
+# -- count13: K1 per shard, a sum over data ---------------------------------------
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_count13_sharded(reads, eight_devices, n):
+    batch = tcount13.pack_reads_batch(reads, n_shards=n)
+    np.testing.assert_array_equal(batch, jcount13.pack_reads_batch(reads, n_shards=n))
+    packed, vbits = tcodec.pack_ascii_chunk(batch)
+    want = np.asarray(jcount13.count13_sharded(
+        jnp.asarray(packed), jnp.asarray(vbits), mesh=_j_mesh(n, 1, eight_devices)))
+    rows = batch.shape[0] // n
+    total = torch.zeros(4 ** 13, dtype=torch.int32)
+    for d in range(n):
+        total += tcount13.count13_local(_t(packed[d * rows:(d + 1) * rows]),
+                                        _t(vbits[d * rows:(d + 1) * rows]))
+    np.testing.assert_array_equal(total.numpy().view(np.uint32), want)
+    golden = oracle.count_forward(reads, 13)
+    assert int(want.sum(dtype=np.uint64)) == sum(golden.values())
+
+
+def test_count13_sharded_world_of_one(reads, eight_devices, world):
+    """The collective shell: count13_sharded and its accumulating form on
+    a world-of-one mesh."""
+    batch = tcount13.pack_reads_batch(reads, n_shards=1)
+    packed, vbits = tcodec.pack_ascii_chunk(batch)
+    want = np.asarray(jcount13.count13_sharded(
+        jnp.asarray(packed), jnp.asarray(vbits), mesh=_j_mesh(1, 1, eight_devices)))
+    got = tcount13.count13_sharded(_t(packed), _t(vbits), mesh=world)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    tcount13.count13_sharded_accumulate(got, _t(packed), _t(vbits), mesh=world)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), 2 * want)
+
+
+# -- spectrum23: K5 per shard, all-gather, K13 per key range ---------------------
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_spectrum23_sharded_per_shard(blob, eight_devices, n):
+    mesh = _j_mesh(n, 1, eight_devices)
+    batches = list(blob_chunk_batches(blob, 23, 256, n))
+    assert batches
+    for batch in batches:
+        packed, vbits = tcodec.pack_ascii_chunk(batch)
+        jk, jc, jn = (np.asarray(x) for x in j_spectrum(jnp.asarray(packed), jnp.asarray(vbits),
+                                                        mesh=mesh, k=23))
+        parts = [tspectrum.chunk_spectrum_packed(_t(packed[d]), _t(vbits[d]), 23)
+                 for d in range(n)]
+        all_k = torch.cat([p[0] for p in parts])
+        all_c = torch.cat([p[1].view(torch.int32) for p in parts])
+        for d in range(n):
+            keys, counts, n_u = merge_range(all_k, all_c, d, n, 23)
+            np.testing.assert_array_equal(_u64(keys), jk[d])
+            np.testing.assert_array_equal(_u64(counts), jc[d])
+            assert int(n_u) == int(jn[d])
+
+
+# -- resolve23: K12 owner per shard, a sum, K12 verify per shard, sums -------------
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_resolve23_sharded(blob, eight_devices, n):
+    jindex = JSparse.build_from_blob(blob)
+    sharded = JSharded(jindex, _j_mesh(1, n, eight_devices))
+    m = jindex.mphf
+    rng = np.random.default_rng(7 + n)
+    present = jindex.checker_host[rng.integers(0, jindex.n, size=300)]
+    absent = rng.integers(0, 4 ** 23, size=200, dtype=np.uint64)
+    literal = jcodec.revcomp_code(present[:100], 23)
+    canon = np.concatenate([present, absent, literal]).astype(np.uint64)
+    valid = rng.random(canon.size) < 0.8
+    jtf, jslot, jfound = (np.asarray(x) for x in j_resolve(
+        sharded.g_packed, sharded.slots_sharded, sharded.tf_sharded, sharded.checker_sharded,
+        sharded.seed, sharded.domain, jnp.asarray(canon), jnp.asarray(valid),
+        mesh=sharded.mesh))
+    g = _t(np.asarray(m.g_packed, np.uint32))
+    codes = _t(canon.view(np.int64))
+    slot = torch.zeros(canon.size, dtype=torch.int32)
+    for i in range(n):
+        slots_i, _ = shard_slice(np.asarray(m.slots, np.int32), n, i, 0)
+        key, part, fwd, w_valid = tlookup.shard_owner(g, _t(slots_i), i * slots_i.size,
+                                                      int(m.seed), int(m.domain), codes)
+        assert key is codes and fwd is None and w_valid is None
+        slot += part
+    tf = torch.zeros(canon.size, dtype=torch.int32)
+    found = torch.zeros(canon.size, dtype=torch.int32)
+    for i in range(n):
+        tf_i, _ = shard_slice(jindex.tf_host.view(np.int32), n, i, 0)
+        ck_i, _ = shard_slice(jindex.checker_host.view(np.int64), n, i, -1)
+        t_part, f_part = tlookup.shard_verify(slot, _t(tf_i), _t(ck_i), i * tf_i.size, codes,
+                                              torch.from_numpy(valid))
+        tf += t_part.view(torch.int32)
+        found += f_part
+    np.testing.assert_array_equal(tf.numpy().view(np.uint32), jtf)
+    np.testing.assert_array_equal(slot.numpy(), jslot)
+    np.testing.assert_array_equal(found.numpy() > 0, jfound)
+    np.testing.assert_array_equal(jfound[:300], valid[:300])    # present keys, masked
+
+
+# -- positional: K14 per source, the exchange, K9 pairs per destination ------------
+
+def _simulate_positional(blob, n_slots, tf, tables, n, k, chunk, mode, rule=CANON):
+    """build_positional_sharded's loop for n shards in one process: the
+    all_to_all is a transpose of the sources' buckets, the all-gather a
+    stack of their slots. Returns (offsets, positions, overflow of the
+    first run or None, whether it fell back)."""
+    offsets = np.zeros(n_slots + 1, dtype=np.int64)
+    np.cumsum(np.asarray(tf, dtype=np.int64), out=offsets[1:])
+    m, bounds, seg_len = tppos.range_layout(offsets, n_slots, n)
+
+    def run(step_mode):
+        shards = [tppos.ShardFill(offsets, bounds[d], bounds[d + 1], torch.device("cpu"))
+                  for d in range(n)]
+        overflow = 0
+        for b, batch in enumerate(blob_chunk_batches(blob, k, chunk, n)):
+            stride = batch.shape[1] - (k - 1)
+            cap = tppos.bucket_cap(stride, n)
+            packed, vbits = tcodec.pack_ascii_chunk(batch)
+            roff = (b * n + torch.arange(n)) * stride
+            sent = [posbucket(_t(packed[s]), _t(vbits[s]), k, tables, rule, n_slots, m,
+                              n if step_mode == "alltoall" else 0, cap) for s in range(n)]
+            for d in range(n):
+                if step_mode == "alltoall":
+                    rec = torch.stack([sent[s][1][d] for s in range(n)])
+                else:
+                    rec = torch.stack([sent[s][0] for s in range(n)])
+                shards[d].fill(rec, roff, step_mode == "alltoall")
+            overflow += sum(int(s[2]) for s in sent)
+        return shards, overflow
+
+    shards, overflow = run(mode)
+    fell_back = mode == "alltoall" and overflow > 0
+    if fell_back:
+        shards, _ = run("allgather")
+    positions = np.concatenate([shards[d].positions[:seg_len[d]].numpy() for d in range(n)])
+    return offsets.astype(np.uint64), positions.view(np.uint64), overflow, fell_back
+
+
+def _j_positional(monkeypatch, mode, build, *args, **kw):
+    monkeypatch.setenv(jppos.EXCHANGE_ENV, mode)
+    return build(*args, **kw)
+
+
+@pytest.mark.parametrize("mode", tppos.EXCHANGES)
+@pytest.mark.parametrize("n", SHARDS)
+@pytest.mark.parametrize("k", [23, 31])
+def test_positional_sparse_sharded(blob, eight_devices, monkeypatch, k, n, mode):
+    jindex = JSparse.build_from_blob(blob, k=k)
+    tindex = TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host, k,
+                                device="cpu")
+    want = _j_positional(monkeypatch, mode, jpos.PositionalIndex.build_sparse23, blob, jindex,
+                         chunk=512, mesh=_j_mesh(n, 1, eight_devices))
+    offsets, positions, _, fell_back = _simulate_positional(
+        blob, tindex.n, tindex.tf_host, tindex.tables, n, k, 512, mode)
+    assert not fell_back
+    np.testing.assert_array_equal(offsets, want.offsets)
+    np.testing.assert_array_equal(positions, want.positions)
+
+
+@pytest.mark.parametrize("mode", tppos.EXCHANGES)
+@pytest.mark.parametrize("n", SHARDS)
+def test_positional_dense_sharded(reads, blob, eight_devices, monkeypatch, n, mode):
+    """k = 5 keeps the dense slot space at 4^5; the path is k = 13's (the
+    slot is the forward code)."""
+    golden = oracle.count_forward(reads, 5)
+    tf = np.zeros(4 ** 5, dtype=np.uint32)
+    codes, _ = jcodec.encode_kmers(sorted(golden), 5)
+    tf[codes.astype(np.int64)] = [golden[km] for km in sorted(golden)]
+    want = _j_positional(monkeypatch, mode, jpos.PositionalIndex.build_dense13, blob, k=5,
+                         chunk=512, tf=tf, mesh=_j_mesh(n, 1, eight_devices))
+    offsets, positions, _, _ = _simulate_positional(blob, 4 ** 5, tf, None, n, 5, 512, mode)
+    np.testing.assert_array_equal(offsets, want.offsets)
+    np.testing.assert_array_equal(positions, want.positions)
+
+
+def test_overflow_falls_back(eight_devices, monkeypatch, caplog):
+    """tests/test_parallel.py's case: every window of a poly-A blob is one
+    k-mer, so one shard receives every record and the buckets overflow;
+    the result is the exact CSR from the all-gather exchange, on both
+    sides, and the port's world-of-one build logs the same fallback when
+    its one bucket is too small."""
+    blob = np.frombuffer(b"A" * 2800 + b"\n", dtype=np.uint8)
+    jindex = JSparse.build_from_blob(blob)
+    tindex = TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host,
+                                device="cpu")
+    with caplog.at_level(logging.INFO, logger="aindex_tpu.parallel.positional"):
+        want = _j_positional(monkeypatch, "alltoall", jpos.PositionalIndex.build_sparse23,
+                             blob, jindex, chunk=256, mesh=_j_mesh(8, 1, eight_devices))
+    assert any("fell back to allgather" in r.message for r in caplog.records)
+    offsets, positions, overflow, fell_back = _simulate_positional(
+        blob, tindex.n, tindex.tf_host, tindex.tables, 8, 23, 256, "alltoall")
+    assert fell_back and overflow > 0
+    np.testing.assert_array_equal(offsets, want.offsets)
+    np.testing.assert_array_equal(positions, want.positions)
+
+
+def test_overflow_falls_back_world_of_one(blob, world, monkeypatch, caplog):
+    """The build's own fallback: with buckets a tenth of the mean a world of
+    one overflows too; build_positional_sharded logs the fallback and
+    returns the exact CSR from the allgather exchange."""
+    jindex = JSparse.build_from_blob(blob)
+    tindex = TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host,
+                                device="cpu")
+    want = jpos.PositionalIndex.build_sparse23(blob, jindex, chunk=512)
+    monkeypatch.setattr(tppos, "BUCKET_SLACK", 0.1)
+    with caplog.at_level(logging.INFO, logger="aindex_torch.parallel.positional"):
+        got = tppos.build_positional_sharded(blob, tindex.n, tindex.tf_host, tindex.tables,
+                                             world, 23, 512, exchange="alltoall")
+    assert any("fell back to allgather" in r.message and "overflow pairs" in r.message
+               for r in caplog.records)
+    np.testing.assert_array_equal(got.offsets, want.offsets)
+    np.testing.assert_array_equal(got.positions, want.positions)
+
+
+def test_posbucket_overflow_counts(blob):
+    """A forced small cap: the records that fit match the plain argsort
+    formulation, and every window past the cap is counted."""
+    jindex = JSparse.build_from_blob(blob)
+    tindex = TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host,
+                                device="cpu")
+    packed, vbits = tcodec.pack_ascii_chunk(next(blob_chunk_batches(blob, 23, 1024, 1))[0])
+    slots, buckets, overflow = posbucket(_t(packed), _t(vbits), 23, tindex.tables, CANON,
+                                         tindex.n, -(-tindex.n // 4), 4, 8)
+    dest = torch.where(slots >= 0, slots // -(-tindex.n // 4), 4)
+    per = torch.bincount(dest, minlength=5)[:4]
+    assert int(overflow) == int((per - 8).clamp(min=0).sum()) > 0
+    for d in range(4):
+        rec = buckets[d][buckets[d] != 0]
+        window = rec & ((1 << 24) - 1)
+        assert rec.numel() == min(8, int(per[d]))
+        assert bool((window[1:] > window[:-1]).all())
+        assert bool((((rec >> 24) - 1) == slots[window]).all())
+
+
+# -- K12 and K13's plain twins on random keys ---------------------------------------
+
+def test_sorted_spectrum_weighted_plain_vs_jax():
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 2 ** 64, size=3000, dtype=np.uint64)
+    keys[rng.random(keys.size) < 0.3] = jspectrum.SENTINEL
+    keys[:500] = keys[500:1000]                     # repeated keys
+    keys[-3:] = np.uint64(2 ** 63)                  # top bit set
+    weights = rng.integers(0, 2 ** 64, size=keys.size, dtype=np.uint64)
+    jk, jc, jn = (np.asarray(x) for x in jspectrum.sorted_spectrum_weighted(
+        jnp.asarray(keys), jnp.asarray(weights)))
+    tk, tc, tn = tspectrum.sorted_spectrum_weighted(_t(keys.view(np.int64)),
+                                                    _t(weights.view(np.int64)))
+    np.testing.assert_array_equal(_u64(tk), jk)
+    np.testing.assert_array_equal(_u64(tc), jc)
+    assert int(tn) == int(jn)
+    w32 = weights.astype(np.uint32)
+    jk, jc, _ = (np.asarray(x) for x in jspectrum.sorted_spectrum_weighted(
+        jnp.asarray(keys), jnp.asarray(w32)))
+    tk, tc, _ = tspectrum.sorted_spectrum_weighted(_t(keys.view(np.int64)), _t(w32))
+    np.testing.assert_array_equal(_u64(tk), jk)
+    np.testing.assert_array_equal(_u64(tc), jc)
+
+
+def test_mphf_owner_node_plain_vs_jax(blob):
+    jindex = JSparse.build_from_blob(blob)
+    m = jindex.mphf
+    rng = np.random.default_rng(11)
+    keys = np.concatenate([jindex.checker_host,
+                           rng.integers(0, 2 ** 64, size=2000, dtype=np.uint64)])
+    want = np.asarray(jlookup.mphf_owner_node(jnp.asarray(m.g_packed), jnp.asarray(keys),
+                                              jnp.uint64(m.seed), jnp.uint64(m.domain)))
+    got = tlookup.mphf_owner_node(_t(np.asarray(m.g_packed, np.uint32)),
+                                  _t(keys.view(np.int64)), int(m.seed), int(m.domain))
+    assert 3 * int(m.domain) < 2 ** 31
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    # the owner of every indexed key is the node whose slot holds it
+    slot = np.asarray(m.slots)[got.numpy()[:jindex.n]]
+    np.testing.assert_array_equal(jindex.checker_host[slot], jindex.checker_host)
+
+
+# -- the mesh entry points on a world of one, and their argument order (C.1) -------
+
+def test_dense13_build_from_blob_mesh_and_order(blob, world):
+    want = JDense.build_from_blob(blob, 256).tf_host
+    seen = []
+    got = TDense.build_from_blob(blob, 256, None, seen.append, device="cpu")
+    np.testing.assert_array_equal(got.tf_host, want)
+    assert seen and seen[-1] == blob.size
+    got = TDense.build_from_blob(blob, 256, world, device="cpu")
+    np.testing.assert_array_equal(got.tf_host, want)
+
+
+def test_sparse23_build_from_blob_mesh_and_order(blob, world):
+    want = JSparse.build_from_blob(blob, 23, 2, 512)
+    for mesh in (None, world):
+        got = TSparse.build_from_blob(blob, 23, 2, 512, mesh, device="cpu")
+        np.testing.assert_array_equal(got.checker_host, want.checker_host)
+        np.testing.assert_array_equal(got.tf_host, want.tf_host)
+    with pytest.raises(TypeError):
+        TSparse.build_from_blob(blob, 23, 1, 512, None, print)   # on_progress is keyword-only
+
+
+def test_count_canonical_kmers_mesh_and_order(blob, world):
+    jk, jc = j_count_canonical(blob, 23, 512, "device")
+    seen = []
+    for reduce in ("auto", "device", "host"):
+        tk, tc = t_count_canonical(blob, 23, 512, reduce, None, seen.append, device="cpu")
+        np.testing.assert_array_equal(tk, jk)
+        np.testing.assert_array_equal(tc, jc.astype(np.uint64))
+    assert seen[-1] == blob.size
+    tk, tc = t_count_canonical(blob, 23, 512, "device", world)
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_array_equal(tc, jc.astype(np.uint64))
+    with pytest.raises(ValueError, match="reduce must be"):
+        t_count_canonical(blob, 23, 512, "gpu", device="cpu")
+
+
+def test_positional_mesh_world_of_one(blob, world):
+    jindex = JSparse.build_from_blob(blob)
+    tindex = TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host,
+                                device="cpu")
+    want = jpos.PositionalIndex.build_sparse23(blob, jindex, chunk=512)
+    for mode in tppos.EXCHANGES:
+        got = tppos.build_positional_sharded(blob, tindex.n, tindex.tf_host, tindex.tables,
+                                             world, 23, 512, exchange=mode)
+        np.testing.assert_array_equal(got.offsets, want.offsets)
+        np.testing.assert_array_equal(got.positions, want.positions)
+    got = TPos.build_sparse23(blob, tindex, 512, world)
+    np.testing.assert_array_equal(got.positions, want.positions)
+    with pytest.raises(ValueError, match="unknown positional exchange"):
+        tppos.build_positional_sharded(blob, tindex.n, tindex.tf_host, tindex.tables, world,
+                                       23, 512, exchange="ring")
+
+
+def test_mesh_needs_world_and_backend(world):
+    with pytest.raises(ValueError, match="world size"):
+        t_make_mesh(2, 1, device_type="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_make_mesh(1, 1, device_type="cuda")
+    with pytest.raises(ValueError, match="must divide"):
+        tdist.global_mesh(n_index=0, device_type="cpu")
+
+
+def test_distributed_helpers_world_of_one(world, monkeypatch):
+    for var in tdist.ENV:
+        monkeypatch.delenv(var, raising=False)
+    assert tdist.initialize(device="cpu")          # the group exists already
+    assert tdist.world_size() == 1 and tdist.should_write() and not tdist.is_multiprocess()
+    assert tdist.host_read_slice(10) == slice(0, 10)
+    assert list(tdist.local_data_rows(world)) == [0]
+    arr = np.arange(6, dtype=np.int64).reshape(1, 6)
+    rows = tdist.local_row_shards(tdist.put_row_sharded(arr, world), world)
+    np.testing.assert_array_equal(rows[0], arr[0])
+    np.testing.assert_array_equal(tdist.allgather_concat(arr[0]), arr[0])
+    tdist.barrier("noop")
+    mesh = tdist.global_mesh(device_type="cpu")
+    assert mesh.size(0) == 1 and mesh.size(1) == 1
+
+
+def test_shard_to_keeps_reference_keyed_index(world, caplog):
+    """An emphf (reference-keyed) index has no MPHF walk and takes the
+    forward-else-revcomp rule: shard_to warns and keeps the single-device
+    engine, as aindex_tpu's does."""
+    import os
+    from aindex_tpu.api import AIndex as JAIndex
+    from aindex_torch import AIndex as TAIndex
+    prefix = os.path.join(os.path.dirname(__file__), "golden_ref", "p.23")
+    t = TAIndex.load_from_prefix(prefix, device="cpu")
+    j = JAIndex.load_from_prefix(prefix)
+    kms = [line.split()[0] for line in open(prefix + ".dat")][:200]
+    with caplog.at_level(logging.WARNING, logger="aindex_torch.api"):
+        t.shard_to(world)
+    assert t._sharded23 is None and t._engine23 is t.sparse23
+    assert any("reference-keyed" in r.message for r in caplog.records)
+    assert t.get_tf_values(kms) == j.get_tf_values(kms)

@@ -187,10 +187,21 @@ class TestProgress:
         assert os.path.getsize(out / "trace" / "build_all.trace.json") > 0
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"n_devices": 2}])
+@pytest.mark.parametrize("kw", [{"mesh": "world"}, {"n_devices": 2}])
 def test_multi_device_not_ported(fasta, out, kw):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tbuild.build_all([fasta], tbuild.BuildConfig(prefix=str(out / "x"), device="cpu", **kw))
+    """Once unported, now the mesh build: on a world of one (``n_devices``
+    clamped to it) its artifacts equal the single-device build's."""
+    from aindex_torch.parallel import distributed
+    from aindex_torch.parallel.mesh import make_mesh
+    if kw.get("mesh") == "world":
+        distributed.ensure_group(device="cpu")
+        kw = {"mesh": make_mesh(1, 1, device_type="cpu")}
+    tbuild.build_all([fasta], tbuild.BuildConfig(prefix=str(out / "s"), device="cpu"))
+    cfg = tbuild.BuildConfig(prefix=str(out / "x"), device="cpu", **kw)
+    tbuild.build_all([fasta], cfg)
+    assert cfg.mesh is not None
+    _same_files(str(out / "s"), str(out / "x"), (".reads", ".ridx", ".tf.bin") + SPARSE[:2]
+                + POSITIONAL)
 
 
 def test_paired_fastq_requires_two(out):

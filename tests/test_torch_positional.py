@@ -207,11 +207,16 @@ class TestBuild:
         t13 = TPos.build_dense13(blob, device="cpu")
         assert t13.total == 0 and t13.n_slots == 4 ** 13
 
-    def test_rejects(self, blob, sparse):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            TPos.build_dense13(blob, mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            TPos.build_sparse23(blob, sparse[0], mesh=object())
+    def test_rejects(self, blob, sparse, monkeypatch):
+        from aindex_torch.parallel import distributed, positional
+        from aindex_torch.parallel.mesh import make_mesh
+        distributed.ensure_group(device="cpu")
+        mesh = make_mesh(1, 1, device_type="cpu")
+        with pytest.raises(ValueError, match="counts for"):
+            TPos.build_dense13(blob, k=5, tf=np.zeros(10, np.uint32), mesh=mesh)
+        monkeypatch.setenv(positional.EXCHANGE_ENV, "ring")
+        with pytest.raises(ValueError, match="unknown positional exchange"):
+            TPos.build_sparse23(blob, sparse[0], mesh=mesh)
         with pytest.raises(ValueError, match="tf=None"):
             TPos.build_dense13(blob, k=5, device="cpu")
         with pytest.raises(ValueError, match="counts for"):

@@ -30,28 +30,45 @@ __device__ __forceinline__ unsigned ascii_code(unsigned char c) {
   return ok ? (x ^ (x >> 1)) : 4u;
 }
 
-// Reverse complement of a 13-mer code held in 32 bits: complement every
-// 2-bit field, mirror the 16 fields, shift down to the low 26 bits. Only the
-// low 26 bits of x reach the result, so it is always a valid table index.
-__device__ __forceinline__ unsigned revcomp13(unsigned x) {
+// Reverse complement of a k-mer code (k <= 16; 13 unless given) held in 32
+// bits: complement every 2-bit field, mirror the 16 fields, shift down to
+// the low 2k bits. Only the low 2k bits of x reach the result, so for k = 13
+// it is always a valid table index.
+__device__ __forceinline__ unsigned revcomp13(unsigned x, int k = K) {
   x = ~x;
   x = ((x >> 2) & 0x33333333u) | ((x & 0x33333333u) << 2);
   x = ((x >> 4) & 0x0F0F0F0Fu) | ((x & 0x0F0F0F0Fu) << 4);
   x = ((x >> 8) & 0x00FF00FFu) | ((x & 0x00FF00FFu) << 8);
   x = (x >> 16) | (x << 16);
-  return x >> (32 - 2 * K);
+  return x >> (32 - 2 * k);
 }
 
 // The index a JAX gather `table[code.astype(int32)]` reads for a uint32
-// code: the cast wraps to int32, a negative index gains the table length,
-// and the result is clamped into the table. So 4^13 and 2^31 - 1 read the
-// last entry, 2^32 - 1 (= -1) reads the last entry, 2^31 reads entry 0.
-__device__ __forceinline__ int jax_index(unsigned code) {
-  int i = static_cast<int>(code);
-  if (i < 0) i += SPACE;
+// code in a table of n >= 1 entries: the cast wraps to int32, a negative
+// index gains n, and the result is clamped into the table. So in the 4^13
+// table (jax_index) 4^13 and 2^31 - 1 read the last entry, 2^32 - 1 (= -1)
+// reads the last entry, 2^31 reads entry 0.
+__device__ __forceinline__ long long jax_index_n(unsigned code, long long n) {
+  long long i = static_cast<int>(code);
+  if (i < 0) i += n;
   if (i < 0) i = 0;
-  if (i >= SPACE) i = SPACE - 1;
+  if (i >= n) i = n - 1;
   return i;
+}
+
+__device__ __forceinline__ int jax_index(unsigned code) {
+  return static_cast<int>(jax_index_n(code, SPACE));
+}
+
+// The index a JAX scatter `counts.at[code.astype(int32)].add(w,
+// mode="drop")` writes for a uint32 code into a table of `space` entries:
+// the cast wraps to int32 and a negative index gains `space`; whatever then
+// lies outside [0, space) is dropped (returns false).
+__device__ __forceinline__ bool scatter_index(unsigned code, long long space, long long* i) {
+  long long j = static_cast<int>(code);
+  if (j < 0) j += space;
+  *i = j;
+  return j >= 0 && j < space;
 }
 
 // The 13-mer starting at base p of the packed ingest format

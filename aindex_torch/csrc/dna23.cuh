@@ -6,6 +6,8 @@
 //   canonical64     <- canonical_code64             (encode.py:141)
 //   packed_window64 <- unpack_base_codes + window_codes, uint64 out
 //                      (encode.py:46,63,98); dna13::packed_window for k <= 31
+//   ascii_window64  <- ascii_to_base_codes + window_codes, uint64 out
+//                      (encode.py:25,63), one window of ASCII bytes
 // The plain PyTorch versions live in aindex_torch/kernels/encode.py.
 //
 // All codes are uint64_t: shifts are logical and multiplies wrap modulo
@@ -62,6 +64,23 @@ __device__ __forceinline__ bool packed_window64(const unsigned* __restrict__ pac
     if (b + i < n_bytes) v |= static_cast<uint64_t>(vbits[b + i]) << (8 * i);
   const uint64_t need = (1ull << k) - 1ull;
   return ((v >> (p & 7)) & need) == need;
+}
+
+// The k-mer (k <= 31) of the k ASCII bytes at s. Returns whether all k
+// bytes are ACGT/acgt and writes the code, in which a byte outside ACGT
+// reads 3, as INVALID_CODE & 3 does in window_codes: the codes of invalid
+// windows (which _extract_canonical returns beside their mask) are JAX's.
+__device__ __forceinline__ bool ascii_window64(const unsigned char* __restrict__ s, int k,
+                                               uint64_t* code) {
+  uint64_t c = 0;
+  bool ok = true;
+  for (int j = 0; j < k; ++j) {
+    const unsigned b = dna13::ascii_code(s[j]);
+    ok &= b < 4u;
+    c = (c << 2) | (b < 4u ? b : 3u);
+  }
+  *code = c;
+  return ok;
 }
 
 }  // namespace dna23

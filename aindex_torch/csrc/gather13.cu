@@ -10,6 +10,15 @@
 // Template parameters: the table's width (8, 16 or 32 bits), ASCII rows or
 // codes in, a valid mask or none, and the reverse-complement second output.
 //
+// Two more C entries take a 1-D table of any length n and answer in the
+// table's own type:
+//   gather13_table <- aindex_tpu/kernels/lookup.py:22 gather_tf
+//                     (table[code.astype(int32)], no mask);
+//   gather13_total <- aindex_tpu/kernels/lookup.py:39 gather_tf_total_13
+//                     (table[code] + table[revcomp_k(code)], summed in the
+//                     table's type, masked): one pass, two reads, one
+//                     write, with no total table.
+//
 // Bound: random reads of device memory. Each query reads one (or two)
 // table entries at an address unrelated to its neighbours', so a warp
 // touches 32 sectors for 32 useful entries of 1-4 bytes. The narrowed
@@ -17,8 +26,9 @@
 // to the narrowest exact table. Design: one thread per query; codes are
 // read and outputs written coalesced; ASCII rows are decoded in registers.
 //
-// Codes out of range read what JAX's gather reads (see dna13::jax_index),
-// never outside the table. Invalid queries give 0.
+// Codes out of range read what JAX's gather reads (see dna13::jax_index,
+// and jax_index_n for a table of n entries), never outside the table.
+// Invalid queries give 0.
 #include "dna13.cuh"
 
 namespace {
@@ -75,6 +85,62 @@ void dispatch(const void* table, const void* codes, const void* valid, const voi
   }
 }
 
+template <typename T>
+__global__ void gather_table_kernel(const T* __restrict__ table, long long n_table,
+                                    const int* __restrict__ codes, long long n,
+                                    T* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = table[dna13::jax_index_n(static_cast<unsigned>(codes[i]), n_table)];
+}
+
+template <typename T>
+__global__ void gather_total_kernel(const T* __restrict__ table, long long n_table,
+                                    const int* __restrict__ codes,
+                                    const unsigned char* __restrict__ valid, int k, long long n,
+                                    T* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    T v = 0;
+    if (valid[i]) {
+      const unsigned code = static_cast<unsigned>(codes[i]);
+      v = static_cast<T>(table[dna13::jax_index_n(code, n_table)] +
+                         table[dna13::jax_index_n(dna13::revcomp13(code, k), n_table)]);
+    }
+    out[i] = v;
+  }
+}
+
+template <typename T>
+void launch_table(const void* table, long long n_table, const void* codes, const void* valid,
+                  int k, long long n, void* out, bool total, cudaStream_t s) {
+  const auto* t = static_cast<const T*>(table);
+  const auto* c = static_cast<const int*>(codes);
+  auto* o = static_cast<T*>(out);
+  if (total)
+    gather_total_kernel<T><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(
+        t, n_table, c, static_cast<const unsigned char*>(valid), k, n, o);
+  else
+    gather_table_kernel<T><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(t, n_table, c, n, o);
+}
+
+int table_entry(const void* table, int width, long long n_table, const void* codes,
+                const void* valid, int k, long long n, void* out, bool total, void* stream) {
+  if (n_table < 1 || (total && (k < 1 || k > 16 || valid == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 8: launch_table<uint8_t>(table, n_table, codes, valid, k, n, out, total, s); break;
+    case 16: launch_table<uint16_t>(table, n_table, codes, valid, k, n, out, total, s); break;
+    case 32: launch_table<uint32_t>(table, n_table, codes, valid, k, n, out, total, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 DNA13_EXPORT_ERROR_STRING
@@ -95,4 +161,20 @@ extern "C" int gather13(const void* table, int width, const void* codes, const v
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// table: uint8/uint16/uint32[n_table] (width = 8, 16 or 32), n_table >= 1.
+// codes: int32[n] (uint32 bit patterns). out: the table's type, [n].
+// Returns cudaGetLastError() after the launch.
+extern "C" int gather13_table(const void* table, int width, long long n_table, const void* codes,
+                              long long n, void* out, void* stream) {
+  return table_entry(table, width, n_table, codes, nullptr, 0, n, out, false, stream);
+}
+
+// As gather13_table, plus valid (bool[n]) and 1 <= k <= 16: out[i] =
+// table[code] + table[revcomp_k(code)] in the table's type where valid[i],
+// else 0. Returns cudaGetLastError() after the launch.
+extern "C" int gather13_total(const void* table, int width, long long n_table, const void* codes,
+                              const void* valid, int k, long long n, void* out, void* stream) {
+  return table_entry(table, width, n_table, codes, valid, k, n, out, true, stream);
 }

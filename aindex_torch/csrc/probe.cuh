@@ -1,7 +1,8 @@
 // The verified key -> (tf, slot) probes of the sparse index's three query
 // engines, the two query rules, and the kernels built on them: the query
-// kernel (K6, K10, K11), the coverage kernel (K7, K10, K11) and the window
-// -> slot step of the positional fill (K9, K10, K11; fill.cuh).
+// kernel (K6, K10, K11), the coverage kernels (K7, K10, K11; and K7's
+// ASCII-rows entry) and the window -> slot step of the positional fill
+// (K9, K10, K11; fill.cuh).
 //
 // Engines (aindex_tpu/index/sparse23.py:313-369 chooses between them):
 //   Quot   <- index/quotcuckoo.py:281 _probe: two 8-byte (fingerprint, tf)
@@ -255,12 +256,7 @@ __global__ void query_kernel(E e, const long long* __restrict__ codes,
     uint64_t code = 0;
     bool ok = true;
     if (ASCII) {
-      const unsigned char* row = ascii + i * k;
-      for (int j = 0; j < k; ++j) {
-        const unsigned b = dna13::ascii_code(row[j]);
-        ok &= b < 4u;
-        code = (code << 2) | (b & 3u);
-      }
+      ok = dna23::ascii_window64(ascii + i * k, k, &code);
     } else {
       code = static_cast<uint64_t>(codes[i]);
       if (MASK) ok = valid[i] != 0;
@@ -382,6 +378,46 @@ int coverage(const void* const* p, const unsigned long long* u, const void* pack
   return static_cast<int>(cudaGetLastError());
 }
 
+// Per-position coverage of ASCII rows: one thread per (row, window) reads
+// the window's k bytes (dna23::ascii_window64), applies the rule's probes
+// and writes the tf (0 for an invalid or absent window), uint32[rows, len -
+// k + 1] out. No cutoff: quotcuckoo.py:329 quot_tf_windows has none.
+template <class E, int RULE>
+__global__ void coverage_rows_kernel(E e, const unsigned char* __restrict__ ascii,
+                                     long long rows, long long len, int k,
+                                     unsigned* __restrict__ out) {
+  const long long width = len - k + 1;
+  const long long n = rows * width;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    const long long r = i / width;
+    uint64_t code;
+    unsigned tf = 0u;
+    if (dna23::ascii_window64(ascii + r * len + (i - r * width), k, &code)) {
+      long long ref;
+      int strand;
+      if (!resolve<E, RULE>(e, code, k, &tf, &ref, &strand)) tf = 0u;
+    }
+    out[i] = tf;
+  }
+}
+
+// The ASCII-rows coverage entry of an engine, canonical rule: ascii
+// uint8[rows, len] (row-major), out uint32[rows, len - k + 1].
+template <class E>
+int coverage_rows(const void* const* p, const unsigned long long* u, const void* ascii,
+                  long long rows, long long len, int k, void* out, void* stream) {
+  E e;
+  if (k < 1 || k > 31 || E::make(p, u, &e) != 0) return BAD;
+  if (rows <= 0 || len < k) return 0;
+  const long long n = rows * (len - k + 1);
+  coverage_rows_kernel<E, CANON><<<dna13::grid_for(n), dna13::BLOCK, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      e, static_cast<const unsigned char*>(ascii), rows, len, k, static_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace probe
 
 // The C entries of one engine, each returning cudaGetLastError() after its
@@ -400,4 +436,10 @@ int coverage(const void* const* p, const unsigned long long* u, const void* pack
                       int k, int rule, unsigned cutoff, void* out, void* stream) {           \
     return probe::coverage<ENGINE>(p, u, packed, vbits, n_words, rows, stride, k, rule,      \
                                    cutoff, out, stream);                                     \
+  }
+
+#define PROBE_COVERAGE_ROWS_ENTRY(NAME, ENGINE)                                            \
+  extern "C" int NAME(const void* const* p, const unsigned long long* u, const void* ascii,  \
+                      long long rows, long long len, int k, void* out, void* stream) {       \
+    return probe::coverage_rows<ENGINE>(p, u, ascii, rows, len, k, out, stream);             \
   }

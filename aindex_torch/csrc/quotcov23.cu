@@ -9,11 +9,17 @@
 // reference-keyed indexes, the windows -> _resolve_tf_device -> cutoff of
 // SharedQueryOps._coverage_ascii (sparse23.py:172-182).
 //
+// Its entry quotcov23_rows replaces aindex_tpu/index/quotcuckoo.py:329
+// quot_tf_windows: the same coverage from ASCII rows (uint8[B, L] ->
+// uint32[B, L - k + 1]), canonical probes, no cutoff (probe.cuh
+// coverage_rows_kernel on probe::Quot).
+//
 // Bound: random reads of the 8-byte table rows, as in quot23; the packed
-// input is 0.375 bytes a base and read coalesced. Design: one thread per
-// (row, window), with quot23's probe.
+// input is 0.375 bytes a base (ASCII rows 1 byte) and read coalesced.
+// Design: one thread per (row, window), with quot23's probe.
 #include "probe.cuh"
 
 DNA13_EXPORT_ERROR_STRING
 
 PROBE_COVERAGE_ENTRY(quotcov23, probe::Quot)
+PROBE_COVERAGE_ROWS_ENTRY(quotcov23_rows, probe::Quot)

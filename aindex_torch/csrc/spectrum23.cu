@@ -7,6 +7,10 @@
 // Replaces aindex_tpu/kernels/spectrum.py:48 chunk_spectrum_packed and
 // :121 sorted_spectrum (the keys-in mode below: a flat uint64 key array in
 // which the sentinel means "ignore"), with encode.py:98,125,141 fused in.
+// Its entry spectrum23_ascii replaces :33 chunk_spectrum, the same steps
+// from ASCII bytes (1-D, or [B, L] rows whose windows stay in their row),
+// and canonical23_ascii replaces index/sparse23.py:38 _extract_canonical:
+// step 1 alone, every window's canonical code and its valid flag out.
 //
 // Bound: the sort. A 2^22-byte chunk gives 4.19M windows of 8-byte keys;
 // each radix pass reads and writes every key once, and only the 2k = 46
@@ -51,6 +55,27 @@ __global__ void windows_kernel(const unsigned* __restrict__ packed,
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[n_win] = 0;
 }
 
+// One thread per window of ASCII rows (dna23::ascii_window64 reads its k
+// bytes; neighbouring threads share them through L1). F is the flag type:
+// int for the scan of spectrum23_ascii (which also clears flags[n_win]),
+// bool for canonical23_ascii.
+template <typename F, bool TAIL>
+__global__ void ascii_windows_kernel(const unsigned char* __restrict__ ascii, long long len,
+                                     int k, long long n_win, unsigned long long* __restrict__ keys,
+                                     F* __restrict__ flags) {
+  const long long width = len - k + 1;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < n_win;
+       p += step) {
+    const long long r = p / width;
+    uint64_t code;
+    const bool ok = dna23::ascii_window64(ascii + r * len + (p - r * width), k, &code);
+    keys[p] = dna23::canonical64(code, k);
+    flags[p] = ok ? 1 : 0;
+  }
+  if (TAIL && blockIdx.x == 0 && threadIdx.x == 0) flags[n_win] = 0;
+}
+
 __global__ void keys_kernel(const unsigned long long* __restrict__ in, long long n,
                             unsigned long long* __restrict__ keys, int* __restrict__ flags) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -81,6 +106,33 @@ __global__ void run_count(const int* __restrict__ start, const int* __restrict__
   }
 }
 
+// Steps 2-4 on cap keys in kb with their flags in idx (idx[cap] = 0):
+// compact, sort on the low `bits` bits, run-length reduce.
+int reduce_keys(long long cap, int bits, unsigned long long* ka, unsigned long long* kb,
+                int* ix, int* cn, int* hs, int* sm, unsigned long long* ko, int* start,
+                unsigned* counts, cudaStream_t s) {
+  const unsigned grid = dna13::grid_for(cap);
+  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn, s)) return e;
+  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, cap, ka);
+  KERNEL_CHECK();
+
+  unsigned long long* cur = nullptr;
+  if (int e = radix::sort(ka, kb, cn, cap, 0, bits, hs, sm, s, &cur)) return e;
+
+  runs::run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, cap, ix);
+  KERNEL_CHECK();
+  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn + 1, s)) return e;
+  runs::run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, start);
+  KERNEL_CHECK();
+  run_count<<<grid, dna13::BLOCK, 0, s>>>(start, cn, cap, ko, counts);
+  KERNEL_CHECK();
+  return 0;
+}
+
+bool bad_rows(long long rows, long long len, int k) {
+  return k < 1 || k > 31 || rows < 1 || len < k || rows * (len - k + 1) >= (1LL << 31) - 1;
+}
+
 }  // namespace
 
 DNA13_EXPORT_ERROR_STRING
@@ -107,15 +159,9 @@ extern "C" int spectrum23(const void* packed, const void* vbits, long long n_wor
   const int bits = from_packed ? 2 * k : key_bits;
   if (bits < 1 || bits > 64) return static_cast<int>(cudaErrorInvalidValue);
 
-  auto* ka = static_cast<unsigned long long*>(keys_a);
   auto* kb = static_cast<unsigned long long*>(keys_b);
   auto* ix = static_cast<int*>(idx);
-  auto* cn = static_cast<int*>(counters);
-  auto* hs = static_cast<int*>(hist);
-  auto* sm = static_cast<int*>(sums);
-  auto* ko = static_cast<unsigned long long*>(keys_out);
   const unsigned grid = dna13::grid_for(cap);
-
   if (from_packed)
     windows_kernel<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const unsigned*>(packed),
                                                 static_cast<const unsigned char*>(vbits),
@@ -124,20 +170,45 @@ extern "C" int spectrum23(const void* packed, const void* vbits, long long n_wor
     keys_kernel<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const unsigned long long*>(keys_in),
                                              cap, kb, ix);
   KERNEL_CHECK();
-  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn, s)) return e;
-  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, cap, ka);
-  KERNEL_CHECK();
+  return reduce_keys(cap, bits, static_cast<unsigned long long*>(keys_a), kb, ix,
+                static_cast<int*>(counters), static_cast<int*>(hist), static_cast<int*>(sums),
+                static_cast<unsigned long long*>(keys_out), static_cast<int*>(start),
+                static_cast<unsigned*>(counts_out), s);
+}
 
-  unsigned long long* cur = nullptr;
-  if (int e = radix::sort(ka, kb, cn, cap, 0, bits, hs, sm, s, &cur)) return e;
+// ASCII rows: ascii uint8[rows, len] (a 1-D chunk is one row), the k-mers
+// (1 <= k <= 31) of each row's len - k + 1 windows, cap = rows * (len - k +
+// 1) < 2^31 - 1, sorted on their 2k significant bits. Outputs, counters and
+// scratch as spectrum23's. Returns the first CUDA error of the launches,
+// or 0.
+extern "C" int spectrum23_ascii(const void* ascii, long long rows, long long len, int k,
+                                void* keys_out, void* counts_out, void* counters, void* keys_a,
+                                void* keys_b, void* idx, void* start, void* hist, void* sums,
+                                void* stream) {
+  if (bad_rows(rows, len, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long cap = rows * (len - k + 1);
+  auto* kb = static_cast<unsigned long long*>(keys_b);
+  auto* ix = static_cast<int*>(idx);
+  ascii_windows_kernel<int, true><<<dna13::grid_for(cap), dna13::BLOCK, 0, s>>>(
+      static_cast<const unsigned char*>(ascii), len, k, cap, kb, ix);
+  KERNEL_CHECK();
+  return reduce_keys(cap, 2 * k, static_cast<unsigned long long*>(keys_a), kb, ix,
+                static_cast<int*>(counters), static_cast<int*>(hist), static_cast<int*>(sums),
+                static_cast<unsigned long long*>(keys_out), static_cast<int*>(start),
+                static_cast<unsigned*>(counts_out), s);
+}
 
-  runs::run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, cap, ix);
-  KERNEL_CHECK();
-  if (int e = scan::exclusive_scan<int, int>(ix, ix, cap + 1, sm, cn + 1, s)) return e;
-  runs::run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, static_cast<int*>(start));
-  KERNEL_CHECK();
-  run_count<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const int*>(start), cn, cap, ko,
-                                          static_cast<unsigned*>(counts_out));
-  KERNEL_CHECK();
-  return 0;
+// ASCII rows as spectrum23_ascii takes them -> keys_out uint64[rows, len -
+// k + 1], the canonical code of every window (invalid ones included), and
+// valid_out bool[rows, len - k + 1]. Returns cudaGetLastError().
+extern "C" int canonical23_ascii(const void* ascii, long long rows, long long len, int k,
+                                 void* keys_out, void* valid_out, void* stream) {
+  if (bad_rows(rows, len, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = rows * (len - k + 1);
+  ascii_windows_kernel<bool, false><<<dna13::grid_for(n), dna13::BLOCK, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(ascii), len, k, n,
+      static_cast<unsigned long long*>(keys_out), static_cast<bool*>(valid_out));
+  return static_cast<int>(cudaGetLastError());
 }

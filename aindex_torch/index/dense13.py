@@ -31,7 +31,7 @@ from aindex_torch.core.reads import blob_chunks, stream_blob_chunks
 from aindex_torch.index.common import host_u32, packed_chunks, resolve_device
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels import coverage as cov_kernels
-from aindex_torch.kernels.count import count13_packed
+from aindex_torch.kernels.count import count13_packed, count_batch_13, zeros_dev
 from aindex_torch.kernels.encode import revcomp_code13
 from aindex_torch.kernels.lookup import gather13
 
@@ -80,6 +80,13 @@ def _narrow(table: torch.Tensor) -> torch.Tensor:
     if max_v < (1 << 16):
         return s.to(torch.int16).view(torch.uint16)
     return table
+
+
+def _count_step(counts: torch.Tensor, ascii: torch.Tensor) -> torch.Tensor:
+    """``count_batch_13`` at k = 13 over the 4^13 table, in place
+    (aindex_tpu/index/dense13.py:29, which jits it with donation): K16 on a
+    CUDA tensor. No build calls it; the builds count packed chunks (K1)."""
+    return count_batch_13(counts, ascii, K13, SPACE_13)
 
 
 def _count(counts: torch.Tensor, chunk_iter, on_progress) -> None:
@@ -177,8 +184,7 @@ class Dense13Index:
         """Count over (chunk, bytes_done) pairs; chunks cross to the device
         in the packed ingest format (codec.pack_ascii_chunk, 0.375
         bytes/base)."""
-        device = resolve_device(device)
-        counts = torch.zeros(SPACE_13, dtype=torch.int32, device=device)
+        counts = zeros_dev(SPACE_13, torch.int32, device=device)
         _count(counts, chunk_iter, on_progress)
         return cls(counts)
 

@@ -37,6 +37,7 @@ from aindex_torch.constants import K13, SUFFIX_INDEX, SUFFIX_INDICES
 from aindex_torch.core.reads import blob_chunks
 from aindex_torch.index.common import packed_chunks, resolve_device
 from aindex_torch.index.sparse23 import Sparse23Index
+from aindex_torch.kernels.count import zeros_dev
 from aindex_torch.kernels.positional import csr_offsets, fill_scratch, posfill
 from aindex_torch.kernels.probe import CANON
 
@@ -113,8 +114,8 @@ class PositionalIndex:
         if total == 0:
             return cls(offsets.cpu().numpy().view(np.uint64), np.zeros(0, np.uint64))
         with record_function("positional.fill"):
-            positions = torch.zeros(total, dtype=torch.int64, device=device)
-            cursor = torch.zeros(n_slots, dtype=torch.int32, device=device)
+            positions = zeros_dev(total, torch.int64, device=device)
+            cursor = zeros_dev(n_slots, torch.int32, device=device)
             starts = offsets[:-1]
             scratch = None
             for packed, vbits, (off, done) in packed_chunks(chunk_iter, device):

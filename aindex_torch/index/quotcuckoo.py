@@ -2,7 +2,9 @@
 
 Host side copied from aindex_tpu/index/quotcuckoo.py (:57-273), so that
 both packages build byte-identical tables for the same keys; the device
-probes are the hand-written kernels K6 and K7 (kernels/quot.py).
+probes are the hand-written kernels K6 and K7 (kernels/quot.py;
+``quot_tf_windows``, quotcuckoo.py:329's ASCII-rows coverage, is
+re-exported here).
 
 Each half of the table has its own invertible mixer (an xorshift-multiply
 bijection on the 2k-bit code space); the row index takes the hash's low
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from aindex_torch import native
-from aindex_torch.kernels.quot import QuotTables
+from aindex_torch.kernels.quot import QuotTables, quot_tf_windows  # noqa: F401 (re-export)
 
 _EMPTY_FP = np.uint32(0xFFFFFFFF)
 

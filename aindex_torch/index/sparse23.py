@@ -58,7 +58,12 @@ from aindex_torch.index.emphf import EmphfMPHFAdapter, EmphfPF
 from aindex_torch.index.mphf import MPHF
 from aindex_torch.kernels import probe
 from aindex_torch.kernels.lookup import MphfTables
-from aindex_torch.kernels.spectrum import chunk_spectrum_packed, merge_spectra
+from aindex_torch.kernels.spectrum import ascii_canonical, chunk_spectrum_packed, merge_spectra
+
+
+#: aindex_tpu/index/sparse23.py:38's name for kernels/spectrum.py's
+#: ``ascii_canonical`` (K5's ``canonical23_ascii`` on a CUDA tensor)
+_extract_canonical = ascii_canonical
 
 
 def _is_reference_mphf(mphf) -> bool:

@@ -4,10 +4,12 @@ Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
 includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with ctypes; a source may hold several C
 entries (K10 and K11 each hold a query, a coverage and a fill entry, K12
-an owner and a verify entry, K9 a chunk and a pairs-in entry), each
-a ``Kernel`` of its own with its own count. Nothing is built or loaded when
-this module is imported: the first launch builds every library, one ``nvcc``
-per source, all started together. Libraries are named by a hash of their
+an owner and a verify entry, K9 a chunk and a pairs-in entry; K1, K15 and
+K16 share ``count13.cu``; K3 has its table-length and total entries, K5
+its ASCII spectrum and canonical-windows entries, K7 its ASCII-rows
+entry), each a ``Kernel`` of its own with its own count. Nothing is built
+or loaded when this module is imported: the first launch builds every
+library, one ``nvcc`` per source, all started together. Libraries are named by a hash of their
 source, every header it includes (followed transitively) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
 
@@ -125,11 +127,23 @@ KERNELS: dict[str, Kernel] = {
         # counts, packed, vbits, n_words, stream
         Kernel("count13_packed", "count13.cu", [_P, _P, _P, _LL, _P],
                "aindex_tpu/kernels/count.py:69"),
+        # counts, codes, valid, n, space, stream
+        Kernel("scatter_count", "count13.cu", [_P, _P, _P, _LL, _LL, _P],
+               "aindex_tpu/kernels/count.py:31"),
+        # counts, ascii, rows, len, k, space, stream
+        Kernel("count13_rows", "count13.cu", [_P, _P, _LL, _LL, _I, _LL, _P],
+               "aindex_tpu/kernels/count.py:54"),
         # tf, out, stream
         Kernel("total13", "total13.cu", [_P, _P, _P], "aindex_tpu/index/dense13.py:83"),
         # table, width, codes, valid, ascii, n, out, out_rc, stream
         Kernel("gather13", "gather13.cu", [_P, ctypes.c_int, _P, _P, _P, _LL, _P, _P, _P],
                "aindex_tpu/kernels/lookup.py:32"),
+        # table, width, n_table, codes, n, out, stream
+        Kernel("gather13_table", "gather13.cu", [_P, _I, _LL, _P, _LL, _P, _P],
+               "aindex_tpu/kernels/lookup.py:22"),
+        # table, width, n_table, codes, valid, k, n, out, stream
+        Kernel("gather13_total", "gather13.cu", [_P, _I, _LL, _P, _P, _I, _LL, _P, _P],
+               "aindex_tpu/kernels/lookup.py:39"),
         # table, width, packed, vbits, n_words, rows, stride, cutoff, out, stream
         Kernel("coverage13_packed", "coverage13.cu",
                [_P, ctypes.c_int, _P, _P, _LL, _LL, _LL, ctypes.c_uint, _P, _P],
@@ -139,9 +153,20 @@ KERNELS: dict[str, Kernel] = {
         Kernel("spectrum23", "spectrum23.cu",
                [_P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
                "aindex_tpu/kernels/spectrum.py:48"),
+        # ascii, rows, len, k, keys_out, counts, counters, keys_a, keys_b, idx, start,
+        # hist, sums, stream
+        Kernel("spectrum23_ascii", "spectrum23.cu",
+               [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+               "aindex_tpu/kernels/spectrum.py:33"),
+        # ascii, rows, len, k, keys_out, valid_out, stream
+        Kernel("canonical23_ascii", "spectrum23.cu", [_P, _LL, _LL, _I, _P, _P, _P],
+               "aindex_tpu/index/sparse23.py:38"),
         Kernel("quot23", "quot23.cu", _QUERY_ARGS, "aindex_tpu/index/quotcuckoo.py:310"),
         Kernel("quotcov23", "quotcov23.cu", _COVERAGE_ARGS,
                "aindex_tpu/index/quotcuckoo.py:353"),
+        # p, u, ascii, rows, len, k, out, stream
+        Kernel("quotcov23_rows", "quotcov23.cu", [_P, _P, _P, _LL, _LL, _I, _P, _P],
+               "aindex_tpu/index/quotcuckoo.py:329"),
         # tf, n, offsets, sums, stream
         Kernel("csr_offsets", "csr.cu", [_P, _LL, _P, _P, _P],
                "aindex_tpu/index/positional.py:39"),

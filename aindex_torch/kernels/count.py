@@ -1,9 +1,25 @@
-"""K1: count the 13-mers of one packed ingest chunk into the dense table.
+"""The dense count kernels and the device zero fill.
 
-Counterpart of aindex_tpu/kernels/count.py:69 ``count_batch_13_packed``.
-The kernel is ``csrc/count13.cu``; ``count13_packed_plain`` is its plain
-PyTorch version. Unlike the JAX function, which returns a new table, both
+Counterparts of aindex_tpu/kernels/count.py, each adding into a uint32
+count table with one atomic add per valid window or code:
+
+* ``count13_packed`` (K1, ``csrc/count13.cu``) replaces
+  ``count_batch_13_packed`` (:69): one packed ingest chunk's 13-mers;
+* ``scatter_count`` (K15, same source) replaces ``scatter_count`` (:31):
+  given codes under a valid mask, into a fresh table;
+* ``count_batch_13`` (K16 ``count13_rows``, same source) replaces
+  ``count_batch_13`` (:54): the forward k-mers (k <= 16) of ASCII rows;
+* ``zeros_dev`` (:23) is a device memset (``torch.zeros`` on the device),
+  as XLA lowers ``jnp.zeros`` under jit: no kernel of its own.
+
+``count13_packed_plain``, ``scatter_count_plain`` and
+``count_batch_13_plain`` are the plain PyTorch versions. Unlike the JAX
+functions, which return a new table, K1 and K16 and their plain versions
 add into ``counts`` in place: the table is 256 MB and has one owner.
+
+K15 and K16 index as JAX's ``counts.at[code.astype(int32)].add(w,
+mode="drop")``: the code's int32 value, plus the table length if negative,
+and dropped if it then lies outside the table.
 """
 
 from __future__ import annotations
@@ -12,9 +28,19 @@ import torch
 
 from aindex_torch.constants import K13, SPACE_13
 from aindex_torch.kernels import _cuda
-from aindex_torch.kernels.encode import check_packed, packed_window_codes
+from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check_packed,
+                                         int32_value, packed_window_codes, window_codes)
 
 KERNEL = _cuda.KERNELS["count13_packed"]
+KERNEL_SCATTER = _cuda.KERNELS["scatter_count"]
+KERNEL_ROWS = _cuda.KERNELS["count13_rows"]
+
+#: the kernels index tables with int32
+_SPACE_LIMIT = 1 << 31
+
+#: the signed dtype of each unsigned one (PyTorch's bare unsigned dtypes
+#: take views and copies, not fills)
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
 
 
 def _check(counts: torch.Tensor, packed: torch.Tensor, vbits: torch.Tensor) -> None:
@@ -52,4 +78,113 @@ def count13_packed(counts: torch.Tensor, packed: torch.Tensor,
     with torch.cuda.device(counts.device):
         KERNEL.launch(counts.data_ptr(), packed.data_ptr(), vbits.data_ptr(),
                       packed.numel(), _cuda.stream(counts.device))
+    return counts
+
+
+def zeros_dev(shape, dtype=torch.uint32, *, device="cuda") -> torch.Tensor:
+    """Zeros of ``shape`` and ``dtype`` allocated on ``device``
+    (aindex_tpu/kernels/count.py:23): a device memset, never a host buffer
+    copied over. Unsigned dtypes are filled through their signed view."""
+    from aindex_torch.index.common import resolve_device
+    signed = _SIGNED.get(dtype)
+    out = torch.zeros(shape, dtype=signed or dtype, device=resolve_device(device))
+    return out.view(dtype) if signed is not None else out
+
+
+def _scatter_add_plain(counts: torch.Tensor, codes: torch.Tensor, weights: torch.Tensor,
+                       space: int) -> torch.Tensor:
+    """``counts.at[int32(codes)].add(weights, mode="drop")`` in place on
+    int32 storage; codes are int64 unsigned values below 2^32."""
+    idx = int32_value(codes)
+    idx = torch.where(idx < 0, idx + space, idx)
+    keep = (idx >= 0) & (idx < space) & (weights != 0)
+    counts.view(torch.int32).index_add_(0, idx[keep], weights[keep].to(torch.int32))
+    return counts
+
+
+def _check_space(space: int) -> None:
+    if not 1 <= space < _SPACE_LIMIT:
+        raise ValueError(f"space {space} outside 1 .. 2^31 - 1")
+
+
+def scatter_count_plain(codes: torch.Tensor, valid: torch.Tensor,
+                        space: int = SPACE_13) -> torch.Tensor:
+    """Plain version of ``scatter_count``, same arguments and result."""
+    counts = torch.zeros(space, dtype=torch.int32, device=codes.device)
+    _scatter_add_plain(counts, as_unsigned(codes.reshape(-1)),
+                       valid.reshape(-1).view(torch.uint8).to(torch.int64), space)
+    return counts.view(torch.uint32)
+
+
+def scatter_count(codes: torch.Tensor, valid: torch.Tensor,
+                  space: int = SPACE_13) -> torch.Tensor:
+    """Dense histogram of codes (aindex_tpu/kernels/count.py:31): a fresh
+    uint32[space] table in which each code adds its ``valid`` value (1 for
+    True; a uint8 weight adds itself) at its JAX scatter index (see the
+    module docstring). ``codes``: int32/uint32 (uint32 bit patterns) of any
+    shape; ``valid``: bool or uint8 of the same shape. As in JAX, the table
+    is uint32 only.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K15."""
+    if codes.dtype not in (torch.int32, torch.uint32) or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous int32/uint32 tensor")
+    if valid.dtype not in (torch.bool, torch.uint8) or valid.shape != codes.shape \
+            or not valid.is_contiguous():
+        raise ValueError("valid must be a contiguous bool/uint8 tensor shaped like codes")
+    _check_space(space)
+    if not _cuda.on_cuda(codes, valid):
+        return scatter_count_plain(codes, valid, space)
+    counts = zeros_dev(space, torch.int32, device=codes.device)
+    if codes.numel():
+        with torch.cuda.device(codes.device):
+            KERNEL_SCATTER.launch(counts.data_ptr(), codes.data_ptr(), valid.data_ptr(),
+                                  codes.numel(), space, _cuda.stream(codes.device))
+    return counts.view(torch.uint32)
+
+
+def _check_rows(counts: torch.Tensor, ascii_batch: torch.Tensor, k: int, space: int) -> None:
+    if counts.dtype not in (torch.int32, torch.uint32) or counts.shape != (space,) \
+            or not counts.is_contiguous():
+        raise ValueError(f"counts must be a contiguous int32/uint32[{space}] table, got "
+                         f"{counts.dtype}{tuple(counts.shape)}")
+    if ascii_batch.dtype != torch.uint8 or ascii_batch.dim() < 1 \
+            or not ascii_batch.is_contiguous():
+        raise ValueError("ascii_batch must be a contiguous uint8 [..., L] tensor")
+    if not 1 <= k <= 16:
+        raise ValueError(f"k={k} outside 1..16 (codes are uint32)")
+    _check_space(space)
+    if ascii_batch.shape[-1] < k:
+        raise ValueError(f"sequence length {ascii_batch.shape[-1]} shorter than k={k}")
+
+
+def count_batch_13_plain(counts: torch.Tensor, ascii_batch: torch.Tensor, k: int = K13,
+                         space: int = SPACE_13) -> torch.Tensor:
+    """Plain version of ``count_batch_13``, same arguments and result."""
+    codes, valid = window_codes(ascii_to_base_codes(ascii_batch), k)
+    return _scatter_add_plain(counts, codes.reshape(-1), valid.reshape(-1).to(torch.int64),
+                              space)
+
+
+def count_batch_13(counts: torch.Tensor, ascii_batch: torch.Tensor, k: int = K13,
+                   space: int = SPACE_13) -> torch.Tensor:
+    """Add the forward k-mer windows (k <= 16) of ASCII rows into
+    ``counts`` (uint32 or int32 storage of uint32[space]) in place; returns
+    ``counts`` (aindex_tpu/kernels/count.py:54).
+
+    ``ascii_batch`` is uint8 [..., L]: each row's L - k + 1 windows, those
+    with a byte outside ACGT/acgt (newlines, N, padding) left out, so rows
+    may be padded with any such byte. Codes index as JAX's scatter does
+    (module docstring): at k < 13 every code fits the 4^13 table, at larger
+    k with a smaller ``space`` the codes beyond it drop.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K16."""
+    _check_rows(counts, ascii_batch, k, space)
+    if not _cuda.on_cuda(counts, ascii_batch):
+        return count_batch_13_plain(counts, ascii_batch, k, space)
+    length = ascii_batch.shape[-1]
+    rows = ascii_batch.numel() // length
+    if rows:
+        with torch.cuda.device(counts.device):
+            KERNEL_ROWS.launch(counts.data_ptr(), ascii_batch.data_ptr(), rows, length, k,
+                               space, _cuda.stream(counts.device))
     return counts

@@ -33,6 +33,12 @@ def as_unsigned(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & _U32
 
 
+def int32_value(u: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 value of the same bits, as
+    int64 (what JAX's ``astype(int32)`` of a uint32 gives)."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u)
+
+
 def table_values(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` as int64 for a uint8/uint16/uint32 table, gathered
     through the signed view of the same width and masked back."""

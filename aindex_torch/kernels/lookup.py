@@ -6,11 +6,16 @@ path (kernels/lookup.py:32 ``gather_tf_valid``, :49 ``gather_tf_both_13``;
 index/dense13.py:103 ``_gather_total``, :109 ``_gather_codes_u32``, :115
 ``_gather_codes_valid_u32``, with :92 ``_encode_batch_dev`` for ASCII rows).
 The kernel is ``csrc/gather13.cu``; ``gather13_plain`` is its plain PyTorch
-version.
+version. Two more entries of K3 take a 1-D table of any length and answer
+in the table's own dtype: ``gather_tf`` (``gather13_table``, replacing
+aindex_tpu/kernels/lookup.py:22) and ``gather_tf_total_13``
+(``gather13_total``, :39: forward plus reverse complement straight from
+the forward table, summed in the table's dtype); ``gather_tf_plain`` and
+``gather_tf_total_13_plain`` are their plain versions.
 
 Codes are uint32 bit patterns (int32 or uint32 storage). A code outside
 [0, 4^13) reads what JAX's ``table[code.astype(int32)]`` reads: the int32
-value, plus 4^13 if negative, clamped into the table.
+value, plus 4^13 (the table's length) if negative, clamped into the table.
 
 K12 (kernel ``csrc/shard23.cu``: ``shard_owner`` and ``shard_verify``)
 is one index shard's part of a query against the slot-sharded index
@@ -37,10 +42,12 @@ import torch
 from aindex_torch.constants import K13, SPACE_13
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check_packed,
-                                         packed_window_codes, revcomp_code13, revcomp_code64,
-                                         table_values, u64_le, window_codes)
+                                         int32_value, packed_window_codes, revcomp_code13,
+                                         revcomp_code64, table_values, u64_le, window_codes)
 
 KERNEL = _cuda.KERNELS["gather13"]
+KERNEL_TABLE = _cuda.KERNELS["gather13_table"]
+KERNEL_TOTAL = _cuda.KERNELS["gather13_total"]
 KERNEL_OWNER = _cuda.KERNELS["shardowner"]
 KERNEL_VERIFY = _cuda.KERNELS["shardverify"]
 
@@ -53,10 +60,13 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).view(torch.uint32)
 
 
-def jax_index(codes: torch.Tensor) -> torch.Tensor:
-    """The table index JAX's gather reads for each uint32 code (int64)."""
-    i = codes.view(torch.int32).to(torch.int64)
-    return torch.where(i < 0, i + SPACE_13, i).clamp_(0, SPACE_13 - 1)
+def jax_index(codes: torch.Tensor, n: int = SPACE_13) -> torch.Tensor:
+    """The index JAX's gather reads in a table of ``n`` entries for each
+    code (int64): int32/uint32 codes by their int32 value, int64 codes
+    holding uint32 values by the int32 value of their bits."""
+    i = int32_value(codes) if codes.dtype == torch.int64 \
+        else codes.view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, i + n, i).clamp_(0, n - 1)
 
 
 def _check(table, codes, valid, ascii) -> None:
@@ -134,6 +144,86 @@ def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
         return out.view(torch.uint32), out_rc.view(torch.uint32)
     return out.view(torch.uint32)
 
+
+# -- K3's table-length entries: gather_tf and gather_tf_total_13 -------------------
+
+def _signed(table: torch.Tensor) -> torch.Tensor:
+    """The table through the signed view of its width (uint8 as it is)."""
+    return table if table.dtype == torch.uint8 else table.view(
+        torch.int16 if table.dtype == torch.uint16 else torch.int32)
+
+
+def _check_table(table, codes, valid=None, k=K13) -> None:
+    if table.dtype not in WIDTHS or table.dim() != 1 or table.numel() == 0 \
+            or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous non-empty 1-D uint8/uint16/uint32 "
+                         f"tensor, got {table.dtype}{tuple(table.shape)}")
+    if codes.dtype not in (torch.int32, torch.uint32) or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous int32/uint32 tensor")
+    if valid is not None and (valid.dtype != torch.bool or valid.shape != codes.shape
+                              or not valid.is_contiguous()):
+        raise ValueError("valid must be a contiguous bool tensor shaped like codes")
+    if not 1 <= k <= 16:
+        raise ValueError(f"k={k} outside 1..16 (codes are uint32)")
+
+
+def gather_tf_plain(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_tf``."""
+    return _signed(table)[jax_index(codes, table.numel())].view(table.dtype)
+
+
+def gather_tf(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``table[codes.astype(int32)]`` (aindex_tpu/kernels/lookup.py:22),
+    unmasked: ``table`` a 1-D uint8/uint16/uint32 tensor of any length,
+    ``codes`` int32/uint32 (uint32 bit patterns) of any shape; a code reads
+    its int32 value, plus the table's length if negative, clamped into the
+    table. Returns the table's dtype, shaped like ``codes``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K3's
+    ``gather13_table``."""
+    _check_table(table, codes)
+    if not _cuda.on_cuda(table, codes):
+        return gather_tf_plain(table, codes)
+    out = torch.empty(codes.shape, dtype=_signed(table).dtype, device=table.device)
+    if out.numel():
+        with torch.cuda.device(table.device):
+            KERNEL_TABLE.launch(table.data_ptr(), WIDTHS[table.dtype], table.numel(),
+                                codes.data_ptr(), out.numel(), out.data_ptr(),
+                                _cuda.stream(table.device))
+    return out.view(table.dtype)
+
+
+def gather_tf_total_13_plain(table: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor,
+                             k: int = K13) -> torch.Tensor:
+    """Plain version of ``gather_tf_total_13``."""
+    n = table.numel()
+    fwd = table_values(table, jax_index(codes, n))
+    rc = table_values(table, jax_index(revcomp_code13(codes, k), n))
+    tf = (fwd + rc) & ((1 << WIDTHS[table.dtype]) - 1)
+    return torch.where(valid, tf, 0).to(_signed(table).dtype).view(table.dtype)
+
+
+def gather_tf_total_13(table: torch.Tensor, codes: torch.Tensor, valid: torch.Tensor,
+                       k: int = K13) -> torch.Tensor:
+    """Forward plus reverse-complement tf straight from the forward table
+    (aindex_tpu/kernels/lookup.py:39): ``table[code] + table[revcomp_k(code)]``
+    summed in the table's dtype (so a uint16 sum wraps at 2^16) where
+    ``valid``, else 0. The reverse complement is taken of the code's uint32
+    bits at ``k`` (1..16), and both reads index as ``gather_tf``. ``valid``
+    is bool, shaped like ``codes``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K3's
+    ``gather13_total`` (one pass, two reads, one write; no total table)."""
+    _check_table(table, codes, valid, k)
+    if not _cuda.on_cuda(table, codes, valid):
+        return gather_tf_total_13_plain(table, codes, valid, k)
+    out = torch.empty(codes.shape, dtype=_signed(table).dtype, device=table.device)
+    if out.numel():
+        with torch.cuda.device(table.device):
+            KERNEL_TOTAL.launch(table.data_ptr(), WIDTHS[table.dtype], table.numel(),
+                                codes.data_ptr(), valid.data_ptr(), k, out.numel(),
+                                out.data_ptr(), _cuda.stream(table.device))
+    return out.view(table.dtype)
 
 
 # -- K11: the MPHF walk -----------------------------------------------------------

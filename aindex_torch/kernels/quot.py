@@ -8,11 +8,14 @@ Counterparts of aindex_tpu/index/quotcuckoo.py's device kernels:
   ``index/sparse23.py`` ``_resolve_device`` (:553-578) with
   ``_extract_windows`` (:45) for ASCII rows;
 * ``quotcov23`` (kernel ``csrc/quotcov23.cu``, K7) replaces
-  ``quot_tf_windows_packed`` (:353) and the coverage cutoff.
+  ``quot_tf_windows_packed`` (:353) and the coverage cutoff;
+* ``quot_tf_windows`` (K7's entry ``quotcov23_rows``) replaces
+  ``quot_tf_windows`` (:329): the same coverage from ASCII rows,
+  canonical probes, no cutoff.
 
 Both are ``kernels/probe.py``'s ``query`` and ``coverage`` on a
-``QuotTables``; ``quot23_plain`` and ``quotcov23_plain`` are their plain
-PyTorch versions. Codes and keys are int64 tensors holding uint64 bit
+``QuotTables``; ``quot23_plain``, ``quotcov23_plain`` and
+``quot_tf_windows_plain`` are their plain PyTorch versions. Codes and keys are int64 tensors holding uint64 bit
 patterns. The bijection masks to 2k bits after each multiply, so its int64
 products, which wrap modulo 2^64, keep their low bits exact; the empty-row
 marker 0xFFFFFFFF reads -1 in the int32 storage and never equals a
@@ -25,8 +28,11 @@ import dataclasses
 
 import torch
 
-from aindex_torch.kernels import probe
+from aindex_torch.kernels import _cuda, probe
+from aindex_torch.kernels.encode import ascii_to_base_codes, window_codes
 from aindex_torch.kernels.probe import CANON
+
+KERNEL_ROWS = _cuda.KERNELS["quotcov23_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,3 +144,40 @@ def quotcov23(t: QuotTables, packed: torch.Tensor, vbits: torch.Tensor, rows: in
     if not isinstance(t, QuotTables):
         raise TypeError(f"expected QuotTables, got {type(t).__name__}")
     return probe.coverage(t, packed, vbits, rows, stride, k, cutoff, rule)
+
+
+def quot_tf_windows_plain(t: QuotTables, mat: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of ``quot_tf_windows``."""
+    codes, valid = window_codes(ascii_to_base_codes(mat), k)
+    hit, tf, _, _ = probe.resolve_plain(t, codes.reshape(-1), k, CANON)
+    tf = torch.where(hit & valid.reshape(-1), tf, 0)
+    return probe.as_u32(tf).reshape(codes.shape)
+
+
+def quot_tf_windows(t: QuotTables, mat: torch.Tensor, k: int) -> torch.Tensor:
+    """uint32 [..., L-k+1] verified tf of every k-window of uint8 [..., L]
+    ASCII rows (aindex_tpu/index/quotcuckoo.py:329): the canonical probe of
+    each window, 0 for an absent window or one with a byte outside
+    ACGT/acgt; no cutoff.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K7's
+    ``quotcov23_rows``."""
+    if not isinstance(t, QuotTables):
+        raise TypeError(f"expected QuotTables, got {type(t).__name__}")
+    t.check()
+    t.check_k(k)
+    if mat.dtype != torch.uint8 or mat.dim() < 1 or not mat.is_contiguous():
+        raise ValueError("mat must be a contiguous uint8 [..., L] tensor")
+    length = mat.shape[-1]
+    if length < k:
+        raise ValueError(f"sequence length {length} shorter than k={k}")
+    if not _cuda.on_cuda(*t.tensors(), mat):
+        return quot_tf_windows_plain(t, mat, k)
+    dev = t.device
+    out = torch.empty((*mat.shape[:-1], length - k + 1), dtype=torch.int32, device=dev)
+    if out.numel():
+        p, u = probe.c_engine(t)
+        with torch.cuda.device(dev):
+            KERNEL_ROWS.launch(p, u, mat.data_ptr(), mat.numel() // length, length, k,
+                               out.data_ptr(), _cuda.stream(dev))
+    return out.view(torch.uint32)

@@ -6,7 +6,11 @@ Counterpart of aindex_tpu/kernels/spectrum.py. The kernel
 ``sorted_spectrum`` (:121): windows -> canonical -> drop invalid -> sort
 -> run-length reduce, the sort written by hand (an LSD radix sort over
 the code's 2k significant bits). ``spectrum23_plain`` is its plain PyTorch
-version. The kernel ``csrc/merge23.cu`` (K13) replaces
+version. K5's entry ``spectrum23_ascii`` replaces ``chunk_spectrum`` (:33)
+with the same steps from ASCII bytes (``chunk_spectrum``, plain version
+``chunk_spectrum_plain``), and its entry ``canonical23_ascii`` replaces
+index/sparse23.py:38 ``_extract_canonical``, the first step alone
+(``ascii_canonical``, plain version ``ascii_canonical_plain``). The kernel ``csrc/merge23.cu`` (K13) replaces
 ``sorted_spectrum_weighted`` (:149; the TPU's pair-sort form :81): sort the
 keys of a key range, add their weights per run; its plain version is
 ``sorted_spectrum_weighted_plain``. ``SENTINEL`` and ``merge_spectra``
@@ -25,10 +29,12 @@ import numpy as np
 import torch
 
 from aindex_torch.kernels import _cuda
-from aindex_torch.kernels.encode import (as_unsigned, canonical_code64, check_packed,
-                                         packed_window_codes)
+from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, canonical_code64,
+                                         check_packed, packed_window_codes, window_codes)
 
 KERNEL = _cuda.KERNELS["spectrum23"]
+KERNEL_ASCII = _cuda.KERNELS["spectrum23_ascii"]
+KERNEL_CANONICAL = _cuda.KERNELS["canonical23_ascii"]
 KERNEL_MERGE = _cuda.KERNELS["spectrummerge"]
 
 #: Sort key for ignored entries (> any 2k-bit k-mer code, k <= 31).
@@ -104,6 +110,26 @@ def _check(packed, vbits, k, keys) -> int:
     return cap
 
 
+def _launch_reduce(kernel, dev, cap: int, *args) -> tuple:
+    """Allocate K5's outputs and scratch for ``cap`` windows or keys and
+    launch one of its reducing entries with ``args`` before them."""
+    n_hist, n_sums = sort_scratch(cap)
+
+    def ints(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    keys_out = torch.empty(cap, dtype=torch.int64, device=dev)
+    counts = ints(cap)
+    counters = ints(2)
+    scratch = (torch.empty(cap, dtype=torch.int64, device=dev),
+               torch.empty(cap, dtype=torch.int64, device=dev),
+               ints(cap + 1), ints(cap), ints(n_hist), ints(n_sums))
+    with torch.cuda.device(dev):
+        kernel.launch(*args, keys_out.data_ptr(), counts.data_ptr(), counters.data_ptr(),
+                      *(t.data_ptr() for t in scratch), _cuda.stream(dev))
+    return keys_out, counts.view(torch.uint32), counters[1]
+
+
 def spectrum23(packed: torch.Tensor | None = None, vbits: torch.Tensor | None = None,
                k: int = 23, keys: torch.Tensor | None = None):
     """(keys int64[cap], counts uint32[cap], n_unique int32 scalar tensor):
@@ -121,27 +147,10 @@ def spectrum23(packed: torch.Tensor | None = None, vbits: torch.Tensor | None = 
     tensors = (packed, vbits) if packed is not None else (keys,)
     if not _cuda.on_cuda(*tensors):
         return spectrum23_plain(packed, vbits, k, keys)
-    dev = tensors[0].device
-    n_hist, n_sums = sort_scratch(cap)
-
-    def ints(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
-    keys_out = torch.empty(cap, dtype=torch.int64, device=dev)
-    counts = ints(cap)
-    counters = ints(2)
-    scratch = (torch.empty(cap, dtype=torch.int64, device=dev),
-               torch.empty(cap, dtype=torch.int64, device=dev),
-               ints(cap + 1), ints(cap), ints(n_hist), ints(n_sums))
-    with torch.cuda.device(dev):
-        KERNEL.launch(
-            None if packed is None else packed.data_ptr(),
-            None if vbits is None else vbits.data_ptr(),
-            0 if packed is None else packed.numel(), k,
-            None if keys is None else keys.data_ptr(), 0 if keys is None else cap, 64,
-            keys_out.data_ptr(), counts.data_ptr(), counters.data_ptr(),
-            *(t.data_ptr() for t in scratch), _cuda.stream(dev))
-    return keys_out, counts.view(torch.uint32), counters[1]
+    return _launch_reduce(
+        KERNEL, tensors[0].device, cap, None if packed is None else packed.data_ptr(),
+        None if vbits is None else vbits.data_ptr(), 0 if packed is None else packed.numel(),
+        k, None if keys is None else keys.data_ptr(), 0 if keys is None else cap, 64)
 
 
 def chunk_spectrum_packed(packed: torch.Tensor, vbits: torch.Tensor, k: int):
@@ -154,6 +163,78 @@ def sorted_spectrum(keyed: torch.Tensor):
     """Segment-reduce a flat int64 array of uint64 keys, SENTINEL = ignore
     (aindex_tpu/kernels/spectrum.py:121): K5 in its keys mode."""
     return spectrum23(keys=keyed)
+
+
+# -- K5's ASCII entries: chunk_spectrum and _extract_canonical ----------------------
+
+def _check_ascii(ascii_chunk: torch.Tensor, k: int) -> tuple[int, int]:
+    """Validate ASCII rows; returns (rows, L) of the [..., L] input."""
+    if ascii_chunk.dtype != torch.uint8 or ascii_chunk.dim() < 1 \
+            or not ascii_chunk.is_contiguous():
+        raise ValueError("ascii_chunk must be a contiguous uint8 [..., L] tensor")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k={k} outside 1..31")
+    length = ascii_chunk.shape[-1]
+    if length < k:
+        raise ValueError(f"sequence length {length} shorter than k={k}")
+    rows = ascii_chunk.numel() // length
+    if rows * (length - k + 1) >= INT32_LIMIT:
+        raise ValueError(f"{rows * (length - k + 1)} windows exceed the kernel's int32 "
+                         f"positions")
+    return rows, length
+
+
+def ascii_canonical_plain(ascii_chunk: torch.Tensor, k: int):
+    """Plain version of ``ascii_canonical``."""
+    codes, valid = window_codes(ascii_to_base_codes(ascii_chunk), k)
+    return canonical_code64(codes, k), valid
+
+
+def ascii_canonical(ascii_chunk: torch.Tensor, k: int):
+    """(canonical int64 [..., L-k+1] (uint64 bits), valid bool) of every
+    k-window (k <= 31) of uint8 [..., L] ASCII rows
+    (aindex_tpu/index/sparse23.py:38 ``_extract_canonical``). Invalid
+    windows keep the canonical code of their bases with a non-ACGT byte read
+    as 3, as aindex_tpu computes it.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K5's
+    ``canonical23_ascii``."""
+    rows, length = _check_ascii(ascii_chunk, k)
+    if not _cuda.on_cuda(ascii_chunk):
+        return ascii_canonical_plain(ascii_chunk, k)
+    shape = (*ascii_chunk.shape[:-1], length - k + 1)
+    dev = ascii_chunk.device
+    canon = torch.empty(shape, dtype=torch.int64, device=dev)
+    valid = torch.empty(shape, dtype=torch.bool, device=dev)
+    if canon.numel():
+        with torch.cuda.device(dev):
+            KERNEL_CANONICAL.launch(ascii_chunk.data_ptr(), rows, length, k, canon.data_ptr(),
+                                    valid.data_ptr(), _cuda.stream(dev))
+    return canon, valid
+
+
+def chunk_spectrum_plain(ascii_chunk: torch.Tensor, k: int):
+    """Plain version of ``chunk_spectrum``."""
+    canon, valid = ascii_canonical_plain(ascii_chunk, k)
+    return _reduce_sorted_plain(canon[valid], canon.numel())
+
+
+def chunk_spectrum(ascii_chunk: torch.Tensor, k: int):
+    """(keys, counts, n_unique) of every valid canonical k-mer (k <= 31) of
+    an ASCII chunk (aindex_tpu/kernels/spectrum.py:33): uint8 1-D, or
+    [B, L] rows whose windows stay in their row. As ``spectrum23``'s, the
+    results are padded to the window count: the unique keys ascending
+    (int64 holding uint64 bits), then the sentinel key with count 0.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K5's
+    ``spectrum23_ascii``."""
+    rows, length = _check_ascii(ascii_chunk, k)
+    if not rows:
+        raise ValueError("no rows: the chunk has no windows")
+    if not _cuda.on_cuda(ascii_chunk):
+        return chunk_spectrum_plain(ascii_chunk, k)
+    return _launch_reduce(KERNEL_ASCII, ascii_chunk.device, rows * (length - k + 1),
+                          ascii_chunk.data_ptr(), rows, length, k)
 
 
 # -- K13 -------------------------------------------------------------------------

@@ -10,7 +10,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the fourteen CUDA kernels (K1-K14, twenty C entries) from
+   builds the sixteen CUDA kernels (K1-K16, twenty-seven C entries) from
    aindex_torch/csrc, one nvcc per source, all started together.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
@@ -33,17 +33,34 @@ Run from the repository root, with no arguments:
 7. Holds K6 (quotient cuckoo queries, every mode, the forward-else-
    reverse-complement rule of reference-keyed indexes included) and K7
    (coverage) against their plain versions on the index built in step 6.
-8. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
+8. Drives the unpacked (ASCII-in and codes-in) functions on the corpus at
+   full size: ``count_batch_13`` (and ``dense13._count_step``) over the read
+   matrix in 28 row batches of ~2^22 bytes, equal to the oracle table;
+   ``chunk_spectrum`` on the corpus blob's 28 ASCII chunks, each equal to K5
+   on the same chunk packed, merged equal to the 9,602,528-key oracle, with
+   ``sparse23._extract_canonical`` on the first; ``quot_tf_windows`` on
+   10,000 reads, equal to K7 and the oracle; ``gather_tf`` and
+   ``gather_tf_total_13`` on 4 x 2^24 codes, equal to K3 and to K3 on K2's
+   total table; ``scatter_count`` of every 13-mer window of the corpus,
+   equal to the oracle table.
+9. Holds K15 (scatter_count), K16 (count13_rows), K3's table-length
+   entries, K5's ASCII entries and K7's ASCII-rows entry against their
+   plain versions at the shapes of step 8, beside ``torch.bincount``,
+   ``torch.take`` and ``torch.unique`` where one call computes the same,
+   and again on edge codes over the whole uint32 range, small tables,
+   k = 16 codes that wrap, and a chunk with N runs, lowercase and every
+   byte value.
+10. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
    and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
    positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
    from a nonzero cursor, beside ``torch.sort(stable=True)`` of its keys.
-9. Drives the positional path: ``pipeline.build_all`` on the corpus FASTA
+11. Drives the positional path: ``pipeline.build_all`` on the corpus FASTA
    for k = 13 and k = 23 under the profiler (stage seconds, MB/s of bases,
    the device's idle share of the fill), then checks the artifacts against
    the numpy oracle: offsets, every position, ``positions_by_slots`` on
    2^16 slots and ``rid_by_pos``. Fails unless K9's launches there ran at
-   the chunk shape step 8 checks.
-10. Drives the facade path for k = 31 and then k = 29: ``python -m
+   the chunk shape step 10 checks.
+12. Drives the facade path for k = 31 and then k = 29: ``python -m
    aindex_torch compute-aindex -k <k>`` on the corpus FASTA as a
    subprocess (stage seconds and MB/s from its torch.profiler trace, its
    launch counts printed by the subprocess), then
@@ -52,22 +69,22 @@ Run from the repository root, with no arguments:
    queries through the facade, each against a numpy oracle of the corpus.
    Fails unless K11 (k = 31) or K10 (k = 29) launched on the path, with
    no K6, K7 or K9 launch.
-11. Holds the configuration's engine kernels (K11 after k = 31, K10 after
+13. Holds the configuration's engine kernels (K11 after k = 31, K10 after
    k = 29: query, coverage and fill) against their plain versions at the
    path's shapes.
-12. Loads the reference-built tests/golden_ref sets through
+14. Loads the reference-built tests/golden_ref sets through
    ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
    of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
-13. Drives the mesh path at world size 1 on NCCL (the chip host has one
+15. Drives the mesh path at world size 1 on NCCL (the chip host has one
    card; NCCL takes one rank a card): ``init_process_group("nccl")``,
    ``make_mesh(1, 1)``, ``build_all(BuildConfig(mesh=...))`` on the corpus
-   FASTA for k = 13 and k = 23, every artifact's SHA-256 against step 9's
+   FASTA for k = 13 and k = 23, every artifact's SHA-256 against step 11's
    single-device build, the k = 23 positional stage again through the
    allgather exchange (the same bytes), then ``AIndex.shard_to(mesh)`` and
    codes-in (4 x 2^24), ASCII tf, pfids, hash values and strands (2^20),
    coverage (10,000 reads) and next/prev (2^16) against the single-device
    engine's answers.
-14. Holds K12 (owner and verify), K13, K14 and K9's pairs-in entry against
+16. Holds K12 (owner and verify), K13, K14 and K9's pairs-in entry against
    their plain versions at 1, 2, 4 and 8 simulated shards on the card (each
    shard called with its own slice; the collectives stood in for by sums
    and concatenations): K12 on 4 x 2^24 codes, summed over the shards, also
@@ -77,7 +94,7 @@ Run from the repository root, with no arguments:
    dense k = 13 windows) and the pairs-in fill per destination, at one
    shard also against K9's fill of the same chunk. Each is timed at the
    world-of-one path's shape.
-15. Prints the kernels line (launch counts of steps 4, 6, 9, 10 and 13,
+17. Prints the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15,
    each path run with the counts set to 0 just before it), the card line
    and the result line.
 
@@ -898,7 +915,312 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     return res
 
 
-# -- phase 8: K8 and K9 against their plain versions ---------------------------
+# -- phase 8: the ASCII-in and codes-in functions end to end -------------------
+
+ASCII_KERNELS = ("scatter_count", "count13_rows", "gather13_table", "gather13_total",
+                 "spectrum23_ascii", "canonical23_ascii", "quotcov23_rows")
+
+
+def read_batches(reads: np.ndarray):
+    """Row batches of the read matrix of about CHUNK_BYTES bytes each."""
+    rows = max(1, CHUNK_BYTES // READ_LEN)
+    return [reads[i:i + rows] for i in range(0, len(reads), rows)]
+
+
+def ascii_path(dev, card: str, reads: np.ndarray, table: np.ndarray, oracle, index) -> None:
+    """The unpacked functions on the corpus at full size, each against the
+    packed kernels of the same data and the numpy oracles: count_batch_13
+    over the read matrix, chunk_spectrum (with _extract_canonical) over the
+    corpus blob, quot_tf_windows on 10,000 reads, gather_tf and
+    gather_tf_total_13 on 4 x 2^24 codes, scatter_count on every window."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.index.dense13 import _count_step, total13
+    from aindex_torch.index.sparse23 import _extract_canonical
+    from aindex_torch.kernels.count import count_batch_13, scatter_count, zeros_dev
+    from aindex_torch.kernels.lookup import gather13, gather_tf, gather_tf_total_13
+    from aindex_torch.kernels.quot import quot_tf_windows, quotcov23
+    from aindex_torch.kernels.spectrum import chunk_spectrum, merge_spectra, spectrum23
+
+    keys, counts = oracle
+    n_bases = reads.size
+    table_dev = torch.from_numpy(table.view(np.int32)).to(dev).view(torch.uint32)
+
+    # count_batch_13 over the read matrix in row batches (_count_step on
+    # every other one: the same function at k = 13)
+    batches = read_batches(reads)
+    counts13 = zeros_dev(SPACE, torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        rows = torch.from_numpy(batch).to(dev)
+        (_count_step if i % 2 else count_batch_13)(counts13, rows)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool((counts13 == table_dev.view(torch.int32)).all()),
+          "count_batch_13 table == oracle table (== the dense path's)")
+    print(f"ascii count_batch_13: {len(batches)} row batches of {len(batches[0])} x {READ_LEN}, "
+          f"{dt:.3f} s, {n_bases / dt / 1e6:.2f} MB/s of bases (host clock, uploads "
+          f"included) ({card})")
+    del counts13
+
+    # chunk_spectrum over the corpus blob's chunks, each against K5 on the
+    # same chunk packed; _extract_canonical on the first, against its
+    # spectrum; the merged spectrum against the oracle
+    parts = []
+    t_spec = 0.0
+    for i, (piece, _) in enumerate(blob_chunks(corpus_blob(reads), K23, CHUNK_BYTES)):
+        ascii = torch.from_numpy(piece).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_keys, got_counts, got_n = chunk_spectrum(ascii, K23)
+        n = int(got_n)
+        t_spec += time.perf_counter() - t0
+        ref_keys, ref_counts, ref_n = spectrum23(*upload(dev, *codec.pack_ascii_chunk(piece)),
+                                                 K23)
+        check(n == int(ref_n) and bool((got_keys[:n] == ref_keys[:n]).all())
+              and bool((got_counts[:n].view(torch.int32) == ref_counts[:n].view(torch.int32))
+                       .all()) and bool((got_keys[n:] == -1).all()),
+              f"chunk_spectrum == K5 on chunk {i}")
+        if i == 0:
+            canon, valid = _extract_canonical(ascii, K23)
+            u, c = torch.unique(canon[valid], return_counts=True)   # keys < 2^46: signed order
+            check(u.numel() == n and bool((u == got_keys[:n]).all())
+                  and bool((c == bits64(got_counts[:n])).all()),
+                  "_extract_canonical's windows == chunk_spectrum of chunk 0")
+        parts.append((got_keys[:n].cpu().numpy().view(np.uint64),
+                      got_counts[:n].view(torch.int32).cpu().numpy().view(np.uint32)))
+    merged_keys, merged_counts = merge_spectra(parts)
+    check(np.array_equal(merged_keys, keys) and np.array_equal(merged_counts, counts),
+          f"merged chunk_spectrum ({merged_keys.size} keys) == oracle ({keys.size})")
+    print(f"ascii chunk_spectrum: {len(parts)} corpus chunks of 2^22 B, merged "
+          f"{merged_keys.size} canonical 23-mers == oracle; {t_spec / len(parts) * 1e3:.3f} ms "
+          f"a chunk (host clock, synchronised) ({card})")
+    del parts, merged_keys, merged_counts
+
+    # quot_tf_windows on 10,000 reads, against K7 on the same reads packed
+    # and the oracle
+    t = index.tables
+    mat = torch.from_numpy(reads[:N_SEQ]).to(dev)
+    got = quot_tf_windows(t, mat, K23)
+    [(members, stride, packed, vbits)] = codec.coverage_row_batches(
+        [row.tobytes() for row in reads[:N_SEQ]], K23)
+    ref = quotcov23(t, *upload(dev, packed, vbits), len(members), stride, K23)
+    wf, wr, wok = oracle_windows23(reads[:N_SEQ])
+    want = np.where(wok, oracle_lookup(keys, counts, np.minimum(wf, wr)), 0).astype(np.uint32)
+    check(got.shape == ref.shape and bool((got.view(torch.int32) == ref.view(torch.int32)).all()),
+          "quot_tf_windows == K7")
+    check(np.array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32), want),
+          "quot_tf_windows == oracle")
+    ms = cuda_ms(lambda: quot_tf_windows(t, mat, K23), 20)
+    print(f"ascii quot_tf_windows: {N_SEQ} x {READ_LEN} reads, {ms:.4f} ms, "
+          f"{N_SEQ / ms * 1e3:.0f} sequences/s (CUDA events) ({card})")
+
+    # gather_tf and gather_tf_total_13 on 4 x 2^24 device codes against K3
+    # and K2's total table
+    gen = torch.Generator(device=dev).manual_seed(47)
+    codes = torch.randint(0, SPACE, (N_CODES,), dtype=torch.int32, device=dev, generator=gen)
+    valid = torch.rand(N_CODES, device=dev, generator=gen) < 0.9
+    got = gather_tf(table_dev, codes)
+    check(got.dtype == torch.uint32 and bool((got.view(torch.int32) == gather13(
+        table_dev, codes).view(torch.int32)).all()), "gather_tf == K3")
+    got = gather_tf_total_13(table_dev, codes, valid)
+    total = total13(table_dev)
+    check(bool((got.view(torch.int32) == gather13(total, codes, valid).view(torch.int32)).all()),
+          "gather_tf_total_13 == K3 on K2's total table")
+    for name, fn in (("gather_tf", lambda: gather_tf(table_dev, codes)),
+                     ("gather_tf_total_13", lambda: gather_tf_total_13(table_dev, codes, valid))):
+        ms = cuda_ms(fn, 20)
+        print(f"ascii {name}: {N_CODES} device codes, {N_CODES / ms / 1e6:.2f} G queries/s "
+              f"({ms:.4f} ms, CUDA events) ({card})")
+    del codes, valid, got, total
+
+    # scatter_count of every 13-mer window of the corpus in one call
+    codes, valid = corpus_windows13(dev, reads)
+    got = scatter_count(codes, valid)
+    check(bool((got.view(torch.int32) == table_dev.view(torch.int32)).all()),
+          "scatter_count of the corpus windows == oracle table")
+    ms = cuda_ms(lambda: scatter_count(codes, valid), 5)
+    print(f"ascii scatter_count: {codes.numel()} window codes, {ms:.4f} ms (CUDA events) "
+          f"({card})")
+
+
+def corpus_windows13(dev, reads: np.ndarray):
+    """(int32 codes, bool valid) of every 13-mer window of the read matrix,
+    made on the card batch by batch."""
+    import torch
+    from aindex_torch.kernels.encode import ascii_to_base_codes, window_codes
+    codes, valid = [], []
+    for batch in read_batches(reads):
+        c, v = window_codes(ascii_to_base_codes(torch.from_numpy(batch).to(dev)), K)
+        codes.append(c.reshape(-1).to(torch.int32))
+        valid.append(v.reshape(-1))
+    return torch.cat(codes), torch.cat(valid)
+
+
+# -- phase 9: the ASCII-in and codes-in kernels against their plain versions ---
+
+def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, index) -> dict:
+    import torch
+    from aindex_torch.kernels.count import (count_batch_13, count_batch_13_plain,
+                                            scatter_count, scatter_count_plain)
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
+                                             revcomp_code13, window_codes)
+    from aindex_torch.kernels.lookup import (gather_tf, gather_tf_plain, gather_tf_total_13,
+                                             gather_tf_total_13_plain, jax_index)
+    from aindex_torch.kernels.quot import quot_tf_windows, quot_tf_windows_plain
+    from aindex_torch.kernels.spectrum import (ascii_canonical, ascii_canonical_plain,
+                                               chunk_spectrum, chunk_spectrum_plain)
+    from aindex_torch.core.reads import blob_chunks
+
+    rng = np.random.default_rng(53)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    res = {}
+
+    def held(name, tag, fn, plain, reps, pms_reps, n_bytes, lib=None, timed=True):
+        """Check fn against plain; time both (and the library call) when
+        timed, else fold the check into the timed record of the name."""
+        got, ref = fn(), plain()
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        if not timed:
+            print(f"kernel {name} [{tag}]: max_abs_err {err} ({card})")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            return
+        rec = record(err, cuda_ms(fn, reps), cuda_ms(plain, pms_reps), n_bytes,
+                     None if lib is None else cuda_ms(lib, reps))
+        report(card, name, tag, rec)
+        res[name] = rec
+
+    # an adversarial chunk: N runs, lowercase, '~', newlines and every byte value
+    mixed = random_ascii(rng, CHUNK_BYTES, b"ACGTacgtN~",
+                         [0.24, 0.24, 0.24, 0.24, 0.005, 0.005, 0.01, 0.005, 0.005, 0.005])
+    mixed[150::151] = ord("\n")
+    mixed[rng.permutation(mixed.size)[:4096]] = np.arange(4096) % 256
+    mixed_dev = torch.from_numpy(mixed).to(dev)
+
+    # K16: one row batch of the path, k = 13 into the 4^13 table; then
+    # k = 16 into a 2^22 table (codes >= 2^31 wrap) on the mixed chunk
+    batch = torch.from_numpy(read_batches(reads)[0]).to(dev)
+    codes13, valid13 = window_codes(ascii_to_base_codes(batch), K)
+    touched = int(torch.unique(codes13[valid13]).numel())
+    scratch = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    kern = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    plain = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    count_batch_13(kern, batch)
+    count_batch_13_plain(plain, batch)
+    err = max_abs_err(kern.view(torch.uint32), plain.view(torch.uint32))
+    ms = cuda_ms(lambda: count_batch_13(scratch, batch), 50)
+    pms = cuda_ms(lambda: count_batch_13_plain(scratch, batch), 5)
+    # the rows in, and each table entry their windows touch read and written once
+    res["count13_rows"] = record(err, ms, pms, batch.numel() + 8 * touched)
+    report(card, "count13_rows", f"{batch.shape[0]} x {batch.shape[1]} rows, k=13",
+           res["count13_rows"])
+    del kern, plain, scratch
+    for k, space, rows in ((16, 1 << 22, mixed_dev.view(-1, 1024)), (13, SPACE, mixed_dev)):
+        kern = torch.zeros(space, dtype=torch.int32, device=dev)
+        plain = torch.zeros(space, dtype=torch.int32, device=dev)
+        res["count13_rows"]["max_abs_err"] = max(res["count13_rows"]["max_abs_err"], max_abs_err(
+            count_batch_13(kern, rows, k, space).view(torch.uint32),
+            count_batch_13_plain(plain, rows, k, space).view(torch.uint32)))
+        print(f"kernel count13_rows [mixed chunk {tuple(rows.shape)}, k={k}, space {space}]: "
+              f"max_abs_err 0 ({card})")
+        del kern, plain
+
+    # K15: every window of the corpus in one call, as the path calls it;
+    # then the edge codes over the whole uint32 range into 16 entries
+    codes, valid = corpus_windows13(dev, reads)
+    weights = valid.to(torch.float32)
+    held("scatter_count", f"{codes.numel()} corpus window codes",
+         lambda: scatter_count(codes, valid), lambda: scatter_count_plain(codes, valid), 5, 2,
+         5 * codes.numel() + 4 * SPACE,
+         lambda: torch.bincount(codes, weights=weights, minlength=SPACE))
+    del codes, valid, weights
+    edges = torch.tensor(np.array([0, 15, 16, 2 ** 31 + 3, 2 ** 32 - 1, 2 ** 31 - 1, 2 ** 32 - 16,
+                                   2 ** 32 - 17], np.uint32).view(np.int32), device=dev)
+    wild = torch.cat([edges, torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), dtype=torch.int32,
+                                           device=dev, generator=gen)])
+    wild_valid = torch.rand(wild.numel(), device=dev, generator=gen) < 0.9
+    wild_valid[:edges.numel()] = True
+    held("scatter_count", "edge and random uint32 codes, space 16",
+         lambda: scatter_count(wild, wild_valid, 16),
+         lambda: scatter_count_plain(wild, wild_valid, 16), 0, 0, 0, timed=False)
+
+    # K3's table-length entries: 4 x 2^24 codes over the whole uint32 range
+    # (half in range, the edges first) on the 4^13 uint32 table, and a
+    # 16-entry uint16 table
+    table_dev = torch.from_numpy(table.view(np.int32)).to(dev).view(torch.uint32)
+    codes = torch.randint(-2 ** 31, 2 ** 31, (N_CODES,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    codes[N_CODES // 2:] &= SPACE - 1
+    codes[:edges.numel()] = edges
+    valid = torch.rand(N_CODES, device=dev, generator=gen) < 0.9
+    index_fwd = jax_index(codes)
+    index_rc = jax_index(revcomp_code13(codes))
+    n_fwd = int(torch.unique(index_fwd).numel())
+    n_both = int(torch.unique(torch.cat([index_fwd[valid], index_rc[valid]])).numel())
+    del index_rc
+    # codes in, answers out, each table entry they reach read once
+    held("gather13_table", "u32 4^13 table, 4x2^24 codes", lambda: gather_tf(table_dev, codes),
+         lambda: gather_tf_plain(table_dev, codes), 20, 2, 8 * N_CODES + 4 * n_fwd,
+         lambda: torch.take(table_dev.view(torch.int32), index_fwd))
+    held("gather13_total", "u32 4^13 table, 4x2^24 codes + mask, k=13",
+         lambda: gather_tf_total_13(table_dev, codes, valid),
+         lambda: gather_tf_total_13_plain(table_dev, codes, valid), 20, 2,
+         9 * N_CODES + 4 * n_both)
+    small = torch.randint(0, 1 << 16, (16,), dtype=torch.int32, device=dev,
+                          generator=gen).to(torch.int16).view(torch.uint16)
+    for k in (13, 16, 2):
+        held("gather13_total", f"u16 16-entry table, k={k}",
+             lambda: gather_tf_total_13(small, codes, valid, k),
+             lambda: gather_tf_total_13_plain(small, codes, valid, k), 0, 0, 0, timed=False)
+    held("gather13_table", "u16 16-entry table", lambda: gather_tf(small, codes),
+         lambda: gather_tf_plain(small, codes), 0, 0, 0, timed=False)
+    del codes, valid, index_fwd
+
+    # K5's ASCII entries: the first corpus chunk of the blob, then the
+    # mixed chunk (1-D, and as [B, L] rows) at k = 23 and 31
+    piece, _ = next(iter(blob_chunks(corpus_blob(reads), K23, CHUNK_BYTES)))
+    chunk = torch.from_numpy(piece).to(dev)
+    canon, valid = ascii_canonical_plain(chunk, K23)
+    live = canon[valid]
+    n_win = canon.numel()
+    # the chunk in; padded keys (8 B) and counts (4 B) out
+    held("spectrum23_ascii", f"corpus chunk 2^22 B, {live.numel()} valid windows",
+         lambda: chunk_spectrum(chunk, K23), lambda: chunk_spectrum_plain(chunk, K23), 20, 3,
+         chunk.numel() + 12 * n_win,
+         lambda: torch.unique(live, sorted=True, return_counts=True))
+    # the chunk in; a key (8 B) and a flag (1 B) out per window
+    held("canonical23_ascii", "corpus chunk 2^22 B", lambda: ascii_canonical(chunk, K23),
+         lambda: ascii_canonical_plain(chunk, K23), 20, 3, chunk.numel() + 9 * n_win)
+    del canon, valid, live
+    for k in (K23, 31):
+        for tag, x in (("mixed chunk 1-D", mixed_dev), ("mixed chunk as 4096 x 1024 rows",
+                                                        mixed_dev.view(-1, 1024))):
+            held("spectrum23_ascii", f"{tag}, k={k}", lambda: chunk_spectrum(x, k),
+                 lambda: chunk_spectrum_plain(x, k), 0, 0, 0, timed=False)
+            held("canonical23_ascii", f"{tag}, k={k}", lambda: ascii_canonical(x, k),
+                 lambda: ascii_canonical_plain(x, k), 0, 0, 0, timed=False)
+
+    # K7's ASCII-rows entry: 10,000 reads, as the path calls it; then the
+    # mixed chunk's rows
+    t = index.tables
+    mat = torch.from_numpy(reads[:N_SEQ]).to(dev)
+    wcodes, wvalid = window_codes(ascii_to_base_codes(mat), K23)
+    n_probe = distinct_probed_rows(t, canonical_code64(wcodes[wvalid], K23))
+    # the rows in, tf out, each probed row read once
+    held("quotcov23_rows", f"{N_SEQ} x {READ_LEN} reads", lambda: quot_tf_windows(t, mat, K23),
+         lambda: quot_tf_windows_plain(t, mat, K23), 50, 5,
+         mat.numel() + 4 * wcodes.numel() + 8 * n_probe)
+    rows = mixed_dev.view(-1, 1024)
+    held("quotcov23_rows", "mixed chunk as 4096 x 1024 rows",
+         lambda: quot_tf_windows(t, rows, K23), lambda: quot_tf_windows_plain(t, rows, K23),
+         0, 0, 0, timed=False)
+    return res
+
+
+# -- phase 10: K8 and K9 against their plain versions --------------------------
 
 def corpus_blob(reads: np.ndarray) -> np.ndarray:
     """The .reads blob the pipeline writes for the corpus FASTA: each read
@@ -988,7 +1310,7 @@ def positional_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, in
     return res
 
 
-# -- phase 9: the positional path end to end -----------------------------------
+# -- phase 11: the positional path end to end ----------------------------------
 
 def profile_ranges(prof) -> tuple[dict, list]:
     """(record_function name -> (start, end) us of its first range, sorted
@@ -1210,7 +1532,7 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
     return launched
 
 
-# -- phases 10-12: the wide engines, the facade and the CLI, the golden sets ---
+# -- phases 12-14: the wide engines, the facade and the CLI, the golden sets ---
 
 #: the two facade configurations: (k, the engine aindex_tpu's routing gives
 #: the corpus's n, that engine's query, coverage and fill kernels)
@@ -1640,7 +1962,7 @@ def golden_path(dev, tmp: str) -> None:
           f".dat and p.reads counts ({time.perf_counter() - t0:.1f} s)")
 
 
-# -- phases 13-14: the mesh path on NCCL, K12-K14 against their plain versions ---
+# -- phases 15-16: the mesh path on NCCL, K12-K14 against their plain versions ---
 
 #: kernels that only the mesh path runs (K12's two entries, K13, K14, K9's
 #: pairs-in entry)
@@ -2082,6 +2404,19 @@ def main() -> int:
         t0 = time.perf_counter()
         measured.update(quot_vs_plain(dev, card, index, reads))
         print(f"phase quot kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        _cuda.reset_launches()
+        ascii_path(dev, card, reads, table, oracle, index)
+        ascii_counts = _cuda.launches()
+        counts.update({name: ascii_counts[name] for name in ASCII_KERNELS})
+        print(f"phase ascii path: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        measured.update(ascii_kernels_vs_plain(dev, card, reads, table, index))
+        print(f"phase ascii kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         measured.update(positional_vs_plain(dev, card, reads, table, index))

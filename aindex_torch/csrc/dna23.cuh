@@ -36,14 +36,11 @@ __device__ __forceinline__ uint64_t canonical64(uint64_t x, int k) {
   return x < rc ? x : rc;
 }
 
-// The k-mer (k <= 31) starting at base p of the packed ingest format (see
-// dna13::packed_window). The window spans at most three words and five
-// validity bytes; reads past the end of either array see zeros, i.e.
-// invalid bases. Returns whether all k bases are valid and writes the code.
-__device__ __forceinline__ bool packed_window64(const unsigned* __restrict__ packed,
-                                                const unsigned char* __restrict__ vbits,
-                                                long long n_words, long long p, int k,
-                                                uint64_t* code) {
+// The 32 bases from base p of the packed ingest format (see
+// dna13::packed_window), base p + j in bits 2j and 2j + 1. They span at most
+// three words; reads past the end see zeros.
+__device__ __forceinline__ uint64_t packed_bases64(const unsigned* __restrict__ packed,
+                                                   long long n_words, long long p) {
   const long long w = p >> 4;
   const uint64_t w0 = w < n_words ? packed[w] : 0ull;
   const uint64_t w1 = w + 1 < n_words ? packed[w + 1] : 0ull;
@@ -51,11 +48,13 @@ __device__ __forceinline__ bool packed_window64(const unsigned* __restrict__ pac
   const int s = 2 * static_cast<int>(p & 15);
   const uint64_t lo = w0 | (w1 << 32);
   // 64 - s >= 34 bits come from w0:w1, the rest of the 2k <= 62 from w2
-  const uint64_t bases = s ? ((lo >> s) | (w2 << (64 - s))) : lo;
-  uint64_t c = 0;
-  for (int j = 0; j < k; ++j) c = (c << 2) | ((bases >> (2 * j)) & 3ull);
-  *code = c;
+  return s ? ((lo >> s) | (w2 << (64 - s))) : lo;
+}
 
+// Whether the k bases from base p are all valid: at most five validity
+// bytes; reads past the end see zeros, i.e. invalid bases.
+__device__ __forceinline__ bool packed_valid64(const unsigned char* __restrict__ vbits,
+                                               long long n_words, long long p, int k) {
   const long long n_bytes = 2 * n_words;
   const long long b = p >> 3;
   uint64_t v = 0;
@@ -64,6 +63,19 @@ __device__ __forceinline__ bool packed_window64(const unsigned* __restrict__ pac
     if (b + i < n_bytes) v |= static_cast<uint64_t>(vbits[b + i]) << (8 * i);
   const uint64_t need = (1ull << k) - 1ull;
   return ((v >> (p & 7)) & need) == need;
+}
+
+// The k-mer (k <= 31) starting at base p of the packed ingest format.
+// Returns whether all k bases are valid and writes the code.
+__device__ __forceinline__ bool packed_window64(const unsigned* __restrict__ packed,
+                                                const unsigned char* __restrict__ vbits,
+                                                long long n_words, long long p, int k,
+                                                uint64_t* code) {
+  const uint64_t bases = packed_bases64(packed, n_words, p);
+  uint64_t c = 0;
+  for (int j = 0; j < k; ++j) c = (c << 2) | ((bases >> (2 * j)) & 3ull);
+  *code = c;
+  return packed_valid64(vbits, n_words, p, k);
 }
 
 // The k-mer (k <= 31) of the k ASCII bytes at s. Returns whether all k

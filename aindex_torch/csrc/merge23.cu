@@ -9,68 +9,56 @@
 // the key-range select of parallel/spectrum23.py:63-68: the merge step of
 // the sharded spectrum, where a data shard reduces the gathered partial
 // spectra of every shard to the keys of its own range. K5's keys mode
-// (csrc/spectrum23.cu) is its unweighted case; the two share the radix
-// sort, the scans and the run steps (radix.cuh, scan.cuh, runs.cuh).
+// (csrc/spectrum23.cu) is its unweighted case; the two share the onesweep
+// compaction, sort and run reduce of csrc/onesweep.cuh.
 //
 // Bound: the sort. The input is up to n_data partial spectra of a 2^22-byte
-// chunk (4.19M keys each, 8-byte keys and 4-byte counts); each radix pass
-// reads and writes every live key and its weight once, on the 2k bits
-// below hi (six 8-bit passes for k = 23). Design, all plain kernels on one
-// stream:
-//   1. one thread per entry writes the key, its weight widened to 64 bits
-//      and a live flag (not the sentinel, inside [lo, hi));
-//   2. a scan of the flags and two compactions keep the live keys and
-//      weights in input order;
-//   3. the LSD radix sort of radix.cuh orders the (key, weight) pairs;
-//   4. the run steps of runs.cuh number the unique keys and write each
-//      key and its run's first position; an exclusive scan of the sorted
-//      weights in 64 bits gives every run's sum as a difference of two
-//      prefix sums (no run is summed by one thread).
+// chunk (4.19M keys each, 8-byte keys and 4-byte counts); each onesweep
+// pass reads and writes every live key and its weight once, on the 2k bits
+// below hi (six 8-bit passes for k = 23). uint32 weights ride the passes as
+// uint32 (12-byte pairs) and are widened only where a run's sum is taken.
+// Design, 3 + passes launches on one stream (9 for k = 23):
+//   0. one memset zeroes the sort's counters and look-back words;
+//   1. compaction: the live entries (not the sentinel, inside [lo, hi)),
+//      ranked with ballots and placed by decoupled look-back, in input
+//      order, their digits of every pass counted; the outputs are cleared
+//      to the sentinel and 0;
+//   2. one onesweep pass per 8-bit digit moves the (key, weight) pairs;
+//   3. the runs launch numbers the unique keys by look-back, writes each
+//      key, and each run's weights summed in 64 bits (wrapping modulo
+//      2^64; a run split between threads adds its pieces atomically).
 // The live and unique counts stay on the device (counters[0], counters[1]).
-#include "dna23.cuh"
-#include "radix.cuh"
-#include "runs.cuh"
-#include "scan.cuh"
+#include "onesweep.cuh"
 
 namespace {
 
 constexpr unsigned long long SENTINEL = ~0ull;
 
-__global__ void pairs_kernel(const unsigned long long* __restrict__ keys_in,
-                             const void* __restrict__ weights_in, int weight_bytes, long long n,
-                             unsigned long long lo, unsigned long long hi,
-                             unsigned long long* __restrict__ keys,
-                             unsigned long long* __restrict__ vals, int* __restrict__ flags) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < n;
-       p += step) {
-    const unsigned long long key = keys_in[p];
-    keys[p] = key;
-    vals[p] = weight_bytes == 4 ? static_cast<unsigned long long>(
-                                      static_cast<const unsigned*>(weights_in)[p])
-                                : static_cast<const unsigned long long*>(weights_in)[p];
-    flags[p] = (key != SENTINEL && key >= lo && key < hi) ? 1 : 0;
+// Entry p of the compaction: live when its key is in [lo, hi) and not the
+// sentinel; its weight rides with it.
+template <typename W>
+struct KeyRange {
+  const unsigned long long* keys;
+  const W* weights;
+  unsigned long long lo, hi;
+  __device__ bool operator()(long long p, unsigned long long& key, W& weight) const {
+    key = keys[p];
+    weight = weights[p];
+    return key != SENTINEL && key >= lo && key < hi;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) flags[n] = 0;
-}
+};
 
-__global__ void run_sums(const int* __restrict__ start, const int* __restrict__ counters,
-                         const unsigned long long* __restrict__ csum, long long cap,
-                         unsigned long long* __restrict__ keys_out,
-                         unsigned long long* __restrict__ counts) {
-  const long long n = counters[0];
-  const long long n_unique = counters[1];
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; u < cap;
-       u += step) {
-    if (u < n_unique) {
-      const long long end = u + 1 < n_unique ? start[u + 1] : n;
-      counts[u] = csum[end] - csum[start[u]];
-    } else {
-      keys_out[u] = SENTINEL;
-      counts[u] = 0ull;
-    }
-  }
+template <int WB>
+int merge(const void* keys_in, const void* weights_in, long long n, unsigned long long lo,
+          unsigned long long hi, int key_bits, void* keys_out, void* counts_out, void* counters,
+          void* scratch, void* stream) {
+  using W = typename onesweep::ValueOf<WB>::type;
+  return onesweep::reduce<WB>(
+      KeyRange<W>{static_cast<const unsigned long long*>(keys_in),
+                  static_cast<const W*>(weights_in), lo, hi},
+      n, key_bits, scratch, static_cast<unsigned long long*>(keys_out),
+      static_cast<unsigned long long*>(counts_out), static_cast<int*>(counters),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -80,58 +68,18 @@ DNA13_EXPORT_ERROR_STRING
 // keys_in uint64[n]; weights_in uint32[n] (weight_bytes 4) or uint64[n]
 // (8); the live keys are those in [lo, hi) other than the sentinel, and
 // all of them lie below 2^key_bits. Out: keys_out uint64[n], counts_out
-// uint64[n], counters int32[2] = (live keys, unique keys). Scratch, all
-// device memory of the caller: keys_a, keys_b uint64[n]; vals_a, vals_b
-// uint64[n + 1]; idx int32[n + 1]; start int32[n]; hist int32[256 *
-// ceil(n / 1024)]; sums int32[ceil(max(n + 1, 256 * ceil(n / 1024)) /
-// 2048)]; sums64 uint64[ceil((n + 1) / 2048)]. Returns the first CUDA
-// error of the launches, or 0.
+// uint64[n], counters int32[2] = (live keys, unique keys). scratch:
+// onesweep::scratch_bytes(n, passes, weight_bytes) bytes of device memory
+// of the caller. Returns the first CUDA error of the launches, or 0.
 extern "C" int spectrummerge(const void* keys_in, const void* weights_in, int weight_bytes,
                              long long n, unsigned long long lo, unsigned long long hi,
                              int key_bits, void* keys_out, void* counts_out, void* counters,
-                             void* keys_a, void* keys_b, void* vals_a, void* vals_b, void* idx,
-                             void* start, void* hist, void* sums, void* sums64, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || n >= (1LL << 31) - 1 || key_bits < 1 || key_bits > 64 ||
-      (weight_bytes != 4 && weight_bytes != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto* ka = static_cast<unsigned long long*>(keys_a);
-  auto* kb = static_cast<unsigned long long*>(keys_b);
-  auto* va = static_cast<unsigned long long*>(vals_a);
-  auto* vb = static_cast<unsigned long long*>(vals_b);
-  auto* ix = static_cast<int*>(idx);
-  auto* cn = static_cast<int*>(counters);
-  auto* sm = static_cast<int*>(sums);
-  auto* ko = static_cast<unsigned long long*>(keys_out);
-  const unsigned grid = dna13::grid_for(n);
-
-  pairs_kernel<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const unsigned long long*>(keys_in),
-                                            weights_in, weight_bytes, n, lo, hi, kb, vb, ix);
-  KERNEL_CHECK();
-  if (int e = scan::exclusive_scan<int, int>(ix, ix, n + 1, sm, cn, s)) return e;
-  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(kb, ix, n, ka);
-  KERNEL_CHECK();
-  scan::compact<<<grid, dna13::BLOCK, 0, s>>>(vb, ix, n, va);
-  KERNEL_CHECK();
-
-  unsigned long long* cur = nullptr;
-  unsigned long long* vcur = nullptr;
-  if (int e = radix::sort_pairs(ka, kb, va, vb, cn, n, 0, key_bits, static_cast<int*>(hist), sm,
-                                s, &cur, &vcur))
-    return e;
-  // the value buffer the sort did not end in holds the prefix sums
-  unsigned long long* csum = vcur == va ? vb : va;
-  if (int e = scan::exclusive_scan<unsigned long long, unsigned long long>(
-          vcur, csum, n + 1, static_cast<unsigned long long*>(sums64), nullptr, s))
-    return e;
-
-  runs::run_flags<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, n, ix);
-  KERNEL_CHECK();
-  if (int e = scan::exclusive_scan<int, int>(ix, ix, n + 1, sm, cn + 1, s)) return e;
-  runs::run_write<<<grid, dna13::BLOCK, 0, s>>>(cur, cn, ix, ko, static_cast<int*>(start));
-  KERNEL_CHECK();
-  run_sums<<<grid, dna13::BLOCK, 0, s>>>(static_cast<const int*>(start), cn, csum, n, ko,
-                                         static_cast<unsigned long long*>(counts_out));
-  KERNEL_CHECK();
-  return 0;
+                             void* scratch, void* stream) {
+  if (weight_bytes == 4)
+    return merge<4>(keys_in, weights_in, n, lo, hi, key_bits, keys_out, counts_out, counters,
+                    scratch, stream);
+  if (weight_bytes == 8)
+    return merge<8>(keys_in, weights_in, n, lo, hi, key_bits, keys_out, counts_out, counters,
+                    scratch, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,6 @@
-// Stable LSD radix sort of 64-bit keys, shared by spectrum23 (K5), posfill
-// (K9) and posbucket (K14), and of (key, value) pairs for spectrummerge
-// (K13).
+// Stable LSD radix sort of 64-bit keys, shared by posfill (K9, and the
+// fills of K10 and K11 through fill.cuh) and posbucket (K14, which reuses
+// its histogram step). K5 and K13 sort with csrc/onesweep.cuh.
 //
 // Each pass sorts on one 8-bit digit: one warp per tile of WARP_TILE keys
 // counts its digits in shared memory; an exclusive scan of the digit-major
@@ -41,15 +41,11 @@ __global__ void radix_hist(const unsigned long long* __restrict__ keys,
 }
 
 // hist: the exclusive scan of radix_hist's counts, i.e. each (digit, tile)'s
-// first output position. Stable: keys of one digit keep their order. With
-// PAIRS, each key's value (vin) moves with it to vout.
-template <bool PAIRS>
+// first output position. Stable: keys of one digit keep their order.
 __global__ void radix_scatter(const unsigned long long* __restrict__ in,
-                              const unsigned long long* __restrict__ vin,
                               const int* __restrict__ n_ptr, int shift, long long n_tiles,
                               const int* __restrict__ hist,
-                              unsigned long long* __restrict__ out,
-                              unsigned long long* __restrict__ vout) {
+                              unsigned long long* __restrict__ out) {
   __shared__ int next[WARPS][RADIX];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -71,7 +67,6 @@ __global__ void radix_scatter(const unsigned long long* __restrict__ in,
     if (ok) {
       const int at = next[warp][d] + __popc(peers & lower);
       out[at] = key;
-      if (PAIRS) vout[at] = vin[i];
     }
     __syncwarp();
     if (ok && lane == __ffs(peers) - 1) next[warp][d] += __popc(peers);
@@ -80,54 +75,31 @@ __global__ void radix_scatter(const unsigned long long* __restrict__ in,
 }
 
 // Sort the first *n_ptr of cap keys in a on bits [lo, hi), 8 bits a pass,
-// ping-ponging between a and b (with PAIRS, their values between va and
-// vb); *sorted (*vsorted) is set to the buffer that holds the result. Keys
-// equal on those bits keep their order. Scratch: hist int32[RADIX *
-// n_tiles(cap)], sums int32[scan::tiles(RADIX * n_tiles(cap))].
-template <bool PAIRS>
-inline int sort_impl(unsigned long long* a, unsigned long long* b, unsigned long long* va,
-                     unsigned long long* vb, const int* n_ptr, long long cap, int lo, int hi,
-                     int* hist, int* sums, cudaStream_t s, unsigned long long** sorted,
-                     unsigned long long** vsorted) {
+// ping-ponging between a and b; *sorted is set to the buffer that holds the
+// result. Keys equal on those bits keep their order. Scratch: hist
+// int32[RADIX * n_tiles(cap)], sums int32[scan::tiles(RADIX *
+// n_tiles(cap))].
+inline int sort(unsigned long long* a, unsigned long long* b, const int* n_ptr, long long cap,
+                int lo, int hi, int* hist, int* sums, cudaStream_t s,
+                unsigned long long** sorted) {
   if (lo < 0 || hi > 64 || lo >= hi) return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = n_tiles(cap);
   const unsigned grid = static_cast<unsigned>((tiles + WARPS - 1) / WARPS);
   unsigned long long* cur = a;
   unsigned long long* alt = b;
-  unsigned long long* vcur = va;
-  unsigned long long* valt = vb;
   for (int shift = lo; shift < hi; shift += 8) {
     radix_hist<<<grid, WARPS * 32, 0, s>>>(cur, n_ptr, shift, tiles, hist);
     KERNEL_CHECK();
     if (int e = scan::exclusive_scan<int, int>(hist, hist, RADIX * tiles, sums, nullptr, s))
       return e;
-    radix_scatter<PAIRS><<<grid, WARPS * 32, 0, s>>>(cur, vcur, n_ptr, shift, tiles, hist, alt,
-                                                      valt);
+    radix_scatter<<<grid, WARPS * 32, 0, s>>>(cur, n_ptr, shift, tiles, hist, alt);
     KERNEL_CHECK();
     unsigned long long* t = cur;
     cur = alt;
     alt = t;
-    t = vcur;
-    vcur = valt;
-    valt = t;
   }
   *sorted = cur;
-  if (vsorted != nullptr) *vsorted = vcur;
   return 0;
-}
-
-inline int sort(unsigned long long* a, unsigned long long* b, const int* n_ptr, long long cap,
-                int lo, int hi, int* hist, int* sums, cudaStream_t s,
-                unsigned long long** sorted) {
-  return sort_impl<false>(a, b, nullptr, nullptr, n_ptr, cap, lo, hi, hist, sums, s, sorted,
-                          nullptr);
-}
-
-inline int sort_pairs(unsigned long long* a, unsigned long long* b, unsigned long long* va,
-                      unsigned long long* vb, const int* n_ptr, long long cap, int lo, int hi,
-                      int* hist, int* sums, cudaStream_t s, unsigned long long** sorted,
-                      unsigned long long** vsorted) {
-  return sort_impl<true>(a, b, va, vb, n_ptr, cap, lo, hi, hist, sums, s, sorted, vsorted);
 }
 
 }  // namespace radix

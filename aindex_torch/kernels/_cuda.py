@@ -149,14 +149,12 @@ KERNELS: dict[str, Kernel] = {
                [_P, ctypes.c_int, _P, _P, _LL, _LL, _LL, ctypes.c_uint, _P, _P],
                "aindex_tpu/kernels/coverage.py:32"),
         # packed, vbits, n_words, k, keys_in, n_in, key_bits, keys_out, counts,
-        # counters, keys_a, keys_b, idx, start, hist, sums, stream
+        # counters, scratch, stream
         Kernel("spectrum23", "spectrum23.cu",
-               [_P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+               [_P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P, _P, _P],
                "aindex_tpu/kernels/spectrum.py:48"),
-        # ascii, rows, len, k, keys_out, counts, counters, keys_a, keys_b, idx, start,
-        # hist, sums, stream
-        Kernel("spectrum23_ascii", "spectrum23.cu",
-               [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        # ascii, rows, len, k, keys_out, counts, counters, scratch, stream
+        Kernel("spectrum23_ascii", "spectrum23.cu", [_P, _LL, _LL, _I, _P, _P, _P, _P, _P],
                "aindex_tpu/kernels/spectrum.py:33"),
         # ascii, rows, len, k, keys_out, valid_out, stream
         Kernel("canonical23_ascii", "spectrum23.cu", [_P, _LL, _LL, _I, _P, _P, _P],
@@ -187,10 +185,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("shardverify", "shard23.cu", [_P, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P],
                "aindex_tpu/parallel/query23.py:62"),
         # keys_in, weights_in, weight_bytes, n, lo, hi, key_bits, keys_out, counts_out,
-        # counters, keys_a, keys_b, vals_a, vals_b, idx, start, hist, sums, sums64, stream
-        Kernel("spectrummerge", "merge23.cu",
-               [_P, _P, _I, _LL, _ULL, _ULL, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                _P], "aindex_tpu/kernels/spectrum.py:149"),
+        # counters, scratch, stream
+        Kernel("spectrummerge", "merge23.cu", [_P, _P, _I, _LL, _ULL, _ULL, _I, _P, _P, _P, _P, _P],
+               "aindex_tpu/kernels/spectrum.py:149"),
         # engine, p, u, rule, packed, vbits, n_words, k, n_slots, m, n_dest, cap, slots,
         # buckets, counters, dest, hist, sums, stream
         Kernel("posbucket", "posbucket.cu",

@@ -4,10 +4,11 @@ weighted merge of partial spectra.
 Counterpart of aindex_tpu/kernels/spectrum.py. The kernel
 ``csrc/spectrum23.cu`` replaces ``chunk_spectrum_packed`` (:48) and
 ``sorted_spectrum`` (:121): windows -> canonical -> drop invalid -> sort
--> run-length reduce, the sort written by hand (an LSD radix sort over
-the code's 2k significant bits). ``spectrum23_plain`` is its plain PyTorch
-version. K5's entry ``spectrum23_ascii`` replaces ``chunk_spectrum`` (:33)
-with the same steps from ASCII bytes (``chunk_spectrum``, plain version
+-> run-length reduce, the sort written by hand (a onesweep LSD radix sort,
+``csrc/onesweep.cuh``, over the code's 2k significant bits).
+``spectrum23_plain`` is its plain PyTorch version. K5's entry
+``spectrum23_ascii`` replaces ``chunk_spectrum`` (:33) with the same steps
+from ASCII bytes (``chunk_spectrum``, plain version
 ``chunk_spectrum_plain``), and its entry ``canonical23_ascii`` replaces
 index/sparse23.py:38 ``_extract_canonical``, the first step alone
 (``ascii_canonical``, plain version ``ascii_canonical_plain``). The kernel ``csrc/merge23.cu`` (K13) replaces
@@ -43,12 +44,16 @@ SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 SENTINEL_I64 = -1
 
 #: shapes of the scratch of the sort and the scans (csrc/radix.cuh,
-#: csrc/scan.cuh), which K5 and K9 share
+#: csrc/scan.cuh), which K9 and K14 use
 RADIX = 256
 WARP_TILE = 1024
 SCAN_TILE = 2048
 #: the kernels index keys with int32
 INT32_LIMIT = (1 << 31) - 1
+#: the onesweep sort's tile and tile counters (csrc/onesweep.cuh), which K5
+#: and K13 use
+ONESWEEP_TILE = 4096
+ONESWEEP_COUNTERS = 16
 
 _I64_MIN = -(1 << 63)
 
@@ -58,6 +63,23 @@ def sort_scratch(cap: int) -> tuple[int, int]:
     ``cap`` keys, ``sums`` also serving the scans of ``cap + 1`` flags."""
     n_hist = RADIX * -(-cap // WARP_TILE)
     return n_hist, -(-max(cap + 1, n_hist) // SCAN_TILE)
+
+
+def sort_passes(bits: int) -> int:
+    """8-bit digit passes of a sort on ``bits`` bits."""
+    return -(-bits // 8)
+
+
+def onesweep_scratch(cap: int, passes: int, value_bytes: int) -> int:
+    """Bytes of the onesweep sort's scratch for up to ``cap`` keys sorted in
+    ``passes`` passes, each key with a value of ``value_bytes`` (0, 4 or
+    8): two key buffers, two value buffers, then the words one memset
+    zeroes (digit histograms, tile counters, the look-back words of the
+    compaction, the runs and each pass). csrc/onesweep.cuh
+    ``scratch_bytes`` carves the same layout."""
+    tiles = -(-cap // ONESWEEP_TILE)
+    status = passes * RADIX // 2 + ONESWEEP_COUNTERS // 2 + 2 * tiles + passes * tiles * RADIX
+    return 8 * (2 * cap + 2 * -(-cap * value_bytes // 8) + status)
 
 
 def _flip(keys: torch.Tensor) -> torch.Tensor:
@@ -110,23 +132,18 @@ def _check(packed, vbits, k, keys) -> int:
     return cap
 
 
-def _launch_reduce(kernel, dev, cap: int, *args) -> tuple:
-    """Allocate K5's outputs and scratch for ``cap`` windows or keys and
-    launch one of its reducing entries with ``args`` before them."""
-    n_hist, n_sums = sort_scratch(cap)
-
-    def ints(n):
-        return torch.empty(n, dtype=torch.int32, device=dev)
-
+def _launch_reduce(kernel, dev, cap: int, bits: int, *args) -> tuple:
+    """Allocate K5's outputs and scratch for ``cap`` windows or keys sorted
+    on ``bits`` bits and launch one of its reducing entries with ``args``
+    before them."""
     keys_out = torch.empty(cap, dtype=torch.int64, device=dev)
-    counts = ints(cap)
-    counters = ints(2)
-    scratch = (torch.empty(cap, dtype=torch.int64, device=dev),
-               torch.empty(cap, dtype=torch.int64, device=dev),
-               ints(cap + 1), ints(cap), ints(n_hist), ints(n_sums))
+    counts = torch.empty(cap, dtype=torch.int32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(onesweep_scratch(cap, sort_passes(bits), 0), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         kernel.launch(*args, keys_out.data_ptr(), counts.data_ptr(), counters.data_ptr(),
-                      *(t.data_ptr() for t in scratch), _cuda.stream(dev))
+                      scratch.data_ptr(), _cuda.stream(dev))
     return keys_out, counts.view(torch.uint32), counters[1]
 
 
@@ -147,8 +164,9 @@ def spectrum23(packed: torch.Tensor | None = None, vbits: torch.Tensor | None = 
     tensors = (packed, vbits) if packed is not None else (keys,)
     if not _cuda.on_cuda(*tensors):
         return spectrum23_plain(packed, vbits, k, keys)
+    bits = 64 if packed is None else 2 * k
     return _launch_reduce(
-        KERNEL, tensors[0].device, cap, None if packed is None else packed.data_ptr(),
+        KERNEL, tensors[0].device, cap, bits, None if packed is None else packed.data_ptr(),
         None if vbits is None else vbits.data_ptr(), 0 if packed is None else packed.numel(),
         k, None if keys is None else keys.data_ptr(), 0 if keys is None else cap, 64)
 
@@ -233,7 +251,7 @@ def chunk_spectrum(ascii_chunk: torch.Tensor, k: int):
         raise ValueError("no rows: the chunk has no windows")
     if not _cuda.on_cuda(ascii_chunk):
         return chunk_spectrum_plain(ascii_chunk, k)
-    return _launch_reduce(KERNEL_ASCII, ascii_chunk.device, rows * (length - k + 1),
+    return _launch_reduce(KERNEL_ASCII, ascii_chunk.device, rows * (length - k + 1), 2 * k,
                           ascii_chunk.data_ptr(), rows, length, k)
 
 
@@ -305,21 +323,16 @@ def sorted_spectrum_weighted(keys: torch.Tensor, weights: torch.Tensor, lo: int 
     if not _cuda.on_cuda(keys, weights):
         return sorted_spectrum_weighted_plain(keys, weights, lo, hi)
     dev = keys.device
-    n_hist, n_sums = sort_scratch(n)
-
-    def buf(m, dtype=torch.int64):
-        return torch.empty(m, dtype=dtype, device=dev)
-
-    keys_out, counts_out = buf(n), buf(n)
-    counters = buf(2, torch.int32)
-    scratch = (buf(n), buf(n), buf(n + 1), buf(n + 1), buf(n + 1, torch.int32),
-               buf(n, torch.int32), buf(n_hist, torch.int32), buf(n_sums, torch.int32),
-               buf(-(-(n + 1) // SCAN_TILE)))
+    key_bits = max(1, (max(hi, 1) - 1).bit_length())
+    keys_out = torch.empty(n, dtype=torch.int64, device=dev)
+    counts_out = torch.empty(n, dtype=torch.int64, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    scratch = torch.empty(onesweep_scratch(n, sort_passes(key_bits), weights.element_size()),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         KERNEL_MERGE.launch(keys.data_ptr(), weights.data_ptr(), weights.element_size(), n, lo,
-                            hi, max(1, (max(hi, 1) - 1).bit_length()), keys_out.data_ptr(),
-                            counts_out.data_ptr(), counters.data_ptr(),
-                            *(t.data_ptr() for t in scratch), _cuda.stream(dev))
+                            hi, key_bits, keys_out.data_ptr(), counts_out.data_ptr(),
+                            counters.data_ptr(), scratch.data_ptr(), _cuda.stream(dev))
     return keys_out, counts_out, counters[1]
 
 

@@ -24,7 +24,11 @@ Run from the repository root, with no arguments:
    makes for k = 13, each checked against a numpy oracle.
 5. Holds K5 (the chunk spectrum) against its plain version on a 2^22-byte
    chunk of the corpus and on a chunk with N runs and newlines, beside
-   ``torch.unique``.
+   ``torch.unique``; then K5's keys mode and K13 against theirs at the
+   shapes where the onesweep sort's tiles and look-back could break (one
+   live key, all equal, none live, one tile of live keys and one tile +-
+   1, a cap that is no multiple of the tile, 64-bit keys, 4 x 2^24 keys,
+   weight sums past 2^32 and 2^64).
 6. Drives the sparse path: ``Sparse23Index.build_from_stream`` over the
    FASTA file (stage times and the device's idle share of the build), then
    every query family, coverage, De Bruijn CONT and a save/load round
@@ -94,9 +98,13 @@ Run from the repository root, with no arguments:
    dense k = 13 windows) and the pairs-in fill per destination, at one
    shard also against K9's fill of the same chunk. Each is timed at the
    world-of-one path's shape.
-17. Prints the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15,
-   each path run with the counts set to 0 just before it), the card line
-   and the result line.
+17. Prints each onesweep row (K5, its ASCII entry, K13) beside its
+   radix.cuh time, and the rows that still sort with radix.cuh beside
+   their earlier times; then the kernels line (launch counts of steps 4,
+   6, 8, 11, 12 and 15, each path run with the counts set to 0 just
+   before it), the card line and the result line. The onesweep rows'
+   launches per call come from a torch.profiler trace of twenty calls in
+   a fresh process (``chip_smoke.py --onesweep-launches``).
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
@@ -324,6 +332,96 @@ def report(card, name, shape, rec):
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib}, plain/kernel "
           f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
+
+
+#: earlier chip_smoke times (ms) of the rows whose sort PR 8 redesigned
+#: (radix.cuh, PR 6 and 7 calls) and of the rows that still sort with
+#: radix.cuh (PR 6's second call), on NVIDIA H100 80GB HBM3, 700.00 W
+EARLIER_MS = {"spectrum23": 1.2555, "spectrum23_ascii": 1.3090, "spectrummerge": 1.8921,
+              "csr_offsets": 0.9505, "posfill": 1.1536, "cuckoofill64": 0.9572,
+              "mphffill": 1.0151, "posbucket": 0.3960, "posfill_pairs": 1.1968}
+ONESWEEP_ROWS = ("spectrum23", "spectrum23_ascii", "spectrummerge")
+
+
+def launches_per_call(fn, calls: int = 20) -> float:
+    """Device operations (kernels and memsets) a call of ``fn``: those of a
+    torch.profiler trace of ``calls`` calls, over ``calls`` (a trace of one
+    short call can come back short of its events)."""
+    import torch
+    from torch import profiler
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()) / calls
+
+
+def onesweep_calls(dev) -> dict:
+    """The onesweep rows at their paths' shapes, on one 2^22-byte chunk of
+    a coverage-1 corpus of make_scale_corpus.py's genome: name -> (kernel
+    call, plain call). K13 merges the chunk's spectrum over the whole key
+    range, as the world-of-one mesh path does."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.spectrum import (chunk_spectrum, chunk_spectrum_plain,
+                                               sorted_spectrum_weighted,
+                                               sorted_spectrum_weighted_plain, spectrum23,
+                                               spectrum23_plain)
+    _, reads = scale_corpus(1.0, 1)
+    n_rows = CHUNK_BYTES // (READ_LEN + 1) + 1
+    chunk = np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]
+                      ).ravel()[:CHUNK_BYTES]
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
+    ascii_chunk = torch.from_numpy(chunk).to(dev)
+    keys, counts, _ = spectrum23_plain(packed, vbits, K23)
+    counts = counts.view(torch.int32)
+    hi = 4 ** K23
+    return {
+        "spectrum23": (lambda: spectrum23(packed, vbits, K23),
+                       lambda: spectrum23_plain(packed, vbits, K23)),
+        "spectrum23_ascii": (lambda: chunk_spectrum(ascii_chunk, K23),
+                             lambda: chunk_spectrum_plain(ascii_chunk, K23)),
+        "spectrummerge": (lambda: sorted_spectrum_weighted(keys, counts, 0, hi),
+                          lambda: sorted_spectrum_weighted_plain(keys, counts, 0, hi)),
+    }
+
+
+LAUNCHES_FLAG = "--onesweep-launches"
+
+
+def onesweep_launches() -> dict[str, float]:
+    """Launches a call of the onesweep rows, traced in a fresh process:
+    traces taken late in this one (after the paths' long traces and the
+    NCCL group) came back short of device events."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), LAUNCHES_FLAG],
+                         capture_output=True, text=True, timeout=600, check=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def onesweep_launches_main() -> int:
+    """The fresh process of onesweep_launches: each row checked against
+    its plain version, then traced."""
+    import torch
+    dev = torch.device("cuda", 0)
+    launches = {}
+    for name, (fn, plain) in onesweep_calls(dev).items():
+        max(max_abs_err(a, b) for a, b in zip(fn(), plain()))
+        launches[name] = launches_per_call(fn)
+    print(json.dumps(launches))
+    return 0
+
+
+def report_onesweep(card, name, rec, launches) -> None:
+    """A redesigned row's time beside its radix.cuh time, the library call
+    and the bound, with its launches per call."""
+    rec["launches_per_call"] = launches
+    print(f"onesweep {name}: {rec['ms']:.4f} ms, {launches:.2f} launches a call; "
+          f"radix.cuh {EARLIER_MS[name]:.4f} ms ({EARLIER_MS[name] / rec['ms']:.2f}x); "
+          f"library {rec['library_ms']:.4f} ms (kernel/library {rec['ms'] / rec['library_ms']:.2f}x); "
+          f"bound {rec['bound_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms ({card})")
 
 
 def distinct_probed_rows(t, keys) -> int:
@@ -619,6 +717,71 @@ def spectrum_vs_plain(dev, card: str, reads: np.ndarray) -> dict:
         else:
             out["max_abs_err"] = max(out["max_abs_err"], rec["max_abs_err"])
     return out
+
+
+def sort_edges_vs_plain(dev, card: str) -> None:
+    """K5's keys mode and K13 against their plain versions, exactly, at the
+    shapes where the onesweep sort's tiles and look-back could break: one
+    live key, all keys equal, nothing live, live counts of one tile and one
+    tile +- 1, a cap that is no multiple of the tile, keys over all 64 bits
+    (8 passes), 4 x 2^24 keys; K13 with uint32 and uint64 weights whose
+    sums pass 2^32 and wrap at 2^64, and with key ranges."""
+    import torch
+    from aindex_torch.kernels.spectrum import (ONESWEEP_TILE, sorted_spectrum_weighted,
+                                               sorted_spectrum_weighted_plain, spectrum23,
+                                               spectrum23_plain)
+    rng = np.random.default_rng(71)
+    tile = ONESWEEP_TILE
+    sentinel = np.uint64(2 ** 64 - 1)
+
+    def live_among_sentinels(n_live: int, cap: int) -> np.ndarray:
+        keys = np.full(cap, sentinel)
+        keys[np.sort(rng.permutation(cap)[:n_live])] = rng.integers(0, 1 << 46, size=n_live,
+                                                                     dtype=np.uint64) % 5000
+        return keys
+
+    dups = rng.integers(0, 2 ** 64 - 1, size=700, dtype=np.uint64)
+    mixed = dups[rng.integers(0, dups.size, size=5 * tile + 11)]
+    mixed[rng.random(mixed.size) < 0.2] = sentinel
+    shapes = [
+        ("1 live key", np.array([12345], np.uint64)),
+        ("1 live key among tile + 3 sentinels", live_among_sentinels(1, tile + 3)),
+        ("all 3 x tile + 5 keys equal", np.full(3 * tile + 5, 99, np.uint64)),
+        ("all 2 x tile + 1 keys the sentinel", np.full(2 * tile + 1, sentinel)),
+        *((f"{n} live of 2 x tile", live_among_sentinels(n, 2 * tile))
+          for n in (tile - 1, tile, tile + 1)),
+        ("cap 5 x tile + 11, 20% sentinels, 700 distinct 64-bit keys", mixed),
+        ("2^20 keys over all 64 bits", rng.integers(0, 2 ** 64, size=1 << 20, dtype=np.uint64)),
+        ("4 x 2^24 keys of 2^25 values", rng.integers(0, 1 << 46, size=N_CODES, dtype=np.uint64)
+         % np.uint64(1 << 25)),
+    ]
+    for tag, host in shapes:
+        t0 = time.perf_counter()
+        keys = torch.from_numpy(host.view(np.int64)).to(dev)
+        err = max(max_abs_err(a, b) for a, b in zip(spectrum23(keys=keys),
+                                                     spectrum23_plain(keys=keys)))
+        w32 = torch.from_numpy(rng.integers(0, 2 ** 32, size=host.size, dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(dev).view(torch.uint32)
+        w64 = torch.from_numpy(rng.integers(0, 2 ** 64, size=host.size, dtype=np.uint64)
+                               .view(np.int64)).to(dev)
+        for w, (lo, hi) in itertools.product((w32, w64), ((0, 2 ** 64 - 1), (1 << 40, 1 << 45),
+                                                           (2 ** 63, 2 ** 64 - 1))):
+            err = max(err, *(max_abs_err(a, b) for a, b in zip(
+                sorted_spectrum_weighted(keys, w, lo, hi),
+                sorted_spectrum_weighted_plain(keys, w, lo, hi))))
+        print(f"K5 keys mode and K13 (uint32/uint64 weights, 3 ranges) [{tag}]: max_abs_err "
+              f"{err} ({time.perf_counter() - t0:.1f} s, {card})")
+        del keys, w32, w64
+    # weight sums past 2^32 (uint32 in) and past 2^64 (uint64 in, wrapping)
+    keys = torch.full((2 * tile + 9,), 5, dtype=torch.int64, device=dev)
+    keys[::3] = 6
+    for w in (torch.full_like(keys, -1, dtype=torch.int32).view(torch.uint32),
+              torch.full_like(keys, 2 ** 63 + 1 - 2 ** 64)):
+        got = sorted_spectrum_weighted(keys, w)
+        err = max(max_abs_err(a, b) for a, b in zip(got, sorted_spectrum_weighted_plain(keys, w)))
+        print(f"K13 [{keys.numel()} keys of 2 values, {w.dtype} weights, sums "
+              f"{[int(x) & (2 ** 64 - 1) for x in got[1][:2].tolist()]}]: max_abs_err {err} ({card})")
+    torch.cuda.empty_cache()
 
 
 # -- phase 6: the sparse path end to end ---------------------------------------
@@ -2345,6 +2508,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == [LAUNCHES_FLAG]:
+        return onesweep_launches_main()
     from aindex_torch.kernels import _cuda
 
     dev = torch.device("cuda", 0)
@@ -2389,6 +2554,9 @@ def main() -> int:
         t0 = time.perf_counter()
         measured["spectrum23"] = spectrum_vs_plain(dev, card, reads)
         print(f"phase spectrum kernel-vs-plain: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sort_edges_vs_plain(dev, card)
+        print(f"phase onesweep edge shapes: {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         oracle = oracle_spectrum23(reads)
@@ -2457,7 +2625,17 @@ def main() -> int:
         print(f"phase golden sets: {time.perf_counter() - t0:.1f} s")
     for name in _cuda.KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on its main path")
+    t0 = time.perf_counter()
+    for name, launches in onesweep_launches().items():
+        report_onesweep(card, name, measured[name], launches)
+    print(f"phase onesweep launches (a fresh process): {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+    for name, ms in EARLIER_MS.items():
+        rec = measured[name]
+        calls = (f", {rec.pop('launches_per_call'):.2f} launches a call" if name in ONESWEEP_ROWS
+                 else "")
+        print(f"{name}: {rec['ms']:.4f} ms now, {ms:.4f} ms earlier ({rec['ms'] / ms - 1:+.1%})"
+              f"{calls}")
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda",

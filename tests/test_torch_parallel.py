@@ -344,6 +344,83 @@ def test_sorted_spectrum_weighted_plain_vs_jax():
     np.testing.assert_array_equal(_u64(tc), jc)
 
 
+TILE = tspectrum.ONESWEEP_TILE
+EDGES = ["one_live", "all_equal", "all_sentinel", "tile_minus_1_live", "tile_live",
+         "tile_plus_1_live", "cap_not_tile_multiple", "keys_64_bit"]
+
+
+def _edge_keys(shape: str) -> np.ndarray:
+    """uint64 keys at a shape where K13's onesweep sort could break (the
+    kernel's tile is ONESWEEP_TILE keys)."""
+    rng = np.random.default_rng(EDGES.index(shape) + 40)
+    sentinel = jspectrum.SENTINEL
+    if shape == "one_live":
+        keys = np.full(TILE + 3, sentinel)
+        keys[TILE + 1] = 7
+        return keys
+    if shape == "all_equal":
+        return np.full(3 * TILE + 5, 99, np.uint64)
+    if shape == "all_sentinel":
+        return np.full(2 * TILE + 1, sentinel)
+    if shape.startswith("tile"):
+        n_live = TILE + {"tile_minus_1_live": -1, "tile_live": 0, "tile_plus_1_live": 1}[shape]
+        keys = np.full(2 * TILE, sentinel)
+        keys[np.sort(rng.permutation(keys.size)[:n_live])] = rng.integers(
+            0, 5000, size=n_live, dtype=np.uint64)
+        return keys
+    if shape == "cap_not_tile_multiple":
+        pool = rng.integers(0, 2 ** 46, size=700, dtype=np.uint64)
+        keys = pool[rng.integers(0, pool.size, size=5 * TILE + 11)]
+        keys[rng.random(keys.size) < 0.2] = sentinel
+        return keys
+    keys = rng.integers(0, 2 ** 64 - 1, size=3 * TILE, dtype=np.uint64)   # all 8 digits
+    keys[:TILE] = keys[TILE:2 * TILE]
+    keys[-5:] = np.uint64(2 ** 63)
+    return keys
+
+
+@pytest.mark.parametrize("shape", EDGES)
+@pytest.mark.parametrize("weight_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("key_range", [None, (1 << 40, 1 << 45), (2 ** 63, 2 ** 64 - 1)])
+def test_sorted_spectrum_weighted_edges_plain_vs_jax(shape, weight_dtype, key_range):
+    """The plain version that K13 is held to on the card, at the onesweep
+    sort's edge shapes, with uint32 and uint64 weights, against aindex_tpu
+    (whose function takes no range: the keys outside it become the
+    sentinel there, as parallel/spectrum23.py selects them)."""
+    keys = _edge_keys(shape)
+    rng = np.random.default_rng(7)
+    weights = rng.integers(0, np.iinfo(weight_dtype).max, size=keys.size, dtype=np.uint64,
+                           endpoint=True).astype(weight_dtype)
+    lo, hi = key_range or (0, 2 ** 64 - 1)
+    ranged = np.where((keys >= np.uint64(lo)) & (keys < np.uint64(hi)), keys,
+                      jspectrum.SENTINEL)
+    jk, jc, jn = (np.asarray(x) for x in jspectrum.sorted_spectrum_weighted(
+        jnp.asarray(ranged), jnp.asarray(weights)))
+    w = _t(weights.view(np.int64) if weight_dtype == np.uint64 else weights)
+    tk, tc, tn = tspectrum.sorted_spectrum_weighted(_t(keys.view(np.int64)), w, lo, hi)
+    np.testing.assert_array_equal(_u64(tk), jk)
+    np.testing.assert_array_equal(_u64(tc), jc)
+    assert int(tn) == int(jn)
+
+
+@pytest.mark.parametrize("weight", [2 ** 32 - 1, 2 ** 63 + 1])
+def test_sorted_spectrum_weighted_sums_wrap_vs_jax(weight):
+    """Sums of uint32 weights pass 2^32 (uint64 sums), and of uint64 weights
+    wrap modulo 2^64, as aindex_tpu's."""
+    keys = np.full(2 * TILE + 9, 5, np.uint64)
+    keys[::3] = 6
+    weights = np.full(keys.size, weight, np.uint32 if weight < 2 ** 32 else np.uint64)
+    jk, jc, jn = (np.asarray(x) for x in jspectrum.sorted_spectrum_weighted(
+        jnp.asarray(keys), jnp.asarray(weights)))
+    w = _t(weights if weights.dtype == np.uint32 else weights.view(np.int64))
+    tk, tc, tn = tspectrum.sorted_spectrum_weighted(_t(keys.view(np.int64)), w)
+    np.testing.assert_array_equal(_u64(tk), jk)
+    np.testing.assert_array_equal(_u64(tc), jc)
+    assert int(tn) == int(jn) == 2
+    n5 = int((keys == 5).sum())
+    assert int(_u64(tc)[0]) == (n5 * weight) % 2 ** 64 and (n5 * weight) >= 2 ** 32
+
+
 def test_mphf_owner_node_plain_vs_jax(blob):
     jindex = JSparse.build_from_blob(blob)
     m = jindex.mphf

@@ -88,6 +88,83 @@ def test_sorted_spectrum_keys_mode_matches_jax(seed):
     assert int(tn) == int(jn) == np.unique(keyed[keyed != jspec.SENTINEL]).size
 
 
+TILE = tspec.ONESWEEP_TILE
+EDGES = ["one_live", "one_live_among_sentinels", "all_equal", "all_sentinel",
+         "tile_minus_1_live", "tile_live", "tile_plus_1_live", "cap_not_tile_multiple",
+         "keys_64_bit"]
+
+
+def _edge_keys(shape: str) -> np.ndarray:
+    """uint64 keys at a shape where the onesweep sort's tiles or look-back
+    could break (the kernel's tile is ONESWEEP_TILE keys); the sentinel
+    marks ignored keys."""
+    rng = np.random.default_rng(EDGES.index(shape))
+    sentinel = jspec.SENTINEL
+
+    def live_among_sentinels(n_live: int, cap: int) -> np.ndarray:
+        keys = np.full(cap, sentinel)
+        keys[np.sort(rng.permutation(cap)[:n_live])] = rng.integers(0, 5000, size=n_live,
+                                                                     dtype=np.uint64)
+        return keys
+
+    if shape == "one_live":
+        return np.array([12345], np.uint64)
+    if shape == "one_live_among_sentinels":
+        return live_among_sentinels(1, TILE + 3)
+    if shape == "all_equal":
+        return np.full(3 * TILE + 5, 99, np.uint64)
+    if shape == "all_sentinel":
+        return np.full(2 * TILE + 1, sentinel)
+    if shape.startswith("tile"):
+        return live_among_sentinels(TILE + {"tile_minus_1_live": -1, "tile_live": 0,
+                                            "tile_plus_1_live": 1}[shape], 2 * TILE)
+    if shape == "cap_not_tile_multiple":
+        pool = rng.integers(0, 2**64 - 1, size=700, dtype=np.uint64)
+        keys = pool[rng.integers(0, pool.size, size=5 * TILE + 11)]
+        keys[rng.random(keys.size) < 0.2] = sentinel
+        return keys
+    keys = rng.integers(0, 2**64 - 1, size=3 * TILE, dtype=np.uint64)   # all 8 digits
+    keys[: TILE] = keys[TILE: 2 * TILE]
+    keys[-5:] = np.uint64(2**63)
+    return keys
+
+
+@pytest.mark.parametrize("shape", EDGES)
+def test_sorted_spectrum_keys_mode_edges_match_jax(shape):
+    """The plain version that K5's keys mode is held to on the card, at the
+    onesweep sort's edge shapes (4 x 2^24 keys only on the card)."""
+    keyed = _edge_keys(shape)
+    jk, jc, jn = jspec.sorted_spectrum(jnp.asarray(keyed))
+    tk, tc, tn = tspec.sorted_spectrum(_t(keyed))
+    np.testing.assert_array_equal(_np_keys(tk), np.asarray(jk))
+    np.testing.assert_array_equal(_np_counts(tc), np.asarray(jc))
+    assert int(tn) == int(jn) == np.unique(keyed[keyed != jspec.SENTINEL]).size
+
+
+def _scratch_bytes(cap: int, passes: int, value_bytes: int) -> int:
+    """The onesweep scratch, laid out in bytes: two key buffers, two value
+    buffers (each padded to 8 bytes), uint32 histograms and 16 tile
+    counters, and a look-back word per tile for the compaction, the runs
+    and each digit of each pass."""
+    tiles = (cap + TILE - 1) // TILE
+    values = (cap * value_bytes + 7) // 8 * 8
+    return (2 * 8 * cap + 2 * values + 4 * passes * 256 + 4 * 16
+            + 8 * (2 * tiles + passes * tiles * 256))
+
+
+@pytest.mark.parametrize("cap", [1, TILE - 1, TILE, TILE + 1, 3 * TILE, (1 << 31) - 2])
+@pytest.mark.parametrize("passes,value_bytes", [(6, 0), (8, 0), (6, 4), (8, 8)])
+def test_onesweep_scratch_size(cap, passes, value_bytes):
+    got = tspec.onesweep_scratch(cap, passes, value_bytes)
+    assert got == _scratch_bytes(cap, passes, value_bytes)
+    assert got % 8 == 0
+    if cap % TILE == 0:      # one more key opens a tile: its look-back words
+        step = tspec.onesweep_scratch(cap + 1, passes, value_bytes) - got
+        assert step == 16 + (16 if value_bytes else 0) + 8 * (2 + 256 * passes)
+    assert tspec.sort_passes(46) == 6 and tspec.sort_passes(64) == 8
+    assert tspec.sort_passes(1) == 1 and tspec.sort_passes(8) == 1 and tspec.sort_passes(9) == 2
+
+
 def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
     packed, vbits = jcodec.pack_ascii_chunk(_chunk("mixed_alphabet"))
     got = tspec.spectrum23(_t(packed), _t(vbits), 23)

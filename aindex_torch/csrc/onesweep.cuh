@@ -46,7 +46,8 @@
 // reach 2^31); zero means "not yet" (see publish for the memory order).
 // Tiles at or past n return at once: no live tile looks back at them. The
 // live count stays on the device, so the host never waits inside a sort;
-// the grids are sized from the cap.
+// the grids are sized from the cap. A sort's look-back counts reach 2^31; a
+// caller's own sums may use all 62 bits.
 //
 // Bound: bytes. A pass moves 16 bytes a key (24 or 32 with a value), so a
 // 2^22-byte chunk's ~3.5M valid 23-mers cost ~57 MB a pass, 17 us at 3.35
@@ -56,7 +57,8 @@
 // held to 64 registers, four blocks an SM. Stability: the compaction keeps
 // input order, and each pass keeps the order of equal digits (lane order
 // within a warp row, rows in order, warps in order, tiles in order), which
-// the positional fill (K9) will need.
+// the positional fill (K9) needs: its keys are equal on the sorted bits
+// exactly where two windows share a slot.
 #pragma once
 
 #include "scan.cuh"
@@ -71,9 +73,11 @@ constexpr int ITEMS = 16;
 constexpr int WARP_ITEMS = 32 * ITEMS;
 constexpr int TILE = BLOCK * ITEMS;  // 4096 items a tile
 constexpr int MAX_PASSES = 8;
-constexpr int COUNTERS = 16;         // tile counters: compact, each pass, runs
+// counter words: the tile counters of the compaction, each pass and the
+// runs (or the launch after sort()), and, last, sort()'s live count
+constexpr int COUNTERS = 16;
 static_assert(BLOCK == RADIX, "one thread per digit");
-static_assert(MAX_PASSES + 2 <= COUNTERS, "a tile counter per launch");
+static_assert(MAX_PASSES + 2 < COUNTERS, "a tile counter per launch and the live count");
 
 constexpr unsigned long long AGGREGATE = 1ull << 62;
 constexpr unsigned long long INCLUSIVE = 1ull << 63;
@@ -90,13 +94,14 @@ inline int passes(int lo, int hi) { return (hi - lo + DIGIT_BITS - 1) / DIGIT_BI
 // passes, value_bytes) bytes (aindex_torch/kernels/spectrum.py
 // onesweep_scratch computes the same size): two key buffers of cap uint64,
 // two value buffers of cap values, then the words that one memset zeroes:
-// the digit histograms (passes x RADIX uint32), the tile counters and the
+// the digit histograms (passes x RADIX uint32), the counter words and the
 // status words of the compaction, the runs and each pass (tiles x RADIX).
 struct Scratch {
   unsigned long long* keys[2];
   void* vals[2];
   unsigned* hist;
   unsigned* counters;
+  int* live;  // sort()'s live count: the last counter word
   unsigned long long* st_compact;
   unsigned long long* st_runs;
   unsigned long long* st_pass;
@@ -126,6 +131,7 @@ inline Scratch carve(void* base, long long cap, int np, int value_bytes) {
   w += 2 * value_words(cap, value_bytes);
   sc.hist = reinterpret_cast<unsigned*>(w);
   sc.counters = sc.hist + np * RADIX;
+  sc.live = reinterpret_cast<int*>(sc.counters + COUNTERS - 1);
   sc.st_compact = w + np * RADIX / 2 + COUNTERS / 2;
   sc.st_runs = sc.st_compact + tiles(cap);
   sc.st_pass = sc.st_runs + tiles(cap);
@@ -164,17 +170,11 @@ __device__ unsigned long long look_back(const unsigned long long* status, long l
   }
 }
 
-// Publish a tile's count in a status column of one word a tile, look back
-// with the whole warp (32 words a round), publish the inclusive prefix;
-// every lane of the calling warp gets the exclusive prefix.
-__device__ unsigned long long warp_prefix(unsigned long long* status, long long tile,
-                                          unsigned long long count) {
+// The exclusive prefix of tile `tile` > 0 in a status column of one word a
+// tile, read by the whole warp, 32 words a round: the sum of the counts
+// back to the first inclusive word. Every lane gets it.
+__device__ unsigned long long warp_look_back(const unsigned long long* status, long long tile) {
   const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) publish(status, INCLUSIVE | count);
-    return 0;
-  }
-  if (lane == 0) publish(status + tile, AGGREGATE | count);
   unsigned long long excl = 0;
   for (long long newest = tile - 1;; newest -= 32) {
     // lane i reads tile newest - i; tiles below 0 read as an empty prefix
@@ -188,8 +188,22 @@ __device__ unsigned long long warp_prefix(unsigned long long* status, long long 
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
     excl += c;
-    if (incl) break;
+    if (incl) return excl;
   }
+}
+
+// Publish a tile's count in a status column of one word a tile, look back
+// with the whole warp, publish the inclusive prefix; every lane of the
+// calling warp gets the exclusive prefix.
+__device__ unsigned long long warp_prefix(unsigned long long* status, long long tile,
+                                          unsigned long long count) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) publish(status, INCLUSIVE | count);
+    return 0;
+  }
+  if (lane == 0) publish(status + tile, AGGREGATE | count);
+  const unsigned long long excl = warp_look_back(status, tile);
   if (lane == 0) publish(status + tile, INCLUSIVE | (excl + count));
   return excl;
 }
@@ -208,9 +222,10 @@ __device__ __forceinline__ long long take_tile(unsigned* counter, long long* slo
 // Compaction of cap items: src(p, key, value) says whether item p lives and
 // gives its key (and value). The live keys go to sc.keys[0] (values to
 // sc.vals[0]) in input order, their count to *n_out, and their digits of
-// the np passes on bits [lo, hi) to sc.hist. Each block also clears its
-// tile's range of the reduce's outputs (sentinel keys, zero sums), which
-// the runs launch fills. Grid: tiles(cap).
+// the np passes on bits [lo, hi) to sc.hist. Given reduce()'s outputs
+// (keys_out not null), each block also clears its tile's range of them
+// (sentinel keys, zero sums), which the runs launch fills. Grid:
+// tiles(cap).
 template <int VB, typename S, class Src>
 __global__ void __launch_bounds__(BLOCK)
     compact_kernel(Src src, long long cap, int lo, int hi, int np, Scratch sc, int* n_out,
@@ -249,10 +264,12 @@ __global__ void __launch_bounds__(BLOCK)
         atomicAdd(&s_hist[q * RADIX + digit(key[j], lo + q * DIGIT_BITS, hi)], 1u);
   }
   if (lane == 0) s_warp[warp] = count;
-  const long long end = tile * TILE + TILE < cap ? tile * TILE + TILE : cap;
-  for (long long i = tile * TILE + threadIdx.x; i < end; i += BLOCK) {
-    keys_out[i] = ~0ull;
-    sums_out[i] = S(0);
+  if (keys_out != nullptr) {
+    const long long end = tile * TILE + TILE < cap ? tile * TILE + TILE : cap;
+    for (long long i = tile * TILE + threadIdx.x; i < end; i += BLOCK) {
+      keys_out[i] = ~0ull;
+      sums_out[i] = S(0);
+    }
   }
   __syncthreads();
   if (warp == 0) {
@@ -522,6 +539,48 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// The passes of a sort on bits [lo, lo + DIGIT_BITS * np) below hi of the
+// *n_ptr keys in sc.keys[0] (values in sc.vals[0]), whose digit counts the
+// compaction left in sc.hist. *cur_out: the index of the buffer that holds
+// the sorted keys (and values). Returns the first CUDA error, or 0.
+template <int VB>
+int run_passes(const Scratch& sc, long long cap, int lo, int hi, int np, const int* n_ptr,
+               cudaStream_t s, int* cur_out) {
+  const unsigned grid = static_cast<unsigned>(tiles(cap));
+  int cur = 0;
+  for (int q = 0; q < np; ++q, cur ^= 1) {
+    pass_kernel<VB><<<grid, BLOCK, 0, s>>>(sc.keys[cur], sc.keys[cur ^ 1], sc.vals[cur],
+                                           sc.vals[cur ^ 1], n_ptr, lo + q * DIGIT_BITS, hi,
+                                           sc.hist + q * RADIX, sc.counters + 1 + q,
+                                           sc.st_pass + q * tiles(cap) * RADIX);
+    KERNEL_CHECK();
+  }
+  *cur_out = cur;
+  return 0;
+}
+
+// Compact cap items of src (keys alone) and sort the live ones stably on
+// bits [lo, hi): the live count goes to *sc.live, the sorted keys to
+// *sorted (sc.keys[passes % 2]), the other key buffer is free. sc: carve(.,
+// cap, passes(lo, hi), 0). 2 + passes launches, the memset included. The
+// runs launch's tile counter (sc.counters[1 + passes]) and status column
+// (sc.st_runs) are left zeroed for the caller's next launch.
+template <class Src>
+int sort(Src src, long long cap, int lo, int hi, const Scratch& sc, cudaStream_t s,
+         unsigned long long** sorted) {
+  if (cap <= 0 || cap >= (1LL << 31) - 1 || lo < 0 || lo >= hi || hi > 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int np = passes(lo, hi);
+  if (cudaError_t e = cudaMemsetAsync(sc.hist, 0, sc.zero_bytes, s)) return static_cast<int>(e);
+  compact_kernel<0, unsigned, Src><<<static_cast<unsigned>(tiles(cap)), BLOCK, 0, s>>>(
+      src, cap, lo, hi, np, sc, sc.live, nullptr, nullptr);
+  KERNEL_CHECK();
+  int cur;
+  if (int e = run_passes<0>(sc, cap, lo, hi, np, sc.live, s, &cur)) return e;
+  *sorted = sc.keys[cur];
+  return 0;
+}
+
 // Compact, sort on bits [0, bits) and run-length reduce cap items of src:
 // keys_out[cap] (unique keys ascending, then the sentinel), sums_out[cap]
 // (their counts or value sums, then 0), counters[0] the live count,
@@ -539,14 +598,8 @@ int reduce(Src src, long long cap, int bits, void* scratch, unsigned long long* 
   compact_kernel<VB, S, Src><<<grid, BLOCK, 0, s>>>(src, cap, 0, bits, np, sc, counters,
                                                      keys_out, sums_out);
   KERNEL_CHECK();
-  int cur = 0;
-  for (int q = 0; q < np; ++q, cur ^= 1) {
-    pass_kernel<VB><<<grid, BLOCK, 0, s>>>(sc.keys[cur], sc.keys[cur ^ 1], sc.vals[cur],
-                                           sc.vals[cur ^ 1], counters, q * DIGIT_BITS, bits,
-                                           sc.hist + q * RADIX, sc.counters + 1 + q,
-                                           sc.st_pass + q * tiles(cap) * RADIX);
-    KERNEL_CHECK();
-  }
+  int cur;
+  if (int e = run_passes<VB>(sc, cap, 0, bits, np, counters, s, &cur)) return e;
   runs_kernel<VB, S><<<grid, BLOCK, 0, s>>>(sc.keys[cur], sc.vals[cur], counters,
                                             sc.counters + 1 + np, sc.st_runs, keys_out,
                                             sums_out, counters + 1);

@@ -23,11 +23,17 @@
 // (0.375 bytes a base); each window writes an 8-byte slot, and the
 // buckets (n_dest * cap * 8 bytes, zeroed first) take one 8-byte record a
 // window; the sparse engines add their table rows (probe.cuh). Design:
-// the destination digit reuses the stable radix pass of the sort, so a
-// window's rank needs no sort at all.
-#include "fill.cuh"
+// the destination digit takes radix.cuh's histogram and a stable in-tile
+// ranking of its own, so a window's rank needs no sort at all.
+#include "probe.cuh"
+#include "radix.cuh"
+#include "scan.cuh"
 
 namespace {
+
+// in-chunk window offsets in the low bits of a record (fill.cuh's Records
+// reads them back on the receive side)
+constexpr int DELTA_BITS = 24;
 
 template <class E, int RULE>
 __global__ void bucket_slots(const unsigned* __restrict__ packed,
@@ -58,9 +64,10 @@ __global__ void bucket_slots(const unsigned* __restrict__ packed,
   }
 }
 
-// radix::radix_scatter's stable in-tile ranking, on the destination digit,
-// writing records instead of keys. hist: the exclusive scan of radix_hist's
-// [digit, tile] counts, so hist[d * n_tiles] is where destination d starts.
+// A stable in-tile ranking on the destination digit, writing records:
+// one warp a tile of radix::WARP_TILE windows, ranking equal digits with
+// __match_any_sync. hist: the exclusive scan of radix_hist's [digit, tile]
+// counts, so hist[d * n_tiles] is where destination d starts.
 __global__ void bucket_scatter(const unsigned long long* __restrict__ dest,
                                const long long* __restrict__ slots,
                                const int* __restrict__ n_ptr, long long n_tiles,
@@ -88,7 +95,7 @@ __global__ void bucket_scatter(const unsigned long long* __restrict__ dest,
                              hist[static_cast<long long>(d) * n_tiles];
       if (rank < cap)
         buckets[d * cap + rank] =
-            ((slots[i] + 1) << fill::DELTA_BITS) | static_cast<long long>(i);
+            ((slots[i] + 1) << DELTA_BITS) | static_cast<long long>(i);
       else
         atomicAdd(overflow, 1);
     }
@@ -166,8 +173,8 @@ extern "C" int posbucket(int engine, const void* const* p, const unsigned long l
   const long long n_win = 16 * n_words - k + 1;
   if (k < 1 || k > 31 || n_win <= 0 || n_win >= (1LL << 31) - 1 || n_slots <= 0 || m <= 0 ||
       (buckets != nullptr && (n_dest < 1 || n_dest >= radix::RADIX || cap <= 0 ||
-                              n_win > (1LL << fill::DELTA_BITS) ||
-                              n_slots >= (1LL << (63 - fill::DELTA_BITS)))))
+                              n_win > (1LL << DELTA_BITS) ||
+                              n_slots >= (1LL << (63 - DELTA_BITS)))))
     return probe::BAD;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (engine) {

@@ -19,7 +19,13 @@
 // window writes one 8-byte position, and each distinct slot reads its
 // 8-byte offset and reads and writes its 4-byte cursor; the sparse probe
 // adds one or two 8-byte table rows and a 4-byte slot per window. The
-// design (fill.cuh) spends about ten times that on its sort.
+// design (fill.cuh, on csrc/onesweep.cuh) spends most of its time in the
+// sort: each pass reads and writes every live key once (16 bytes a valid
+// window, four passes for the dense 13-mer slots, three for a sparse
+// index's), and the fill reads each sorted key once, reads an offset and a
+// cursor a run and writes the cursor back: 7 launches a dense chunk and 6
+// a sparse one. On the dense table (512 MB of offsets, 256 MB of cursors)
+// each of those and each position is a random 32-byte sector.
 #include "fill.cuh"
 
 DNA13_EXPORT_ERROR_STRING
@@ -30,30 +36,27 @@ DNA13_EXPORT_ERROR_STRING
 extern "C" int posfill(const void* const* p, const unsigned long long* u, const void* packed,
                        const void* vbits, long long n_words, int k, long long off, int rule,
                        long long n_slots, int slot_bits, int idx_bits, const void* offsets,
-                       void* cursor, void* positions, long long total, void* counters,
-                       void* keys_a, void* keys_b, void* idx, void* hist, void* sums,
+                       void* cursor, void* positions, long long total, void* scratch,
                        void* stream) {
   if (p == nullptr)
-    return fill::run<probe::Dense, probe::KEYS>(
-        probe::Dense{}, 16, packed, vbits, n_words, k, off, n_slots, slot_bits, idx_bits,
-        offsets, cursor, positions, total, counters, keys_a, keys_b, idx, hist, sums,
-        static_cast<cudaStream_t>(stream));
+    return fill::run<probe::Dense, probe::KEYS>(probe::Dense{}, 16, packed, vbits, n_words, k,
+                                                off, n_slots, slot_bits, idx_bits, offsets,
+                                                cursor, positions, total, scratch,
+                                                static_cast<cudaStream_t>(stream));
   return fill::sparse<probe::Quot>(p, u, packed, vbits, n_words, k, off, rule, n_slots,
                                    slot_bits, idx_bits, offsets, cursor, positions, total,
-                                   counters, keys_a, keys_b, idx, hist, sums, stream);
+                                   scratch, stream);
 }
 
 // rec int64[n_src, cols]: packed records ((slot + 1) << 24) | delta (packed
 // != 0) or slot ids (-1 for none); roff int64[n_src], each source's first
 // window position; this shard's slots are [lo, lo + n_slots), offsets and
 // cursor indexed from lo. The other arguments as fill::run takes them, for
-// n_src * cols keys.
+// n_src * cols items.
 extern "C" int posfill_pairs(const void* rec, long long n_src, long long cols, int packed,
                              const void* roff, long long lo, long long n_slots, int slot_bits,
                              int idx_bits, const void* offsets, void* cursor, void* positions,
-                             long long total, void* counters, void* keys_a, void* keys_b,
-                             void* idx, void* hist, void* sums, void* stream) {
+                             long long total, void* scratch, void* stream) {
   return fill::pairs(rec, n_src, cols, packed, roff, lo, n_slots, slot_bits, idx_bits, offsets,
-                     cursor, positions, total, counters, keys_a, keys_b, idx, hist, sums,
-                     static_cast<cudaStream_t>(stream));
+                     cursor, positions, total, scratch, static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,14 @@
-// Device-wide exclusive prefix sums, shared by spectrum23 (K5), csr (K8)
-// and posfill (K9).
+// Block and device-wide exclusive prefix sums, and the launch check every
+// host entry uses. block_exclusive_scan serves the onesweep passes
+// (onesweep.cuh); exclusive_scan serves posbucket (K14), an in-place scan
+// of its radix histogram.
 //
-// A scan of m items runs as three launches on one stream: each block of
-// SCAN_BLOCK threads reduces a tile of SCAN_TILE items to one sum; one
-// block scans the tile sums in steps of SUMS_BLOCK, carrying the running
-// total; each block then re-reads its tile and writes the exclusive
-// prefix of every item. The items are read twice and written once.
-// Templated on the item type read and the sum type written, so the same
-// code serves K5's in-place int scans and K8's uint32 -> int64 one.
+// A device-wide scan of m items runs as three launches on one stream: each
+// block of SCAN_BLOCK threads reduces a tile of SCAN_TILE items to one sum;
+// one block scans the tile sums in steps of SUMS_BLOCK, carrying the
+// running total; each block then re-reads its tile and writes the
+// exclusive prefix of every item. The items are read twice and written
+// once. Templated on the item type read and the sum type written.
 #pragma once
 
 #include "dna13.cuh"
@@ -124,18 +125,6 @@ int exclusive_scan(const In* in, Sum* out, long long m, Sum* sums, Sum* total, c
   scan_apply<In, Sum><<<static_cast<unsigned>(n_blocks), SCAN_BLOCK, 0, s>>>(in, out, m, sums);
   KERNEL_CHECK();
   return 0;
-}
-
-// Stream compaction: idx is the exclusive scan of n keep-flags (idx[n] the
-// total), and every kept in[p] goes to out[idx[p]], in order.
-__global__ void compact(const unsigned long long* __restrict__ in, const int* __restrict__ idx,
-                        long long n, unsigned long long* __restrict__ out) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < n;
-       p += step) {
-    const int at = idx[p];
-    if (idx[p + 1] != at) out[at] = in[p];
-  }
 }
 
 }  // namespace scan

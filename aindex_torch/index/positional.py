@@ -120,7 +120,7 @@ class PositionalIndex:
             scratch = None
             for packed, vbits, (off, done) in packed_chunks(chunk_iter, device):
                 if scratch is None and device.type == "cuda":
-                    scratch = fill_scratch(16 * packed.numel() - k + 1, device)
+                    scratch = fill_scratch(16 * packed.numel() - k + 1, n_slots, device)
                 posfill(positions, cursor, starts, packed, vbits, k, off, tables, scratch, rule)
                 if on_progress is not None:
                     on_progress(done)

@@ -108,9 +108,8 @@ _QUERY_ARGS = [_P, _P, _P, _P, _P, _I, _LL, _I, _P, _P, _P, _P]
 # coverage: p, u, packed, vbits, n_words, rows, stride, k, rule, cutoff, out, stream
 _COVERAGE_ARGS = [_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, ctypes.c_uint, _P, _P]
 # fill: p, u, packed, vbits, n_words, k, off, rule, n_slots, slot_bits, idx_bits,
-# offsets, cursor, positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
-_FILL_ARGS = [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P,
-              _P, _P, _P]
+# offsets, cursor, positions, total, scratch, stream
+_FILL_ARGS = [_P, _P, _P, _P, _LL, _I, _LL, _I, _LL, _I, _I, _P, _P, _P, _LL, _P, _P]
 
 
 def _probe_kernels(query: str, coverage: str, fill: str, source: str,
@@ -165,7 +164,7 @@ KERNELS: dict[str, Kernel] = {
         # p, u, ascii, rows, len, k, out, stream
         Kernel("quotcov23_rows", "quotcov23.cu", [_P, _P, _P, _LL, _LL, _I, _P, _P],
                "aindex_tpu/index/quotcuckoo.py:329"),
-        # tf, n, offsets, sums, stream
+        # tf, n, offsets, scratch, stream
         Kernel("csr_offsets", "csr.cu", [_P, _LL, _P, _P, _P],
                "aindex_tpu/index/positional.py:39"),
         Kernel("posfill", "posfill.cu", _FILL_ARGS, "aindex_tpu/index/positional.py:47"),
@@ -194,10 +193,10 @@ KERNELS: dict[str, Kernel] = {
                [_I, _P, _P, _I, _P, _P, _LL, _I, _LL, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P],
                "aindex_tpu/parallel/positional.py:133"),
         # rec, n_src, cols, packed, roff, lo, n_slots, slot_bits, idx_bits, offsets, cursor,
-        # positions, total, counters, keys_a, keys_b, idx, hist, sums, stream
+        # positions, total, scratch, stream
         Kernel("posfill_pairs", "posfill.cu",
-               [_P, _LL, _LL, _I, _P, _LL, _LL, _I, _I, _P, _P, _P, _LL, _P, _P, _P, _P, _P, _P,
-                _P], "aindex_tpu/parallel/positional.py:119"),
+               [_P, _LL, _LL, _I, _P, _LL, _LL, _I, _I, _P, _P, _P, _LL, _P, _P],
+               "aindex_tpu/parallel/positional.py:119"),
     )
 }
 

@@ -37,7 +37,8 @@ import torch
 from aindex_torch.kernels import _cuda, probe
 from aindex_torch.kernels.encode import as_unsigned, check_packed, packed_window_codes
 from aindex_torch.kernels.probe import CANON
-from aindex_torch.kernels.spectrum import INT32_LIMIT, SCAN_TILE, sort_scratch
+from aindex_torch.kernels.spectrum import (INT32_LIMIT, ONESWEEP_TILE, onesweep_scratch,
+                                           sort_passes)
 
 KERNEL_CSR = _cuda.KERNELS["csr_offsets"]
 KERNEL_FILL = _cuda.KERNELS["posfill"]
@@ -48,6 +49,10 @@ KERNEL_PAIRS = _cuda.KERNELS["posfill_pairs"]
 DELTA_BITS = 24
 #: posbucket's engine ids (csrc/posbucket.cu), by the engine's fill entry
 _ENGINE = {"posfill": 1, "cuckoofill64": 2, "mphffill": 3}
+#: K8 scans at most this many items a launch (csrc/csr.cu PIECE)
+CSR_PIECE = 1 << 30
+#: K14's radix histogram tile and scan tile (csrc/radix.cuh, csrc/scan.cuh)
+RADIX, WARP_TILE, SCAN_TILE = 256, 1024, 2048
 
 
 # -- K8 -----------------------------------------------------------------------
@@ -57,6 +62,13 @@ def csr_offsets_plain(tf: torch.Tensor) -> torch.Tensor:
     leading zero."""
     c = torch.cumsum(as_unsigned(tf), 0)
     return torch.cat([torch.zeros(1, dtype=torch.int64, device=tf.device), c])
+
+
+def csr_scratch_bytes(n: int) -> int:
+    """Bytes of K8's scratch for a table of ``n`` slots: a tile counter word
+    per launch (pieces of ``CSR_PIECE`` items), then a look-back word per
+    tile of ``ONESWEEP_TILE`` items; csrc/csr.cu carves the same layout."""
+    return 8 * (-(-n // CSR_PIECE) + -(-n // ONESWEEP_TILE))
 
 
 def csr_offsets(tf: torch.Tensor) -> torch.Tensor:
@@ -71,10 +83,13 @@ def csr_offsets(tf: torch.Tensor) -> torch.Tensor:
         return csr_offsets_plain(tf)
     dev = tf.device
     n = tf.numel()
+    if tf.data_ptr() % 16:           # the kernel reads 16-byte vectors
+        tf = tf.clone()
     out = torch.empty(n + 1, dtype=torch.int64, device=dev)
-    sums = torch.empty(max(1, -(-n // SCAN_TILE)), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(8, csr_scratch_bytes(n)), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        KERNEL_CSR.launch(tf.data_ptr(), n, out.data_ptr(), sums.data_ptr(), _cuda.stream(dev))
+        KERNEL_CSR.launch(tf.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
+                          _cuda.stream(dev))
     return out
 
 
@@ -122,29 +137,36 @@ def chunk_slots_plain(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=
     return slot, slot >= 0
 
 
-def fill_scratch(n_win: int, device) -> tuple[torch.Tensor, ...]:
-    """The scratch of K9 and K14 for chunks of up to ``n_win`` windows (or
-    records): (counters, keys_a, keys_b, idx, hist, sums). A build
-    allocates it once and passes it to every ``posfill``, ``posbucket`` and
-    ``posfill_pairs`` call."""
-    n_hist, n_sums = sort_scratch(n_win)
-
-    def ints(n):
-        return torch.empty(n, dtype=torch.int32, device=device)
-
-    return (ints(2), torch.empty(n_win, dtype=torch.int64, device=device),
-            torch.empty(n_win, dtype=torch.int64, device=device), ints(n_win + 1),
-            ints(n_hist), ints(n_sums))
-
-
 def _bits(n: int) -> int:
     """Bits that hold 0 .. n - 1 (at least one)."""
     return max(1, (n - 1).bit_length())
 
 
+def fill_scratch_bytes(n_win: int, n_slots: int) -> int:
+    """Bytes of the fill's scratch (K9, the K10/K11 fill entries) for up to
+    ``n_win`` windows (or records) of ``n_slots`` slots: the onesweep
+    sort's, keys alone, one pass per 8 slot bits (csrc/fill.cuh
+    sort_and_fill carves it)."""
+    return onesweep_scratch(n_win, sort_passes(_bits(n_slots)), 0)
+
+
+def fill_scratch(n_win: int, n_slots: int, device) -> torch.Tensor:
+    """The fill's scratch for chunks of up to ``n_win`` windows (or records)
+    of ``n_slots`` slots, one byte buffer. A build allocates it once and
+    passes it to every ``posfill`` or ``posfill_pairs`` call."""
+    return torch.empty(fill_scratch_bytes(n_win, n_slots), dtype=torch.uint8, device=device)
+
+
+def _check_fill_scratch(scratch: torch.Tensor, n: int, n_slots: int) -> None:
+    if scratch.dtype != torch.uint8 or scratch.numel() < fill_scratch_bytes(n, n_slots):
+        raise ValueError(f"scratch must be a uint8 tensor of at least "
+                         f"{fill_scratch_bytes(n, n_slots)} bytes for {n} items of "
+                         f"{n_slots} slots")
+
+
 def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor,
             packed: torch.Tensor, vbits: torch.Tensor, k: int, off: int, tables=None,
-            scratch: tuple[torch.Tensor, ...] | None = None, rule: int = CANON) -> None:
+            scratch: torch.Tensor | None = None, rule: int = CANON) -> None:
     """Fill one packed chunk's occurrences into the CSR: every valid window
     i, at blob position ``off + i``, with slot s (the forward code of a
     k <= 16 window when ``tables`` is None; otherwise the verified slot of
@@ -157,7 +179,8 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
 
     positions int64[total] and cursor int32[n_slots] are updated in place;
     offsets int64[n_slots] (the CSR offsets without their last entry);
-    ``scratch`` (``fill_scratch``) is allocated per call when not given.
+    ``scratch`` (``fill_scratch(n_win, n_slots)``) is allocated per call
+    when not given.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     engine's fill kernel (K9 dense or quotient, K10, K11)."""
@@ -195,20 +218,15 @@ def posfill(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor
         return
     dev = positions.device
     if scratch is None:
-        scratch = fill_scratch(n_win, dev)
-    counters, keys_a, keys_b, idx, hist, sums = scratch
-    n_hist, n_sums = sort_scratch(n_win)
-    if keys_a.numel() < n_win or idx.numel() < n_win + 1 or hist.numel() < n_hist \
-            or sums.numel() < n_sums:
-        raise ValueError(f"scratch too small for {n_win} windows")
+        scratch = fill_scratch(n_win, n_slots, dev)
+    _check_fill_scratch(scratch, n_win, n_slots)
     p, u = (None, None) if tables is None else probe.c_engine(tables)
     kernel = KERNEL_FILL if tables is None else _cuda.KERNELS[tables.FILL]
     with torch.cuda.device(dev):
         kernel.launch(
             p, u, packed.data_ptr(), vbits.data_ptr(), packed.numel(), k, off, rule,
             n_slots, slot_bits, idx_bits, offsets.data_ptr(), cursor.data_ptr(),
-            positions.data_ptr(), positions.numel(), *(t.data_ptr() for t in scratch),
-            _cuda.stream(dev))
+            positions.data_ptr(), positions.numel(), scratch.data_ptr(), _cuda.stream(dev))
 
 
 # -- K14 and K9's pairs-in entry: the mesh build's exchange ------------------------
@@ -234,6 +252,25 @@ def posbucket_plain(packed, vbits, k: int, tables=None, rule: int = CANON, n_slo
     return slot, buckets, overflow
 
 
+def _bucket_sizes(n_win: int) -> tuple[int, int]:
+    """int32 lengths (hist, sums) of K14's radix histogram of the
+    destination digit and of its scan's tile sums, for ``n_win`` windows."""
+    n_hist = RADIX * -(-n_win // WARP_TILE)
+    return n_hist, -(-n_hist // SCAN_TILE)
+
+
+def bucket_scratch(n_win: int, device) -> tuple[torch.Tensor, ...]:
+    """K14's scratch for chunks of up to ``n_win`` windows: (counters
+    int32[2], dest int64[n_win], hist, sums). A build allocates it once and
+    passes it to every ``posbucket`` call."""
+    n_hist, n_sums = _bucket_sizes(n_win)
+
+    def ints(n):
+        return torch.empty(n, dtype=torch.int32, device=device)
+
+    return ints(2), torch.empty(n_win, dtype=torch.int64, device=device), ints(n_hist), ints(n_sums)
+
+
 def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
               rule: int = CANON, n_slots: int = 0, m: int = 1, n_dest: int = 0, cap: int = 0,
               scratch: tuple[torch.Tensor, ...] | None = None):
@@ -248,7 +285,7 @@ def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
     and the count of windows that found their bucket full.
 
     Returns (slots int64[n_win], buckets int64[n_dest, cap] or None,
-    overflow int32 scalar tensor). ``scratch`` (``fill_scratch``) is
+    overflow int32 scalar tensor). ``scratch`` (``bucket_scratch``) is
     allocated per call when not given. A CPU tensor runs the plain
     version; a CUDA tensor launches K14."""
     check_packed(packed, vbits)
@@ -276,9 +313,9 @@ def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
         return posbucket_plain(packed, vbits, k, tables, rule, n_slots, m, n_dest, cap)
     dev = packed.device
     if scratch is None:
-        scratch = fill_scratch(n_win, dev)
-    counters, dest, _, _, hist, sums = scratch
-    n_hist, n_sums = sort_scratch(n_win)
+        scratch = bucket_scratch(n_win, dev)
+    counters, dest, hist, sums = scratch
+    n_hist, n_sums = _bucket_sizes(n_win)
     if dest.numel() < n_win or hist.numel() < n_hist or sums.numel() < n_sums:
         raise ValueError(f"scratch too small for {n_win} windows")
     slots = torch.empty(n_win, dtype=torch.int64, device=dev)
@@ -317,7 +354,7 @@ def posfill_pairs_plain(positions, cursor, offsets, rec, roff, lo: int, packed: 
 
 def posfill_pairs(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.Tensor,
                   rec: torch.Tensor, roff: torch.Tensor, lo: int, packed: bool = True,
-                  scratch: tuple[torch.Tensor, ...] | None = None) -> None:
+                  scratch: torch.Tensor | None = None) -> None:
     """Fill a data shard's slot range [lo, lo + len(cursor)) of the CSR from
     the exchange's records ``rec`` (int64[n_src, cols], row r from source
     r, whose first window lies at blob position ``roff[r]``): packed
@@ -328,8 +365,10 @@ def posfill_pairs(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.
     over the received (alltoall) or gathered (allgather) pairs.
 
     positions int64[seg] and cursor int32[n] are updated in place; offsets
-    int64[n] (the range's CSR offsets from its first cell). A CPU tensor
-    runs the plain version; a CUDA tensor launches K9's pairs-in entry."""
+    int64[n] (the range's CSR offsets from its first cell); ``scratch``
+    (``fill_scratch(n_src * cols, n)``) is allocated per call when not
+    given. A CPU tensor runs the plain version; a CUDA tensor launches K9's
+    pairs-in entry."""
     for name, t, dtype in (("positions", positions, torch.int64),
                            ("cursor", cursor, torch.int32), ("offsets", offsets, torch.int64),
                            ("roff", roff, torch.int64)):
@@ -354,15 +393,10 @@ def posfill_pairs(positions: torch.Tensor, cursor: torch.Tensor, offsets: torch.
         return
     dev = positions.device
     if scratch is None:
-        scratch = fill_scratch(n, dev)
-    _, keys_a, _, idx, hist, sums = scratch
-    n_hist, n_sums = sort_scratch(n)
-    if keys_a.numel() < n or idx.numel() < n + 1 or hist.numel() < n_hist \
-            or sums.numel() < n_sums:
-        raise ValueError(f"scratch too small for {n} records")
+        scratch = fill_scratch(n, n_slots, dev)
+    _check_fill_scratch(scratch, n, n_slots)
     with torch.cuda.device(dev):
         KERNEL_PAIRS.launch(
             rec.data_ptr(), rec.shape[0], rec.shape[1], int(packed), roff.data_ptr(), lo,
             n_slots, slot_bits, idx_bits, offsets.data_ptr(), cursor.data_ptr(),
-            positions.data_ptr(), positions.numel(), *(t.data_ptr() for t in scratch),
-            _cuda.stream(dev))
+            positions.data_ptr(), positions.numel(), scratch.data_ptr(), _cuda.stream(dev))

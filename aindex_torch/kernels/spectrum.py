@@ -43,26 +43,16 @@ SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 #: SENTINEL's bits as an int64
 SENTINEL_I64 = -1
 
-#: shapes of the scratch of the sort and the scans (csrc/radix.cuh,
-#: csrc/scan.cuh), which K9 and K14 use
+#: the onesweep sort's digit radix, tile and counter words
+#: (csrc/onesweep.cuh), which K5, K13 and the positional fill (K9, the
+#: K10/K11 fill entries) use
 RADIX = 256
-WARP_TILE = 1024
-SCAN_TILE = 2048
-#: the kernels index keys with int32
-INT32_LIMIT = (1 << 31) - 1
-#: the onesweep sort's tile and tile counters (csrc/onesweep.cuh), which K5
-#: and K13 use
 ONESWEEP_TILE = 4096
 ONESWEEP_COUNTERS = 16
+#: the kernels index keys with int32
+INT32_LIMIT = (1 << 31) - 1
 
 _I64_MIN = -(1 << 63)
-
-
-def sort_scratch(cap: int) -> tuple[int, int]:
-    """int32 lengths (hist, sums) of the radix sort's scratch for up to
-    ``cap`` keys, ``sums`` also serving the scans of ``cap + 1`` flags."""
-    n_hist = RADIX * -(-cap // WARP_TILE)
-    return n_hist, -(-max(cap + 1, n_hist) // SCAN_TILE)
 
 
 def sort_passes(bits: int) -> int:
@@ -74,7 +64,7 @@ def onesweep_scratch(cap: int, passes: int, value_bytes: int) -> int:
     """Bytes of the onesweep sort's scratch for up to ``cap`` keys sorted in
     ``passes`` passes, each key with a value of ``value_bytes`` (0, 4 or
     8): two key buffers, two value buffers, then the words one memset
-    zeroes (digit histograms, tile counters, the look-back words of the
+    zeroes (digit histograms, counter words, the look-back words of the
     compaction, the runs and each pass). csrc/onesweep.cuh
     ``scratch_bytes`` carves the same layout."""
     tiles = -(-cap // ONESWEEP_TILE)

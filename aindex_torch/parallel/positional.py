@@ -34,8 +34,8 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from aindex_torch.kernels.positional import (DELTA_BITS, csr_offsets, fill_scratch, posbucket,
-                                             posfill_pairs)
+from aindex_torch.kernels.positional import (DELTA_BITS, bucket_scratch, csr_offsets,
+                                             fill_scratch, posbucket, posfill_pairs)
 from aindex_torch.kernels.probe import CANON
 from aindex_torch.parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size, mesh_device
 
@@ -85,7 +85,7 @@ class ShardFill:
         if self.hi == self.lo:
             return
         if self.scratch is None and rec.is_cuda:
-            self.scratch = fill_scratch(rec.numel(), rec.device)
+            self.scratch = fill_scratch(rec.numel(), self.hi - self.lo, rec.device)
         posfill_pairs(self.positions, self.cursor, self.offsets, rec, roff, self.lo, packed,
                       self.scratch)
 
@@ -142,7 +142,7 @@ def build_positional_sharded(blob: np.ndarray, n_slots: int, tf, tables, mesh, k
                     return shard, None
                 cap = bucket_cap(stride, n_data)
                 if dev.type == "cuda":
-                    scratch = fill_scratch(16 * packed.numel() - k + 1, dev)
+                    scratch = bucket_scratch(16 * packed.numel() - k + 1, dev)
             # every source's first window: its row's place in the chunk grid
             roff = (b * n_data + torch.arange(n_data, device=dev)) * stride
             if step_mode == "alltoall":

@@ -57,7 +57,14 @@ Run from the repository root, with no arguments:
 10. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
    and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
    positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
-   from a nonzero cursor, beside ``torch.sort(stable=True)`` of its keys.
+   from a nonzero cursor, beside ``torch.sort(stable=True)`` of its keys;
+   then K8, K9's chunk entry (dense and quotient) and its pairs-in entry
+   exactly against their plain versions at the shapes where the one-pass
+   scan, the onesweep sort's tiles and the fill's run heads and cursors
+   could break (K8 at n = 0, 1, tile +- 1 and 4 x 2^24 values 2^32 - 1;
+   no valid window, one slot's run over five tiles, tile +- 1 valid
+   windows, a cursor that wraps, cells past the end, 64-bit keys, 4 x
+   2^24 records).
 11. Drives the positional path: ``pipeline.build_all`` on the corpus FASTA
    for k = 13 and k = 23 under the profiler (stage seconds, MB/s of bases,
    the device's idle share of the fill), then checks the artifacts against
@@ -75,7 +82,7 @@ Run from the repository root, with no arguments:
    no K6, K7 or K9 launch.
 13. Holds the configuration's engine kernels (K11 after k = 31, K10 after
    k = 29: query, coverage and fill) against their plain versions at the
-   path's shapes.
+   path's shapes, and the fill at step 10's edge shapes.
 14. Loads the reference-built tests/golden_ref sets through
    ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
    of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
@@ -98,13 +105,13 @@ Run from the repository root, with no arguments:
    dense k = 13 windows) and the pairs-in fill per destination, at one
    shard also against K9's fill of the same chunk. Each is timed at the
    world-of-one path's shape.
-17. Prints each onesweep row (K5, its ASCII entry, K13) beside its
-   radix.cuh time, and the rows that still sort with radix.cuh beside
-   their earlier times; then the kernels line (launch counts of steps 4,
-   6, 8, 11, 12 and 15, each path run with the counts set to 0 just
-   before it), the card line and the result line. The onesweep rows'
-   launches per call come from a torch.profiler trace of twenty calls in
-   a fresh process (``chip_smoke.py --onesweep-launches``).
+17. Prints the rows built on csrc/onesweep.cuh (K5, its ASCII entry, K13;
+   K8, K9's two entries, the K10 and K11 fills) and K14 beside their
+   earlier times, with their launches a call, from a torch.profiler trace
+   of twenty calls in a fresh process (``chip_smoke.py --launches``); then
+   the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
+   path run with the counts set to 0 just before it), the card line and
+   the result line.
 
 Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
@@ -334,13 +341,15 @@ def report(card, name, shape, rec):
           f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
 
 
-#: earlier chip_smoke times (ms) of the rows whose sort PR 8 redesigned
-#: (radix.cuh, PR 6 and 7 calls) and of the rows that still sort with
-#: radix.cuh (PR 6's second call), on NVIDIA H100 80GB HBM3, 700.00 W
-EARLIER_MS = {"spectrum23": 1.2555, "spectrum23_ascii": 1.3090, "spectrummerge": 1.8921,
-              "csr_offsets": 0.9505, "posfill": 1.1536, "cuckoofill64": 0.9572,
-              "mphffill": 1.0151, "posbucket": 0.3960, "posfill_pairs": 1.1968}
-ONESWEEP_ROWS = ("spectrum23", "spectrum23_ascii", "spectrummerge")
+#: earlier chip_smoke times (ms) on NVIDIA H100 80GB HBM3, 700.00 W,
+#: before the fill and the CSR scan moved onto the onesweep sort: the
+#: onesweep rows (K5, its ASCII entry, K13), and the rows on the
+#: positional build's fill and scan (K8, K9's two entries, the K10/K11
+#: fills: radix.cuh's LSD sort and scan.cuh's three-launch scan then; K14,
+#: which keeps radix.cuh's histogram)
+EARLIER_MS = {"spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
+              "csr_offsets": 0.9529, "posfill": 1.1459, "cuckoofill64": 0.9480,
+              "mphffill": 1.0131, "posbucket": 0.3925, "posfill_pairs": 1.1928}
 
 
 def launches_per_call(fn, calls: int = 20) -> float:
@@ -359,21 +368,27 @@ def launches_per_call(fn, calls: int = 20) -> float:
     return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()) / calls
 
 
+def coverage1_chunk() -> np.ndarray:
+    """The first 2^22 bytes of a coverage-1 corpus of make_scale_corpus.py's
+    genome, one read and a newline a line."""
+    _, reads = scale_corpus(1.0, 1)
+    n_rows = CHUNK_BYTES // (READ_LEN + 1) + 1
+    return np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]
+                     ).ravel()[:CHUNK_BYTES]
+
+
 def onesweep_calls(dev) -> dict:
     """The onesweep rows at their paths' shapes, on one 2^22-byte chunk of
-    a coverage-1 corpus of make_scale_corpus.py's genome: name -> (kernel
-    call, plain call). K13 merges the chunk's spectrum over the whole key
-    range, as the world-of-one mesh path does."""
+    a coverage-1 corpus: name -> (kernel call, plain call). K13 merges the
+    chunk's spectrum over the whole key range, as the world-of-one mesh
+    path does."""
     import torch
     from aindex_torch.core import codec
     from aindex_torch.kernels.spectrum import (chunk_spectrum, chunk_spectrum_plain,
                                                sorted_spectrum_weighted,
                                                sorted_spectrum_weighted_plain, spectrum23,
                                                spectrum23_plain)
-    _, reads = scale_corpus(1.0, 1)
-    n_rows = CHUNK_BYTES // (READ_LEN + 1) + 1
-    chunk = np.hstack([reads[:n_rows], np.full((n_rows, 1), ord("\n"), np.uint8)]
-                      ).ravel()[:CHUNK_BYTES]
+    chunk = coverage1_chunk()
     packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
     ascii_chunk = torch.from_numpy(chunk).to(dev)
     keys, counts, _ = spectrum23_plain(packed, vbits, K23)
@@ -389,39 +404,112 @@ def onesweep_calls(dev) -> dict:
     }
 
 
-LAUNCHES_FLAG = "--onesweep-launches"
+def fill_state(dev, live, n_slots: int, seed: int):
+    """(cursor int32[n_slots], offsets int64[n_slots], total) for a fill of
+    the live slots ``live`` from a seeded cursor in 0..3: each slot has room
+    for its cursor and its windows, so no two writes meet."""
+    import torch
+    from aindex_torch.kernels.positional import csr_offsets_plain
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cursor = torch.randint(0, 4, (n_slots,), dtype=torch.int32, device=dev, generator=gen)
+    tf = torch.bincount(live, minlength=n_slots).to(torch.int32) + cursor
+    offsets = csr_offsets_plain(tf)
+    return cursor, offsets[:-1].contiguous(), int(offsets[-1])
 
 
-def onesweep_launches() -> dict[str, float]:
-    """Launches a call of the onesweep rows, traced in a fresh process:
-    traces taken late in this one (after the paths' long traces and the
-    NCCL group) came back short of device events."""
+def fill_pair(dev, fill, plain, cursor, offsets, total):
+    """(kernel call, plain call) of a fill from ``cursor``: each call runs
+    on its own work buffers, which carry the cursor on from call to call
+    (the work a call does stays the same), and returns them."""
+    import torch
+    works = [(torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+             for _ in range(2)]
+
+    def call(f, w):
+        def run():
+            f(*w, offsets)
+            return w
+        return run
+    return call(fill, works[0]), call(plain, works[1])
+
+
+def fill_calls(dev) -> dict:
+    """The rows on the positional build's fill and scan at their paths'
+    shapes, on the chunk of ``onesweep_calls``: K8 on its 4^13 dense counts,
+    K9 on the chunk (k = 13) from a seeded cursor, its pairs-in entry on
+    the chunk's k = 31 windows as one source's slot ids, and the K10 and
+    K11 fills on the chunk over engines built from the chunk itself (k =
+    29 and 31: the wide cuckoo table and the MPHF walk): name -> (kernel
+    call, plain call), each fill call on work buffers of its own."""
+    import torch
+    from aindex_torch import Sparse23Index
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.positional import (chunk_slots_plain, csr_offsets,
+                                                 csr_offsets_plain, fill_scratch, posfill,
+                                                 posfill_pairs, posfill_pairs_plain,
+                                                 scatter_chunk_plain)
+    chunk = coverage1_chunk()
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
+    tf = torch.bincount(chunk_slots_plain(packed, vbits, K)[0], minlength=SPACE)
+    tf = tf.to(torch.int32).view(torch.uint32)
+    calls = {"csr_offsets": (lambda: (csr_offsets(tf),), lambda: (csr_offsets_plain(tf),))}
+
+    def chunk_fill(name, k, tables, rule, n_slots, seed):
+        slots, valid = chunk_slots_plain(packed, vbits, k, tables, rule)
+        cursor, offsets, total = fill_state(dev, slots[valid], n_slots, seed)
+        scratch = fill_scratch(16 * packed.numel() - k + 1, n_slots, dev)
+        pos = torch.arange(slots.numel(), device=dev) + CHUNK_BYTES
+        calls[name] = fill_pair(
+            dev, lambda p, c, o: posfill(p, c, o, packed, vbits, k, CHUNK_BYTES, tables,
+                                         scratch, rule),
+            lambda p, c, o: scatter_chunk_plain(p, c, o, slots, pos, valid),
+            cursor, offsets, total)
+
+    chunk_fill("posfill", K, None, 1, SPACE, 91)
+    for k in (29, 31):
+        index = Sparse23Index.build_from_blob(chunk, k=k, device=dev)
+        chunk_fill(index.tables.FILL, k, index.tables, index.rule, index.n, 92 + k)
+        if k == 31:
+            rec = chunk_slots_plain(packed, vbits, k, index.tables, index.rule)[0][None]
+            roff = torch.tensor([CHUNK_BYTES], device=dev)
+            cursor, offsets, total = fill_state(dev, rec[rec >= 0], index.n, 97)
+            scratch = fill_scratch(rec.numel(), index.n, dev)
+            calls["posfill_pairs"] = fill_pair(
+                dev, lambda p, c, o: posfill_pairs(p, c, o, rec, roff, 0, False, scratch),
+                lambda p, c, o: posfill_pairs_plain(p, c, o, rec, roff, 0, False),
+                cursor, offsets, total)
+    check(set(calls) == {"csr_offsets", "posfill", "cuckoofill64", "mphffill",
+                         "posfill_pairs"}, f"fill rows {sorted(calls)} at k = 29 and 31")
+    return calls
+
+
+LAUNCHES_FLAG = "--launches"
+#: the rows whose launches a call the fresh process counts
+LAUNCH_ROWS = ("spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
+               "posfill_pairs", "cuckoofill64", "mphffill")
+
+
+def fresh_launches() -> dict[str, float]:
+    """Launches a call of LAUNCH_ROWS, traced in a fresh process: traces
+    taken late in this one (after the paths' long traces and the NCCL
+    group) came back short of device events."""
     out = subprocess.run([sys.executable, os.path.abspath(__file__), LAUNCHES_FLAG],
                          capture_output=True, text=True, timeout=600, check=True).stdout
     return json.loads(out.strip().splitlines()[-1])
 
 
-def onesweep_launches_main() -> int:
-    """The fresh process of onesweep_launches: each row checked against
-    its plain version, then traced."""
+def fresh_launches_main() -> int:
+    """The fresh process of fresh_launches: each row's first call checked
+    against its plain version's, then twenty calls traced."""
     import torch
     dev = torch.device("cuda", 0)
     launches = {}
-    for name, (fn, plain) in onesweep_calls(dev).items():
+    for name, (fn, plain) in {**onesweep_calls(dev), **fill_calls(dev)}.items():
         max(max_abs_err(a, b) for a, b in zip(fn(), plain()))
         launches[name] = launches_per_call(fn)
+    check(set(launches) == set(LAUNCH_ROWS), f"launch rows {sorted(launches)}")
     print(json.dumps(launches))
     return 0
-
-
-def report_onesweep(card, name, rec, launches) -> None:
-    """A redesigned row's time beside its radix.cuh time, the library call
-    and the bound, with its launches per call."""
-    rec["launches_per_call"] = launches
-    print(f"onesweep {name}: {rec['ms']:.4f} ms, {launches:.2f} launches a call; "
-          f"radix.cuh {EARLIER_MS[name]:.4f} ms ({EARLIER_MS[name] / rec['ms']:.2f}x); "
-          f"library {rec['library_ms']:.4f} ms (kernel/library {rec['ms'] / rec['library_ms']:.2f}x); "
-          f"bound {rec['bound_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms ({card})")
 
 
 def distinct_probed_rows(t, keys) -> int:
@@ -1436,7 +1524,7 @@ def positional_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, in
         total = int(offsets[-1])
         got = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
         ref = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
-        scratch = fill_scratch(16 * packed.numel() - k + 1, dev)
+        scratch = fill_scratch(16 * packed.numel() - k + 1, n_slots, dev)
         posfill(*got, offsets[:-1], packed, vbits, k, off, tables, scratch)
         scatter_chunk_plain(*ref, offsets[:-1], slots,
                             torch.arange(slots.numel(), device=dev) + off, valid)
@@ -1471,6 +1559,169 @@ def positional_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, in
         del got, ref, work, scratch, cursor, tf, offsets
     res["posfill"] = {**k9[0], "max_abs_err": max(r["max_abs_err"] for r in k9)}
     return res
+
+
+def fill_edge_checks(dev, reads: np.ndarray, k: int, tables, rule: int, n_slots: int
+                     ) -> list[str]:
+    """Hold one chunk fill (K9 dense or on the quotient table, or the K10 or
+    K11 fill entry) to its plain version, exactly, at the shapes where the
+    fill's tiles, runs and cursor could break, each chunk filled twice in a
+    row (the second from the first's cursor): no valid window; poly-A over
+    five 4096-key tiles (one slot holds every window, dense); one read
+    repeated over five tiles; tile - 1, tile, tile + 1 and 3 tiles + 1
+    valid windows; a cursor of 2^31 - 2 on every other slot (those wrap,
+    their cells past the end dropped); cells past the end. Returns the
+    shapes' tags."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.positional import (chunk_slots_plain, fill_scratch, posfill,
+                                                 scatter_chunk_plain)
+    from aindex_torch.kernels.spectrum import ONESWEEP_TILE as tile
+    line = READ_LEN + 1
+    corpus = corpus_blob(reads[:-(-5 * tile // (line - k + 1)) + 2])
+    repeated = np.tile(corpus[:line], -(-5 * tile // (line - k + 1)))
+    gen = torch.Generator(device=dev).manual_seed(k)
+
+    def cut(v):
+        """A corpus piece with exactly v valid windows, N after them."""
+        packed, vbits = upload(dev, *codec.pack_ascii_chunk(corpus))
+        valid = chunk_slots_plain(packed, vbits, k, tables, rule)[1]
+        last = int(torch.nonzero(valid).reshape(-1)[v - 1])
+        piece = np.full(last + k + 300, ord("N"), np.uint8)
+        piece[:last + k] = corpus[:last + k]
+        return piece
+
+    shapes = [("no valid window", np.full(3000, ord("N"), np.uint8), "small", 0),
+              ("poly-A over 5 tiles", np.full(5 * tile + k + 3, ord("A"), np.uint8), "small", 0),
+              ("one read repeated over 5 tiles", repeated, "small", 0),
+              *((f"{v} valid windows", cut(v), "small", 0)
+                for v in (tile - 1, tile, tile + 1, 3 * tile + 1)),
+              ("cursor 2^31 - 2 on every other slot", corpus[:3 * tile], "big", 0),
+              ("1000 cells past the end", corpus[:3 * tile], "small", 1000)]
+    tags = []
+    for tag, piece, cursor_mode, drop in shapes:
+        packed, vbits = upload(dev, *codec.pack_ascii_chunk(piece))
+        n_win = 16 * packed.numel() - k + 1
+        slots, valid = chunk_slots_plain(packed, vbits, k, tables, rule)
+        counts = torch.bincount(slots[valid], minlength=n_slots).to(torch.int64)
+        if cursor_mode == "big":
+            cursor = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+            cursor[::2] = 2 ** 31 - 2
+            tf = 2 * counts
+        else:
+            cursor = torch.randint(0, 4, (n_slots,), dtype=torch.int32, device=dev,
+                                   generator=gen)
+            tf = 2 * counts + cursor
+        offsets = (torch.cumsum(tf, 0) - tf).contiguous()
+        total = max(1, int(tf.sum()) - drop)
+        got = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+        ref = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
+        scratch = fill_scratch(n_win, n_slots, dev)
+        for off in (5, 5 + n_win):
+            posfill(*got, offsets, packed, vbits, k, off, tables, scratch, rule)
+            scatter_chunk_plain(*ref, offsets, slots, torch.arange(n_win, device=dev) + off,
+                                valid)
+            max(max_abs_err(a, b) for a, b in zip(got, ref))
+        if cursor_mode == "big" and bool(valid.any()):
+            check(int(got[1].min()) < 0, "the cursor wrapped")
+        tags.append(f"{tag} ({int(valid.sum())} valid)")
+        del got, ref, cursor, tf, offsets, counts, scratch
+    torch.cuda.empty_cache()
+    return tags
+
+
+def fill_edges_vs_plain(dev, card: str, reads: np.ndarray, index) -> None:
+    """K8, K9's chunk entry (dense k = 13 and on the k = 23 quotient table)
+    and its pairs-in entry against their plain versions on the card,
+    exactly, at the shapes where the one-pass scan, the onesweep sort's
+    tiles and the fill's run heads and cursors could break: K8 at n = 0, 1,
+    tile - 1, tile, tile + 1 and 3 tiles + 5, random and every value 2^32 -
+    1, and on 4 x 2^24 values 2^32 - 1 (a sum near 2^58); the chunk fills
+    at fill_edge_checks' shapes; the pairs-in entry on packed records (some
+    empty) and slot ids (-1, other shards' slots), one slot's run over five
+    tiles, every record its own slot, keys of slot_bits + idx_bits = 64
+    bits (the C entry called with wider index or slot fields than needed)
+    and 4 x 2^24 records."""
+    import torch
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.kernels.positional import (csr_offsets, csr_offsets_plain, fill_scratch,
+                                                 posfill_pairs, posfill_pairs_plain)
+    from aindex_torch.kernels.spectrum import ONESWEEP_TILE as tile
+    from aindex_torch.kernels.spectrum import onesweep_scratch, sort_passes
+    rng = np.random.default_rng(83)
+    t0 = time.perf_counter()
+    for n in (0, 1, tile - 1, tile, tile + 1, 3 * tile + 5, N_CODES):
+        for values in ("random", "max"):
+            if n == N_CODES and values == "random":
+                continue
+            host = (np.full(n, 2 ** 32 - 1, np.uint32) if values == "max" else
+                    rng.integers(0, 2 ** 32, size=n, dtype=np.uint64).astype(np.uint32))
+            tf = torch.from_numpy(host.view(np.int32)).to(dev).view(torch.uint32)
+            got = csr_offsets(tf)
+            max_abs_err(got, csr_offsets_plain(tf))
+            check(n == 0 or values != "max" or int(got[-1]) == n * (2 ** 32 - 1),
+                  "K8's total of 2^32 - 1 values")
+    # a table that starts off a 16-byte boundary (the wrapper copies it)
+    tf = torch.arange(tile + 3, dtype=torch.int32, device=dev)[1:].view(torch.uint32)
+    max_abs_err(csr_offsets(tf), csr_offsets_plain(tf))
+    print(f"K8 edge shapes (n = 0, 1, tile - 1, tile, tile + 1, 3 tiles + 5, random and all "
+          f"2^32 - 1; {N_CODES} x 2^32 - 1; an unaligned table) == plain "
+          f"({time.perf_counter() - t0:.1f} s, {card})")
+
+    for k, tables, n_slots, kind in ((K, None, SPACE, "dense k=13"),
+                                     (K23, index.tables, index.n, "quotient k=23")):
+        t0 = time.perf_counter()
+        tags = fill_edge_checks(dev, reads, k, tables, index.rule, n_slots)
+        print(f"K9 {kind} edge shapes == plain: {'; '.join(tags)} "
+              f"({time.perf_counter() - t0:.1f} s, {card})")
+
+    def pairs(tag, rec, n_slots, lo=0, packed=False, bits=None):
+        rec = torch.from_numpy(rec).to(dev)
+        roff = torch.arange(rec.shape[0], dtype=torch.int64, device=dev) * (1 << 26) + 3
+        slot = (rec >> 24) - 1 if packed else rec
+        live = slot[(slot >= lo) & (slot < lo + n_slots)] - lo
+        counts = torch.bincount(live, minlength=n_slots).to(torch.int64)
+        offsets = (torch.cumsum(2 * counts, 0) - 2 * counts).contiguous()
+        total = max(1, 2 * int(counts.sum()))
+        fills = [(torch.zeros(total, dtype=torch.int64, device=dev),
+                  torch.zeros(n_slots, dtype=torch.int32, device=dev)) for _ in range(2)]
+        for _ in range(2):
+            if bits is None:
+                posfill_pairs(*fills[0], offsets, rec, roff, lo, packed)
+            else:
+                slot_bits, idx_bits = bits
+                scratch = torch.empty(onesweep_scratch(rec.numel(), sort_passes(slot_bits), 0),
+                                      dtype=torch.uint8, device=dev)
+                with torch.cuda.device(dev):
+                    _cuda.KERNELS["posfill_pairs"].launch(
+                        rec.data_ptr(), rec.shape[0], rec.shape[1], int(packed),
+                        roff.data_ptr(), lo, n_slots, slot_bits, idx_bits, offsets.data_ptr(),
+                        fills[0][1].data_ptr(), fills[0][0].data_ptr(), total,
+                        scratch.data_ptr(), _cuda.stream(dev))
+            posfill_pairs_plain(*fills[1], offsets, rec, roff, lo, packed)
+            max(max_abs_err(a, b) for a, b in zip(*fills))
+        return f"{tag} ({rec.numel()} records, {live.numel()} live)"
+
+    t0 = time.perf_counter()
+    n_rec = 3 * tile + 17
+    slot_ids = rng.integers(-1, 3000, size=(3, n_rec)).astype(np.int64)
+    deltas = np.sort(rng.permutation(1 << 20)[:2 * n_rec].reshape(2, n_rec), axis=1)
+    packed_rec = ((rng.integers(0, 2500, size=(2, n_rec)) + 1) << 24) | deltas
+    packed_rec[:, rng.random(n_rec) < 0.3] = 0
+    tags = [pairs("slot ids, -1 and other shards' slots", slot_ids, 1000, lo=1000),
+            pairs("packed, empty records", packed_rec.astype(np.int64), 2500, packed=True),
+            pairs("packed, a shard's range", packed_rec.astype(np.int64), 700, lo=900,
+                  packed=True),
+            pairs("one slot over 5 tiles", np.full((1, 5 * tile + 3), 7, np.int64), 10),
+            pairs("every record its own slot",
+                  rng.permutation(2 * n_rec).astype(np.int64).reshape(2, n_rec), 2 * n_rec),
+            pairs("10 slot + 54 index bits", slot_ids, 1000, bits=(10, 54)),
+            pairs("50 slot + 14 index bits", slot_ids[:1, :tile], 3000, bits=(50, 14)),
+            pairs(f"4 x 2^24 slot ids over {index.n} slots",
+                  rng.integers(-1, index.n, size=(4, 1 << 24)).astype(np.int64), index.n)]
+    print(f"K9 pairs-in edge shapes == plain: {'; '.join(tags)} "
+          f"({time.perf_counter() - t0:.1f} s, {card})")
+    torch.cuda.empty_cache()
 
 
 # -- phase 11: the positional path end to end ----------------------------------
@@ -1858,7 +2109,7 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     total = int(offsets[-1])
     got = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
     ref = (torch.zeros(total, dtype=torch.int64, device=dev), cursor.clone())
-    scratch = fill_scratch(16 * packed.numel() - k + 1, dev)
+    scratch = fill_scratch(16 * packed.numel() - k + 1, index.n, dev)
     posfill(*got, offsets[:-1], packed, vbits, k, off, t, scratch, index.rule)
     scatter_chunk_plain(*ref, offsets[:-1], slots, torch.arange(slots.numel(), device=dev) + off,
                         valid)
@@ -1882,6 +2133,11 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     report(card, f_name, f"corpus chunk 2^22 B at {off}, k={k}, {n_valid} valid windows, "
            f"{n_distinct} slots", rec)
     res[f_name] = rec
+    del got, ref, work, scratch, cursor, tf, offsets
+    t0 = time.perf_counter()
+    tags = fill_edge_checks(dev, reads, k, t, index.rule, index.n)
+    print(f"{f_name} edge shapes == plain: {'; '.join(tags)} "
+          f"({time.perf_counter() - t0:.1f} s, {card})")
     return res
 
 
@@ -2290,9 +2546,9 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.kernels import probe
     from aindex_torch.kernels.lookup import (MphfTables, shard_owner, shard_owner_plain,
                                              shard_verify, shard_verify_plain)
-    from aindex_torch.kernels.positional import (chunk_slots_plain, fill_scratch, posbucket,
-                                                 posbucket_plain, posfill, posfill_pairs,
-                                                 posfill_pairs_plain)
+    from aindex_torch.kernels.positional import (bucket_scratch, chunk_slots_plain,
+                                                 fill_scratch, posbucket, posbucket_plain,
+                                                 posfill, posfill_pairs, posfill_pairs_plain)
     from aindex_torch.kernels.spectrum import (chunk_spectrum_packed, merge_spectra,
                                                sorted_spectrum_weighted,
                                                sorted_spectrum_weighted_plain)
@@ -2467,7 +2723,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     print("K14 dense k=13 at 2 shards == plain")
     # timed at the path's shape: one shard, the corpus chunk
     cap = bucket_cap(n_win, 1)
-    scratch = fill_scratch(n_win, dev)
+    scratch = bucket_scratch(n_win, dev)
     args = (*ups[0], K23, tables, probe.CANON, index.n, index.n, 1, cap)
     slots, buckets, _ = posbucket(*args, scratch)
     ms = cuda_ms(lambda: posbucket(*args, scratch), 20)
@@ -2489,7 +2745,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     work = (torch.zeros(int(offsets[-1]), dtype=torch.int64, device=dev),
             torch.zeros(index.n, dtype=torch.int32, device=dev))
     loc = torch.from_numpy(offsets[:-1]).to(dev)
-    pscratch = fill_scratch(buckets.numel(), dev)
+    pscratch = fill_scratch(buckets.numel(), index.n, dev)
     ms = cuda_ms(lambda: posfill_pairs(*work, loc, buckets, roff, 0, True, pscratch), 20)
     pms = cuda_ms(lambda: posfill_pairs_plain(*work, loc, buckets, roff, 0), 3)
     idx_bits = max(1, (buckets.numel() - 1).bit_length())
@@ -2509,7 +2765,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if sys.argv[1:] == [LAUNCHES_FLAG]:
-        return onesweep_launches_main()
+        return fresh_launches_main()
     from aindex_torch.kernels import _cuda
 
     dev = torch.device("cuda", 0)
@@ -2589,6 +2845,9 @@ def main() -> int:
         t0 = time.perf_counter()
         measured.update(positional_vs_plain(dev, card, reads, table, index))
         print(f"phase positional kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fill_edges_vs_plain(dev, card, reads, index)
+        print(f"phase fill and scan edge shapes: {time.perf_counter() - t0:.1f} s")
         del index
         torch.cuda.empty_cache()
 
@@ -2626,16 +2885,18 @@ def main() -> int:
     for name in _cuda.KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on its main path")
     t0 = time.perf_counter()
-    for name, launches in onesweep_launches().items():
-        report_onesweep(card, name, measured[name], launches)
-    print(f"phase onesweep launches (a fresh process): {time.perf_counter() - t0:.1f} s")
+    launches = fresh_launches()
+    print(f"phase launches a call (a fresh process): {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     for name, ms in EARLIER_MS.items():
         rec = measured[name]
-        calls = (f", {rec.pop('launches_per_call'):.2f} launches a call" if name in ONESWEEP_ROWS
-                 else "")
-        print(f"{name}: {rec['ms']:.4f} ms now, {ms:.4f} ms earlier ({rec['ms'] / ms - 1:+.1%})"
-              f"{calls}")
+        calls = f", {launches[name]:.2f} launches a call" if name in launches else ""
+        lib = ("" if rec["library_ms"] is None else
+               f"; library {rec['library_ms']:.4f} ms (kernel/library "
+               f"{rec['ms'] / rec['library_ms']:.2f}x)")
+        print(f"{name}: {rec['ms']:.4f} ms now, {ms:.4f} ms earlier "
+              f"({rec['ms'] / ms - 1:+.1%}){calls}{lib}; bound {rec['bound_ms']:.4f} ms "
+              f"({card})")
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda",

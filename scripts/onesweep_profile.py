@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Per-launch device times of the onesweep kernels (csrc/onesweep.cuh) at the
+"""Per-launch device times of the kernels built on csrc/onesweep.cuh at the
 shape of one ingest chunk, on one CUDA card.
 
     python3 scripts/onesweep_profile.py [--edges]
 
 Builds the kernels, takes chip_smoke.py's ``onesweep_calls`` (K5's packed
 and ASCII entries and K13 on a 2^22-byte chunk of a coverage-1 corpus of
-scripts/make_scale_corpus.py's genome), checks each against its plain
-version, and prints its CUDA-event time a call, its launches a call and
-the torch.profiler device time of each of its launches (memset,
-compaction, passes, runs). ``--edges`` first runs chip_smoke.py's
-edge-shape checks of the sort. Exits nonzero without a card.
+scripts/make_scale_corpus.py's genome) and ``fill_calls`` (K8 on that
+chunk's 4^13 counts; K9's chunk and pairs-in entries and the K10 and K11
+fills on the same chunk), checks each against its plain version, and
+prints its CUDA-event time a call, its launches a call and the
+torch.profiler device time of each of its launches (memset, compaction,
+passes, runs or fill, scan). ``--edges`` first runs
+chip_smoke.py's edge-shape checks of the sort. Exits nonzero without a
+card.
 """
 
 import os
@@ -34,7 +37,7 @@ def main() -> int:
     print(f"kernels built in {_cuda.build_all():.1f} s")
     if "--edges" in sys.argv:
         c.sort_edges_vs_plain(dev, card)
-    calls = c.onesweep_calls(dev)
+    calls = {**c.onesweep_calls(dev), **c.fill_calls(dev)}
     for name, (fn, plain) in calls.items():
         err = max(c.max_abs_err(a, b) for a, b in zip(fn(), plain()))
         ms = c.cuda_ms(fn, 50)

@@ -2,15 +2,18 @@
 fastq reads files, stats), the rules the port keeps (no JAX, no quiet CPU
 fallback, no build at import), and chip_smoke.py's corpus and oracle."""
 
+import ctypes
 import glob
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from aindex_tpu import native as jnative
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.core import reads as jreads
 from aindex_tpu.core import stats as jstats
@@ -23,6 +26,39 @@ from aindex_torch.io import fastq as tfastq
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 ALPHABET = np.frombuffer(b"ACGTACGTacgtN~\n", dtype=np.uint8)
+
+
+#: how long a test waits for another process's first build of aindex_tpu's
+#: native library
+NATIVE_WAIT_S = 120
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    """aindex_tpu's native library, loaded in this process. Its first build
+    compiles straight onto native/libaindex_host.so (aindex_tpu/native.py
+    ``_compile``), and a process that opens the file while another
+    process's g++ is still writing it fails the load ("file too short") and
+    keeps ``_load_failed`` for the rest of its life, so its native calls
+    fall back to Python. Under pytest-xdist that process is a worker with
+    whole test files to run. Here, until the library loads: wait, reset the
+    bridge's state, resolve the library again and load it; fail with the
+    load error after NATIVE_WAIT_S seconds."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while not jnative.available():
+        if time.monotonic() > deadline:
+            try:
+                ctypes.CDLL(jnative._SO_PATH)
+                err = "it opens now, but its bridge did not load it"
+            except OSError as e:
+                err = str(e)
+            pytest.fail(f"aindex_tpu's native library did not load within {NATIVE_WAIT_S} s: "
+                        f"{err}")
+        time.sleep(2)
+        jnative._lib = None
+        jnative._load_failed = False
+        jnative.ensure_built()
+    return jnative.get_lib()
 
 
 def _run(code: str, env=None) -> subprocess.CompletedProcess:
@@ -107,7 +143,7 @@ class TestFastq:
                 with open(a[key], "rb") as fa, open(b[key], "rb") as fb:
                     assert fa.read() == fb.read(), key
 
-    def test_native_reader_not_ported(self, tmp_path):
+    def test_native_reader_not_ported(self, tmp_path, jax_native):
         """The native reader is ported now: use_native=True on the paired
         test FASTQs writes the files of aindex_tpu's native reader."""
         args = (os.path.join(DATA, "test_R1.fastq"), os.path.join(DATA, "test_R2.fastq"),

@@ -26,6 +26,7 @@ from aindex_torch.index import quotcuckoo as tq
 from aindex_torch.io import fastq as tfastq
 from aindex_torch.kernels import probe as tprobe
 from aindex_torch.kernels import quot as tquot
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -44,7 +45,7 @@ def _files_equal(a: str, b: str) -> bool:
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("n", [1, 700, 20000])
-def test_mphf_build_byte_equal_to_jax(tmp_path, native, n):
+def test_mphf_build_byte_equal_to_jax(tmp_path, native, n, jax_native):
     keys = _keys(n, n)
     t, t_slot = tmphf.MPHF.build_with_slots(keys, use_native=native)
     j, j_slot = JMPHF.build_with_slots(keys, use_native=native)
@@ -280,7 +281,7 @@ def test_native_library_builds_into_build_dir():
 
 
 @pytest.mark.parametrize("case", ["fastq", "se", "fasta", "reads"])
-def test_compute_reads_native_matches_jax_native(tmp_path, case):
+def test_compute_reads_native_matches_jax_native(tmp_path, case, jax_native):
     args = {"fastq": (f"{DATA}/test_R1.fastq", f"{DATA}/test_R2.fastq", "fastq"),
             "se": (f"{DATA}/test_se.fastq", None, "se"),
             "fasta": (f"{DATA}/test.fasta", None, "fasta"),

@@ -37,7 +37,7 @@ from aindex_torch.core.reads import blob_chunk_batches
 from aindex_torch.index.sparse23 import count_canonical_kmers as t_count_canonical
 from aindex_torch.kernels import lookup as tlookup
 from aindex_torch.kernels import spectrum as tspectrum
-from aindex_torch.kernels.positional import posbucket
+from aindex_torch.kernels.positional import posbucket, posfill_pairs
 from aindex_torch.kernels.probe import CANON
 from aindex_torch.parallel import count13 as tcount13
 from aindex_torch.parallel import distributed as tdist
@@ -318,6 +318,58 @@ def test_posbucket_overflow_counts(blob):
         assert rec.numel() == min(8, int(per[d]))
         assert bool((window[1:] > window[:-1]).all())
         assert bool((((rec >> 24) - 1) == slots[window]).all())
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "slot-ids"])
+@pytest.mark.parametrize("name", ["random", "empty records", "other shards' slots",
+                                  "one slot over 5 tiles", "every record its own slot"])
+def test_posfill_pairs_edges(packed, name):
+    """K9's pairs-in entry on CPU tensors at the fill's edge shapes, two
+    exchanges in a row: packed records ((slot + 1) << 24) | window, with
+    empty (zero) records, or slot ids (-1 for none); slots of other shards
+    (below lo and past the range) dropped; one slot's run over five
+    4096-key tiles; every record in its own slot. Held to aindex_tpu's
+    _scatter_chunk over the (slot - lo, position, in range) triples its
+    exchange steps form (parallel/positional.py:121-182)."""
+    rng = np.random.default_rng(len(name) + packed)
+    n_src, cols = (1, 5 * 4096 + 3) if name == "one slot over 5 tiles" else (3, 3001)
+    lo, n_slots = (0, n_src * cols) if name == "every record its own slot" else (200, 300)
+    roff = np.arange(n_src, dtype=np.int64) * 40_000 + 17
+    exchanges = []
+    for _ in range(2):
+        if name == "one slot over 5 tiles":
+            slot = np.full((n_src, cols), lo + 7, np.int64)
+        elif name == "every record its own slot":
+            slot = rng.permutation(n_src * cols).astype(np.int64).reshape(n_src, cols)
+        elif name == "other shards' slots":
+            slot = rng.integers(0, 3 * (lo + n_slots), size=(n_src, cols)).astype(np.int64)
+        else:
+            slot = rng.integers(lo, lo + n_slots, size=(n_src, cols)).astype(np.int64)
+        if name == "empty records":
+            slot[rng.random(slot.shape) < 0.3] = -1
+        if packed:
+            delta = np.sort(rng.permutation(1 << 16)[:n_src * cols].reshape(n_src, cols), 1)
+            rec = np.where(slot >= 0, ((slot + 1) << 24) | delta, 0)
+            pos = roff[:, None] + delta
+        else:
+            rec = slot
+            pos = roff[:, None] + np.arange(cols)
+        exchanges.append((rec.astype(np.int64), slot.reshape(-1), pos.reshape(-1)))
+    counts = sum(np.bincount(s[(s >= lo) & (s < lo + n_slots)] - lo, minlength=n_slots)
+                 for _, s, _ in exchanges)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    total = int(counts.sum())
+    jp, jc = jnp.zeros(total, jnp.uint64), jnp.zeros(n_slots, jnp.int32)
+    tp, tc = torch.zeros(total, dtype=torch.int64), torch.zeros(n_slots, dtype=torch.int32)
+    for rec, slot, pos in exchanges:
+        sel = (slot >= lo) & (slot < lo + n_slots)
+        jp, jc = jpos._scatter_chunk(jp, jc, jnp.asarray(offsets), jnp.asarray(slot - lo),
+                                     jnp.asarray(pos), jnp.asarray(sel))
+        posfill_pairs(tp, tc, torch.from_numpy(offsets), torch.from_numpy(rec),
+                            torch.from_numpy(roff), lo, packed)
+        np.testing.assert_array_equal(_u64(tp), np.asarray(jp))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert int((tp > 0).sum()) == total
 
 
 # -- K12 and K13's plain twins on random keys ---------------------------------------

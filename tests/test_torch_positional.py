@@ -25,6 +25,8 @@ import oracle
 
 DATA = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "data", "*")))
 JPos = jpos.PositionalIndex
+#: the tile of the kernels' onesweep sort, fill and scan (csrc/onesweep.cuh)
+TILE = 4096
 
 
 def _same(t: TPos, j: JPos) -> None:
@@ -84,6 +86,137 @@ class TestPlain:
         for got in (tk.csr_offsets_plain(t), tk.csr_offsets(t)):
             assert got.dtype == torch.int64 and want.dtype == np.int64
             np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("n,values", [
+        (0, "max"), (1, "max"), (TILE - 1, "max"), (TILE, "random"), (TILE + 1, "max"),
+        (3 * TILE + 5, "random"), (5 * TILE + 3, "max")])
+    def test_csr_offsets_edges(self, n, values):
+        """K8's tile edges, and every value 2^32 - 1, whose sums pass 2^32
+        at the second item: equal to aindex_tpu's _csr_offsets."""
+        rng = np.random.default_rng(n)
+        tf = (np.full(n, 2 ** 32 - 1, np.uint32) if values == "max"
+              else rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32))
+        want = np.asarray(jpos._csr_offsets(jnp.asarray(tf)))
+        t = torch.from_numpy(tf.view(np.int32)).view(torch.uint32)
+        for got in (tk.csr_offsets_plain(t), tk.csr_offsets(t)):
+            np.testing.assert_array_equal(got.numpy(), want)
+        if values == "max" and n:
+            assert int(want[-1]) == n * (2 ** 32 - 1)
+
+    @pytest.mark.parametrize("n", [0, 1, TILE - 1, TILE, TILE + 1, 4 ** 13, 4 ** 15, 4 ** 16])
+    def test_csr_scratch_size(self, n):
+        """K8's scratch against csrc/csr.cu's layout: a tile counter word per
+        launch of up to 2^30 items, then a look-back word per tile."""
+        launches = -(-n // (1 << 30))
+        assert tk.csr_scratch_bytes(n) == 8 * (launches + -(-n // TILE))
+        assert launches == {0: 0, 4 ** 16: 4}.get(n, 1)
+
+    @pytest.mark.parametrize("n,n_slots", [(1, 1), (TILE - 1, 4 ** 5), (TILE, 300),
+                                           (TILE + 1, 4 ** 13), ((1 << 22) - 12, 4 ** 13),
+                                           ((1 << 22) - 22, 9_602_528), (3 * TILE, 1 << 24),
+                                           (3 * TILE, (1 << 24) + 1)])
+    def test_fill_scratch_size(self, n, n_slots):
+        """The fill's scratch against csrc/onesweep.cuh's carve with no
+        values: two key buffers, the digit histograms of one pass per 8
+        slot bits, 16 counter words, and a look-back word per tile for the
+        compaction, the fill and each digit of each pass."""
+        passes = -(-max(1, (n_slots - 1).bit_length()) // 8)
+        tiles = -(-n // TILE)
+        want = 2 * 8 * n + 4 * 256 * passes + 4 * 16 + 8 * tiles * (2 + 256 * passes)
+        assert tk.fill_scratch_bytes(n, n_slots) == want
+        assert tk.fill_scratch(n, n_slots, "cpu").numel() == want
+        assert passes == {4 ** 13: 4, 9_602_528: 3, 1 << 24: 3, (1 << 24) + 1: 4}.get(
+            n_slots, passes)
+
+    def test_bucket_scratch_shapes(self):
+        """K14's scratch: counters, destinations, the [256, tiles of 1024]
+        histogram and its scan's tile sums of 2048."""
+        counters, dest, hist, sums = tk.bucket_scratch(5000, "cpu")
+        assert (counters.numel(), dest.numel(), hist.numel(), sums.numel()) == (
+            2, 5000, 256 * 5, 1)
+        assert dest.dtype == torch.int64 and hist.dtype == sums.dtype == torch.int32
+
+    @pytest.mark.parametrize("name", [
+        "no valid window", "one slot over 5 tiles", "every window its own slot",
+        "tile - 1 windows", "tile windows", "tile + 1 windows", "cursor 2^31 - 2",
+        "cells past total"])
+    def test_scatter_chunk_edges(self, name):
+        """The shapes where the fill's tiles, runs and cursor could break,
+        two chunks in a row (the second from the first's cursor): equal to
+        aindex_tpu's _scatter_chunk."""
+        rng = np.random.default_rng(len(name))
+        n, n_slots = {"one slot over 5 tiles": (5 * TILE + 3, 10),
+                      "every window its own slot": (2 * TILE + 1, 2 * TILE + 1),
+                      "tile - 1 windows": (TILE - 1, 300), "tile windows": (TILE, 300),
+                      "tile + 1 windows": (TILE + 1, 300)}.get(name, (3 * TILE, 500))
+        chunks = []
+        for c in range(2):
+            if name == "one slot over 5 tiles":
+                slots = np.full(n, 7, np.int64)
+            elif name == "every window its own slot":
+                slots = rng.permutation(n).astype(np.int64)
+            else:
+                slots = rng.integers(0, n_slots, size=n).astype(np.int64)
+            valid = (np.zeros(n, bool) if name == "no valid window"
+                     else rng.random(n) < (1.0 if "slot" in name else 0.8))
+            chunks.append((slots, valid, np.arange(n, dtype=np.int64) + c * n + 5))
+        counts = sum(np.bincount(sl[v], minlength=n_slots) for sl, v, _ in chunks)
+        cursor = np.zeros(n_slots, np.int32)
+        if name == "cursor 2^31 - 2":
+            cursor[::2] = 2 ** 31 - 2     # these wrap; their cells lie past the end
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        total = int(counts.sum()) - (100 if name == "cells past total" else 0)
+        jp, jc = jnp.zeros(total, jnp.uint64), jnp.asarray(cursor)
+        tp, tc = torch.zeros(total, dtype=torch.int64), torch.from_numpy(cursor.copy())
+        for slots, valid, pos in chunks:
+            jp, jc = jpos._scatter_chunk(jp, jc, jnp.asarray(offsets), jnp.asarray(slots),
+                                         jnp.asarray(pos), jnp.asarray(valid))
+            tk.scatter_chunk_plain(tp, tc, torch.from_numpy(offsets), torch.from_numpy(slots),
+                                   torch.from_numpy(pos), torch.from_numpy(valid))
+            np.testing.assert_array_equal(tp.numpy().view(np.uint64), np.asarray(jp))
+            np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        if name == "cursor 2^31 - 2":
+            assert int(tc.min()) < 0      # wrapped as JAX's int32 add wraps
+
+    @pytest.mark.parametrize("name", ["poly-A over 5 tiles", "no valid window",
+                                      "tile - 1 valid", "tile valid", "tile + 1 valid"])
+    def test_posfill_edges(self, name):
+        """posfill on CPU tensors (k = 5, 4^5 slots) at the fill's edge
+        shapes against aindex_tpu's _scatter_chunk of the windows' forward
+        codes, from a nonzero cursor and blob offset."""
+        k, n_slots, off = 5, 4 ** 5, 777
+        rng = np.random.default_rng(11)
+        if name == "poly-A over 5 tiles":
+            piece = np.full(5 * TILE + 4, ord("A"), np.uint8)
+        elif name == "no valid window":
+            piece = np.full(3000, ord("N"), np.uint8)
+        else:
+            v = {"tile - 1 valid": TILE - 1, "tile valid": TILE, "tile + 1 valid": TILE + 1}[name]
+            piece = np.full(v + k - 1 + 300, ord("N"), np.uint8)
+            piece[:v + k - 1] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, v + k - 1)]
+        packed, vbits = (torch.from_numpy(a) for a in tcodec.pack_ascii_chunk(piece))
+        packed = packed.view(torch.int32)
+        n_win = 16 * packed.numel() - k + 1
+        b = _LUT[np.concatenate([piece, np.full(16 * packed.numel() - piece.size, ord("N"),
+                                                np.uint8)])]
+        code = np.zeros(n_win, np.int64)
+        bad = np.zeros(n_win, bool)
+        for j in range(k):
+            code = (code << 2) | (b[j:j + n_win] & 3)
+            bad |= b[j:j + n_win] > 3
+        cursor = rng.integers(0, 3, size=n_slots).astype(np.int32)
+        tf = np.bincount(code[~bad], minlength=n_slots) + cursor
+        offsets = np.concatenate([[0], np.cumsum(tf)[:-1]]).astype(np.int64)
+        total = int(tf.sum())
+        jp, jc = jpos._scatter_chunk(jnp.zeros(total, jnp.uint64), jnp.asarray(cursor),
+                                     jnp.asarray(offsets), jnp.asarray(code),
+                                     jnp.asarray(np.arange(n_win, dtype=np.int64) + off),
+                                     jnp.asarray(~bad))
+        tp, tc = torch.zeros(total, dtype=torch.int64), torch.from_numpy(cursor.copy())
+        tk.posfill(tp, tc, torch.from_numpy(offsets), packed, vbits, k, off)
+        np.testing.assert_array_equal(tp.numpy().view(np.uint64), np.asarray(jp))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        assert int((tp > 0).sum()) == int((~bad).sum())
 
     @pytest.mark.parametrize("seed,n_slots,n,off,cursor_max", [
         (1, 64, 500, 0, 0), (2, 64, 500, 12_345, 3), (3, 7, 2000, 99, 40),

@@ -21,10 +21,16 @@
 //
 // Bound: random reads of device memory. Each query reads one (or two)
 // table entries at an address unrelated to its neighbours', so a warp
-// touches 32 sectors for 32 useful entries of 1-4 bytes. The narrowed
-// uint8 table (64 MB) mostly fits in the 50 MB L2, which is why queries go
-// to the narrowest exact table. Design: one thread per query; codes are
-// read and outputs written coalesced; ASCII rows are decoded in registers.
+// touches 32 sectors for 32 useful entries of 1-4 bytes, and a read that
+// misses L2 costs a DRAM sector. The uint8 table (64 MiB) is larger than
+// the 50 MB L2, the uint16 and uint32 tables (128 / 256 MiB) far larger.
+//
+// Design: one thread per query. Codes, masks and answers are read and
+// written coalesced with the evict-first streaming intrinsics (__ldcs /
+// __stcs), the table with plain loads, so the 8+ bytes a query streams do
+// not push the table's lines out of L2 ahead of its own. ASCII rows are
+// decoded in registers. (Four codes a thread, and an evict_last L2 policy
+// on part of the table, measured no faster on the H100: PERF.md §6.)
 //
 // Codes out of range read what JAX's gather reads (see dna13::jax_index,
 // and jax_index_n for a table of n entries), never outside the table.
@@ -52,11 +58,11 @@ __global__ void gather13_kernel(const T* __restrict__ table, const int* __restri
         code = (code << 2) | (b & 3u);
       }
     } else {
-      code = static_cast<unsigned>(codes[i]);
-      if (MASK) ok = valid[i] != 0;
+      code = static_cast<unsigned>(__ldcs(codes + i));
+      if (MASK) ok = __ldcs(valid + i) != 0;
     }
-    out[i] = ok ? static_cast<unsigned>(table[dna13::jax_index(code)]) : 0u;
-    if (BOTH) out_rc[i] = ok ? static_cast<unsigned>(table[dna13::revcomp13(code)]) : 0u;
+    __stcs(out + i, ok ? static_cast<unsigned>(table[dna13::jax_index(code)]) : 0u);
+    if (BOTH) __stcs(out_rc + i, ok ? static_cast<unsigned>(table[dna13::revcomp13(code)]) : 0u);
   }
 }
 
@@ -92,7 +98,7 @@ __global__ void gather_table_kernel(const T* __restrict__ table, long long n_tab
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    out[i] = table[dna13::jax_index_n(static_cast<unsigned>(codes[i]), n_table)];
+    __stcs(out + i, table[dna13::jax_index_n(static_cast<unsigned>(__ldcs(codes + i)), n_table)]);
 }
 
 template <typename T>
@@ -104,12 +110,12 @@ __global__ void gather_total_kernel(const T* __restrict__ table, long long n_tab
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     T v = 0;
-    if (valid[i]) {
-      const unsigned code = static_cast<unsigned>(codes[i]);
+    if (__ldcs(valid + i)) {
+      const unsigned code = static_cast<unsigned>(__ldcs(codes + i));
       v = static_cast<T>(table[dna13::jax_index_n(code, n_table)] +
                          table[dna13::jax_index_n(dna13::revcomp13(code, k), n_table)]);
     }
-    out[i] = v;
+    __stcs(out + i, v);
   }
 }
 

@@ -11,8 +11,9 @@
 //             key_hi, tf, slot) rows at mix64(key ^ seed) & (m - 1);
 //   Mphf   <- kernels/lookup.py:100 mphf_lookup with sparse23.py:51
 //             _query_kernel: the MPHF walk (fmix64 triple hash, unsigned
-//             % domain, three 2-bit g-values, owner node (sum % 3), node ->
-//             slot, checker verify, tf).
+//             % domain, three 2-bit g-values, owner node (sum % 3)), then
+//             the owner node's 16-byte record (checker key, tf, slot) in
+//             place of JAX's node -> slot, checker and tf reads.
 // Rules (aindex_tpu/index/sparse23.py:553-578 _resolve_device):
 //   KEYS   the codes are probed as they are (canonical keys given);
 //   CANON  one probe of min(code, revcomp), strand from code <= revcomp
@@ -30,13 +31,13 @@
 //
 // Bound: random reads of device memory. A probe reads one or two rows (8
 // or 16 bytes, each in its own 32-byte sector) or, for the walk, three
-// g-words, a slot, a checker word and a tf, at addresses unrelated to its
-// neighbours'; the tables of the E. coli-scale index (100-400 MB) are far
-// beyond the 50 MB L2. Design: one thread per query or window; invalid
-// inputs read nothing; the second row is read only on a first miss and
-// the slot only when asked for; the 64-bit arithmetic (revcomp, the
-// bijections, mix64 and the walk's 64-bit remainders) hides under the
-// memory latency.
+// g-words (a g-vector of a few MB, which L2 holds) and then one 16-byte
+// node record, at addresses unrelated to its neighbours'; the tables of
+// the E. coli-scale index (100-400 MB) are far beyond the 50 MB L2.
+// Design: one thread per query or window; invalid inputs read nothing; the
+// second row is read only on a first miss and the slot only when asked
+// for; the 64-bit arithmetic (revcomp, the bijections, mix64 and the
+// walk's 64-bit remainders) hides under the memory latency.
 #pragma once
 
 #include "dna23.cuh"
@@ -158,24 +159,23 @@ struct Cuckoo {
   __device__ __forceinline__ long long slot(long long ref) const { return ref; }
 };
 
-// The MPHF walk over the ATPF MPHF (index/mphf.py): g-values packed 16 to
-// a uint32 word (3 = unassigned), the owner node -> slot table, and the
-// slot-ordered checker (uint64 keys) and tf. Node ids stay 64-bit.
-// p = {g_packed, slots, checker, tf}; u = {n, domain, seed}.
+// The MPHF walk over the ATPF MPHF (index/mphf.py): the g-values packed 16
+// to a uint32 word (3 = unassigned), and one 16-byte record a node, the
+// (checker key's low and high words, tf, slot) of the node's slot
+// (kernels/lookup.py walk_records; an unassigned node holds slot 0's, as
+// the node -> slot table JAX walks reads 0 there). Node ids stay 64-bit.
+// p = {g_packed, records}; u = {n, domain, seed}.
 struct Mphf {
   const unsigned* g;
-  const int* slots;
-  const unsigned long long* checker;
-  const unsigned* tf;
+  const uint4* records;
   uint64_t n;
   uint64_t domain;
   uint64_t seed;
 
   static int make(const void* const* p, const unsigned long long* u, Mphf* e) {
     if (u[1] == 0) return BAD;
-    *e = Mphf{static_cast<const unsigned*>(p[0]), static_cast<const int*>(p[1]),
-              static_cast<const unsigned long long*>(p[2]), static_cast<const unsigned*>(p[3]),
-              u[0], u[1], u[2]};
+    *e = Mphf{static_cast<const unsigned*>(p[0]), static_cast<const uint4*>(p[1]), u[0], u[1],
+              u[2]};
     return 0;
   }
 
@@ -195,13 +195,15 @@ struct Mphf {
     return v == 0 ? n0 : (v == 1 ? n1 : n2);
   }
 
-  // ref: the slot.
+  // ref: the slot. One random 16-byte read a key, after the g-words it
+  // depends on.
   __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
     if (n == 0) return false;
-    const int s = slots[owner(key)];
-    if (checker[s] != key) return false;
-    *tf_out = tf[s];
-    *ref = s;
+    const uint4 r = records[owner(key)];
+    if (r.x != static_cast<unsigned>(key) || r.y != static_cast<unsigned>(key >> 32))
+      return false;
+    *tf_out = r.z;
+    *ref = static_cast<int>(r.w);
     return true;
   }
 

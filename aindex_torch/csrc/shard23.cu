@@ -104,7 +104,7 @@ extern "C" int shardowner(const void* g, const void* slots_local, long long node
                                                                valid_out == nullptr ||
                                                                stride <= k)))
     return probe::BAD;
-  probe::Mphf e{static_cast<const unsigned*>(g), nullptr, nullptr, nullptr, 0, domain, seed};
+  probe::Mphf e{static_cast<const unsigned*>(g), nullptr, 0, domain, seed};
   owner_kernel<<<dna13::grid_for(n), dna13::BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       e, static_cast<const int*>(slots_local), node_lo, n_nodes,
       static_cast<const long long*>(codes), static_cast<const unsigned*>(packed),

@@ -306,7 +306,8 @@ class Sparse23Index(SharedQueryOps):
         """The serving engine's tables on the index's device, as
         aindex_tpu's ``_query`` chooses them: the quotient table when
         eligible, else the wide cuckoo table (k <= 30), else the MPHF walk
-        over the ATPF MPHF and the checker and tf. Raises after
+        over the ATPF MPHF's g-values and the node records of the checker
+        and tf (``MphfTables.from_host``). Raises after
         ``release_device``."""
         if self._device_released:
             raise RuntimeError(
@@ -323,14 +324,8 @@ class Sparse23Index(SharedQueryOps):
                 raise RuntimeError(
                     f"no device query path for k={self.k}: the cuckoo tables "
                     "need k <= 30 and the emphf MPHF has no device walk")
-            dev = self.device
-            m = self.mphf
-            self._walk = MphfTables(
-                torch.from_numpy(m.g_packed.view(np.int32)).to(dev, copy=True),
-                torch.from_numpy(np.ascontiguousarray(m.slots, dtype=np.int32)).to(dev, copy=True),
-                torch.from_numpy(self.checker_host.view(np.int64)).to(dev, copy=True),
-                torch.from_numpy(self.tf_host.view(np.int32)).to(dev, copy=True),
-                int(m.n), int(m.domain), int(m.seed))
+            self._walk = MphfTables.from_host(self.mphf, self.checker_host, self.tf_host,
+                                              self.device)
         return self._walk
 
     def release_device(self) -> None:

@@ -16,6 +16,9 @@ the forward table, summed in the table's dtype); ``gather_tf_plain`` and
 Codes are uint32 bit patterns (int32 or uint32 storage). A code outside
 [0, 4^13) reads what JAX's ``table[code.astype(int32)]`` reads: the int32
 value, plus 4^13 (the table's length) if negative, clamped into the table.
+K3 takes one code a thread and streams codes and answers past L2 with
+evict-first loads and stores; the table is read with plain loads
+(``csrc/gather13.cu``).
 
 K12 (kernel ``csrc/shard23.cu``: ``shard_owner`` and ``shard_verify``)
 is one index shard's part of a query against the slot-sharded index
@@ -30,13 +33,16 @@ coverage and fill on an ``MphfTables``; ``mix64``, ``hash_triple``,
 aindex_tpu/kernels/lookup.py:70-121 and index/sparse23.py:51
 ``_query_kernel``, on int64 tensors holding uint64 bits: every right shift
 is masked and the remainder by the domain is taken unsigned, by a 32-bit
-split. Node ids stay int64 where aindex_tpu casts them to int32.
+split. Node ids stay int64 where aindex_tpu casts them to int32. The walk
+reads one 16-byte record a node (``walk_records``) in place of JAX's node
+-> slot, checker and tf gathers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from aindex_torch.constants import K13, SPACE_13
@@ -292,16 +298,28 @@ def mphf_lookup(g_packed: torch.Tensor, slots: torch.Tensor, keys: torch.Tensor,
     return slots[mphf_owner_node(g_packed, keys, seed, domain)].to(torch.int64)
 
 
+def walk_records(slots: torch.Tensor, checker: torch.Tensor, tf: torch.Tensor) -> torch.Tensor:
+    """The walk's node records, int32[3 domain, 4]: row v holds the checker
+    key (int64 of uint64 bits, as its low and high 32-bit words), the tf and
+    the slot of node v's slot ``slots[v]``, for every node, assigned or not
+    (an unassigned node holds slot 0's, as JAX's node -> slot table reads
+    there: its key walks elsewhere, so it never matches). With no keys
+    (n = 0) every row is 0."""
+    if checker.numel() == 0:
+        return torch.zeros((slots.numel(), 4), dtype=torch.int32, device=slots.device)
+    s = slots.to(torch.int64)
+    key = checker[s]
+    return torch.stack([key.to(torch.int32), (key >> 32).to(torch.int32), tf[s], slots], dim=1)
+
+
 @dataclasses.dataclass(frozen=True)
 class MphfTables:
-    """The ATPF MPHF (index/mphf.py) and the slot-ordered checker and tf on
-    one device, the MPHF walk's engine (``kernels/probe.py``): g_packed
-    int32[ceil(3 domain / 16)] (uint32 words of 2-bit values), slots
-    int32[3 domain], checker int64[n] (uint64 keys), tf int32[n] (uint32)."""
+    """The ATPF MPHF (index/mphf.py) and its node records on one device,
+    the MPHF walk's engine (``kernels/probe.py``): g_packed
+    int32[ceil(3 domain / 16)] (uint32 words of 2-bit values), records
+    int32[3 domain, 4] (``walk_records``: checker key, tf, slot a node)."""
     g_packed: torch.Tensor
-    slots: torch.Tensor
-    checker: torch.Tensor
-    tf: torch.Tensor
+    records: torch.Tensor
     n: int
     domain: int
     seed: int
@@ -310,27 +328,38 @@ class MphfTables:
     COVERAGE = "mphfcov"
     FILL = "mphffill"
 
+    @classmethod
+    def from_host(cls, mphf, checker: np.ndarray, tf: np.ndarray, device) -> "MphfTables":
+        """The engine of a host MPHF (``index/mphf.MPHF``) and its
+        slot-ordered checker (uint64[n]) and tf (uint32[n]) on ``device``;
+        the records are gathered there (the slots, checker and tf copies
+        are dropped after)."""
+        def up(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x).view(dtype)).to(device, copy=True)
+        records = walk_records(up(np.asarray(mphf.slots, np.int32), np.int32),
+                               up(np.asarray(checker, np.uint64), np.int64),
+                               up(np.asarray(tf, np.uint32), np.int32))
+        return cls(up(np.asarray(mphf.g_packed, np.uint32), np.int32), records,
+                   int(mphf.n), int(mphf.domain), int(mphf.seed))
+
     @property
     def device(self) -> torch.device:
-        return self.checker.device
+        return self.records.device
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.g_packed, self.slots, self.checker, self.tf)
+        return (self.g_packed, self.records)
 
     def engine_args(self) -> tuple[list, list]:
-        """probe.cuh ``Mphf``: p = {g_packed, slots, checker, tf}, u = {n,
-        domain, seed}."""
+        """probe.cuh ``Mphf``: p = {g_packed, records}, u = {n, domain,
+        seed}."""
         return [x.data_ptr() for x in self.tensors()], [self.n, self.domain, self.seed]
 
     def check(self) -> None:
         n_nodes = 3 * self.domain
-        for name, dtype, size in (("g_packed", torch.int32, -(-n_nodes // 16)),
-                                  ("slots", torch.int32, n_nodes),
-                                  ("checker", torch.int64, self.n),
-                                  ("tf", torch.int32, self.n)):
+        for name, shape in (("g_packed", (-(-n_nodes // 16),)), ("records", (n_nodes, 4))):
             x = getattr(self, name)
-            if x.dtype != dtype or x.shape != (size,) or not x.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous {dtype}[{size}] tensor")
+            if x.dtype != torch.int32 or x.shape != shape or not x.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous torch.int32{list(shape)} tensor")
         if not 0 < self.domain < (1 << 32) // 3:
             raise ValueError(f"domain {self.domain} is outside (0, 2^32 / 3)")
 
@@ -339,14 +368,15 @@ class MphfTables:
             raise ValueError(f"k={k} is outside 1..31")
 
     def probe_plain(self, keys: torch.Tensor):
-        """(hit, tf int64, slot int64) per key: the walk, then the checker
-        verify (aindex_tpu/index/sparse23.py:51 ``_query_kernel``)."""
+        """(hit, tf int64, slot int64) per key: the walk to the owner node,
+        then its record's checker verify (aindex_tpu/index/sparse23.py:51
+        ``_query_kernel``)."""
         if self.n == 0:
             zero = torch.zeros_like(keys)
             return zero != 0, zero, zero - 1
-        slot = mphf_lookup(self.g_packed, self.slots, keys, self.seed, self.domain)
-        hit = self.checker[slot] == keys
-        return hit, as_unsigned(self.tf[slot]), slot
+        rec = self.records[mphf_owner_node(self.g_packed, keys, self.seed, self.domain)]
+        key = (rec[:, 0].to(torch.int64) & 0xFFFFFFFF) | (rec[:, 1].to(torch.int64) << 32)
+        return key == keys, as_unsigned(rec[:, 2]), rec[:, 3].to(torch.int64)
 
 
 # -- K12: one index shard's part of a sharded query ---------------------------------

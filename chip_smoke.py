@@ -14,7 +14,11 @@ Run from the repository root, with no arguments:
    aindex_torch/csrc, one nvcc per source, all started together.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
-   (all outputs are integers), and times both with CUDA events.
+   (all outputs are integers), and times both with CUDA events; K3 also on
+   4 x 2^24 codes all in range (the dense path's own traffic) beside
+   ``torch.take``, and all three K3 entries at edge shapes (0-9 and
+   2^20 + 3 codes, offsets 0-3, masks at another offset, every width,
+   tables of 1 entry to 4^13).
 3. Generates the corpus once: scripts/make_scale_corpus.py's (seed 1, 25x:
    773,608 reads of 150 bp over a 4.64 Mbp genome, 0.3% substitutions), as
    a FASTA file and a read matrix that the numpy oracles read.
@@ -82,7 +86,9 @@ Run from the repository root, with no arguments:
    no K6, K7 or K9 launch.
 13. Holds the configuration's engine kernels (K11 after k = 31, K10 after
    k = 29: query, coverage and fill) against their plain versions at the
-   path's shapes, and the fill at step 10's edge shapes.
+   path's shapes, and the fill at step 10's edge shapes; K11's query also
+   on keys whose walk ends at an unassigned node, the key in slot 0, 0 and
+   2^62 - 1, under the KEYS and CANON rules.
 14. Loads the reference-built tests/golden_ref sets through
    ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
    of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
@@ -105,10 +111,11 @@ Run from the repository root, with no arguments:
    dense k = 13 windows) and the pairs-in fill per destination, at one
    shard also against K9's fill of the same chunk. Each is timed at the
    world-of-one path's shape.
-17. Prints the rows built on csrc/onesweep.cuh (K5, its ASCII entry, K13;
-   K8, K9's two entries, the K10 and K11 fills) and K14 beside their
-   earlier times, with their launches a call, from a torch.profiler trace
-   of twenty calls in a fresh process (``chip_smoke.py --launches``); then
+17. Prints K3's three entries, K11's three, the rows built on
+   csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
+   K10 fill) and K14 beside their earlier times, with their launches a
+   call, from a torch.profiler trace of twenty calls in a fresh process
+   (``chip_smoke.py --launches``); then
    the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
    path run with the counts set to 0 just before it), the card line and
    the result line.
@@ -341,15 +348,17 @@ def report(card, name, shape, rec):
           f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
 
 
-#: earlier chip_smoke times (ms) on NVIDIA H100 80GB HBM3, 700.00 W,
-#: before the fill and the CSR scan moved onto the onesweep sort: the
-#: onesweep rows (K5, its ASCII entry, K13), and the rows on the
-#: positional build's fill and scan (K8, K9's two entries, the K10/K11
-#: fills: radix.cuh's LSD sort and scan.cuh's three-launch scan then; K14,
-#: which keeps radix.cuh's histogram)
-EARLIER_MS = {"spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
-              "csr_offsets": 0.9529, "posfill": 1.1459, "cuckoofill64": 0.9480,
-              "mphffill": 1.0131, "posbucket": 0.3925, "posfill_pairs": 1.1928}
+#: earlier chip_smoke times (ms) on NVIDIA H100 80GB HBM3, 700.00 W: K3's
+#: three entries (default cache policy) and K11's three (the walk's node ->
+#: slot, checker and tf reads) before the streamed codes and the node
+#: records, and the rows on the onesweep sort and the
+#: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
+#: entries, the K10 fill) and K14 as last measured
+EARLIER_MS = {"gather13": 0.9509, "gather13_table": 1.2779, "gather13_total": 2.9164,
+              "mphfwalk": 5.0373, "mphfcov": 0.1163, "mphffill": 0.6076,
+              "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
+              "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
+              "posbucket": 0.3931, "posfill_pairs": 0.5888}
 
 
 def launches_per_call(fn, calls: int = 20) -> float:
@@ -483,9 +492,51 @@ def fill_calls(dev) -> dict:
     return calls
 
 
+def lookup_calls(dev) -> dict:
+    """K3's three entries and K11's query and coverage: name -> (kernel
+    call, plain call), K3 on 2^22 codes over the whole uint32 range (a u8
+    4^13 table; a u32 table for the table-length entries), K11 on 2^22 of
+    the coverage-1 chunk's k = 31 windows and on 1,000 of its rows."""
+    import torch
+    from aindex_torch import Sparse23Index
+    from aindex_torch.core import codec
+    from aindex_torch.kernels import probe
+    from aindex_torch.kernels.encode import packed_window_codes
+    from aindex_torch.kernels.lookup import (gather13, gather13_plain, gather_tf,
+                                             gather_tf_plain, gather_tf_total_13,
+                                             gather_tf_total_13_plain)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    u8 = torch.randint(0, 256, (SPACE,), dtype=torch.uint8, device=dev, generator=gen)
+    u32 = torch.randint(-2 ** 31, 2 ** 31, (SPACE,), dtype=torch.int32, device=dev,
+                        generator=gen).view(torch.uint32)
+    codes = torch.randint(-2 ** 31, 2 ** 31, (1 << 22,), dtype=torch.int32, device=dev,
+                          generator=gen)
+    valid = torch.rand(codes.numel(), device=dev, generator=gen) < 0.9
+    chunk = coverage1_chunk()
+    index = Sparse23Index.build_from_blob(chunk, k=31, device=dev)
+    t = index.tables
+    rows = np.ascontiguousarray(chunk[:1000 * (READ_LEN + 1)].reshape(1000, READ_LEN + 1))
+    [(_, stride, packed, vbits)] = codec.coverage_row_batches(
+        [row[:READ_LEN].tobytes() for row in rows], 31)
+    packed, vbits = upload(dev, packed, vbits)
+    cov = (t, packed, vbits, 1000, stride, 31, 0, index.rule)
+    keys = packed_window_codes(*upload(dev, *codec.pack_ascii_chunk(chunk)), 31)[0][:1 << 22]
+    return {
+        "gather13": (lambda: (gather13(u8, codes),), lambda: (gather13_plain(u8, codes),)),
+        "gather13_table": (lambda: (gather_tf(u32, codes),),
+                           lambda: (gather_tf_plain(u32, codes),)),
+        "gather13_total": (lambda: (gather_tf_total_13(u32, codes, valid),),
+                           lambda: (gather_tf_total_13_plain(u32, codes, valid),)),
+        "mphfwalk": (lambda: probe.query(t, keys, k=31, rule=index.rule, slot=True),
+                     lambda: probe.query_plain(t, keys, k=31, rule=index.rule, slot=True)),
+        "mphfcov": (lambda: (probe.coverage(*cov),), lambda: (probe.coverage_plain(*cov),)),
+    }
+
+
 LAUNCHES_FLAG = "--launches"
 #: the rows whose launches a call the fresh process counts
-LAUNCH_ROWS = ("spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
+LAUNCH_ROWS = ("gather13", "gather13_table", "gather13_total", "mphfwalk", "mphfcov",
+               "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
                "posfill_pairs", "cuckoofill64", "mphffill")
 
 
@@ -504,7 +555,8 @@ def fresh_launches_main() -> int:
     import torch
     dev = torch.device("cuda", 0)
     launches = {}
-    for name, (fn, plain) in {**onesweep_calls(dev), **fill_calls(dev)}.items():
+    for name, (fn, plain) in {**lookup_calls(dev), **onesweep_calls(dev),
+                              **fill_calls(dev)}.items():
         max(max_abs_err(a, b) for a, b in zip(fn(), plain()))
         launches[name] = launches_per_call(fn)
     check(set(launches) == set(LAUNCH_ROWS), f"launch rows {sorted(launches)}")
@@ -636,10 +688,27 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
                 rec = record(err, ms, pms, n_bytes, lib)
                 report(card, "gather13", tag, rec)
                 k3.append((tag, rec))
+        if bits == 8:
+            # the main path's own traffic: codes of reads, every one in range
+            inside = torch.randint(0, SPACE, (n_codes,), dtype=torch.int32, device=dev,
+                                   generator=gen)
+            err = max_abs_err(gather13(table, inside), gather13_plain(table, inside))
+            ms = cuda_ms(lambda: gather13(table, inside), 20)
+            pms = cuda_ms(lambda: gather13_plain(table, inside), 2)
+            inside64 = inside.to(torch.int64)
+            lib = cuda_ms(lambda: torch.take(table, inside64), 20)
+            n_bytes = 8 * n_codes + int(torch.unique(inside).numel())
+            rec = record(err, ms, pms, n_bytes, lib)
+            tag = "u8 codes in range, 4x2^24 codes"
+            report(card, "gather13", tag, rec)
+            k3.append((tag, rec))
+            res["gather13 in range"] = rec
+            del inside, inside64
         del table
     head = dict(k3)["u8 codes, 4x2^24 codes"]
     res["gather13"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k3)}
     del codes, valid, rows, index
+    gather13_edges_vs_plain(dev, card)
 
     # K4: 10,000 rows x stride 151 (150 bp reads), cutoff 0 and 10
     n_rows, stride = N_SEQ, READ_LEN + 1
@@ -665,6 +734,49 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
             k4.append(rec)
     res["coverage13_packed"] = {**k4[0], "max_abs_err": max(r["max_abs_err"] for r in k4)}
     return res
+
+
+def gather13_edges_vs_plain(dev, card: str) -> None:
+    """K3's three entries exactly against their plain versions at edge
+    shapes: batches of 0-9 codes and 2^20 + 3, codes (and masks) starting
+    0-3 items past a 16-byte boundary, masks at another offset than the
+    codes, every table width, tables of 1, 1000, 5 x 2^20 and 4^13
+    entries."""
+    import torch
+    from aindex_torch.kernels.lookup import (gather13, gather13_plain, gather_tf,
+                                             gather_tf_plain, gather_tf_total_13,
+                                             gather_tf_total_13_plain)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    base = torch.randint(-2 ** 31, 2 ** 31, (4 + (1 << 20) + 3 + 4,), dtype=torch.int32,
+                         device=dev, generator=gen)
+    base[::3] &= SPACE - 1
+    vbase = torch.rand(base.numel(), device=dev, generator=gen) < 0.8
+    n_checked = 0
+    for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
+                              (32, torch.int32, torch.uint32)):
+        lo, hi = (0, 256) if bits == 8 else (-2 ** (bits - 1), 2 ** (bits - 1))
+        tables = [torch.randint(lo, hi, (n_t,), dtype=dtype, device=dev, generator=gen)
+                  for n_t in (SPACE, 1, 1000, 5 << 20)]
+        tables = [t.view(view) if view is not None else t for t in tables]
+        for n in (*range(10), (1 << 20) + 3):
+            for off in range(4):
+                codes = base[off:off + n]
+                for voff in {off, (off + 1) % 4}:
+                    valid = vbase[voff:voff + n]
+                    for both in (False, True):
+                        for kw in ({"codes": codes}, {"codes": codes, "valid": valid}):
+                            got = gather13(tables[0], both=both, **kw)
+                            ref = gather13_plain(tables[0], both=both, **kw)
+                            for a, b in zip(got, ref) if both else [(got, ref)]:
+                                max_abs_err(a, b)
+                    for t in tables:
+                        max_abs_err(gather_tf(t, codes), gather_tf_plain(t, codes))
+                        max_abs_err(gather_tf_total_13(t, codes, valid, 16),
+                                    gather_tf_total_13_plain(t, codes, valid, 16))
+                        n_checked += 2
+    print(f"gather13 edge shapes == plain: {n_checked} table calls and the 4^13 modes at "
+          f"0-9 and 2^20 + 3 codes, offsets 0-3 ({time.perf_counter() - t0:.1f} s, {card})")
 
 
 # -- phase 4: the dense path end to end ----------------------------------------
@@ -2004,12 +2116,14 @@ def trace_stages(path: str) -> dict[str, float]:
 def probe_bytes(t, keys, k: int) -> int:
     """Bytes of the table that the canonical probes of literal ``keys``
     read, each distinct row, word or entry once: wide cuckoo rows (16 B,
-    the second only for first misses); or the walk's g-words (4 B), owner
-    slots (4 B), checker words (8 B) and, on a hit, tf entries (4 B)."""
+    the second only for first misses); or the walk's g-words (4 B), the
+    slot entries of the owner nodes (4 B), the checker words of the slots
+    those hold (8 B; every unassigned node holds slot 0) and, on a hit, tf
+    entries (4 B)."""
     import torch
     from aindex_torch.kernels.cuckoo import CuckooTables
     from aindex_torch.kernels.encode import canonical_code64
-    from aindex_torch.kernels.lookup import _s64, hash_triple, mix64, mphf_lookup
+    from aindex_torch.kernels.lookup import _s64, hash_triple, mix64, mphf_owner_node
     keys = canonical_code64(keys, k)
     if isinstance(t, CuckooTables):
         r1 = mix64(keys ^ _s64(t.seed1)) & (t.m - 1)
@@ -2020,9 +2134,43 @@ def probe_bytes(t, keys, k: int) -> int:
         return 16 * (int(torch.unique(r1).numel()) + int(torch.unique(r2).numel()))
     words = torch.unique(torch.cat([n >> 4 for n in hash_triple(keys, t.seed, t.domain)]))
     hit, _, slot = t.probe_plain(keys)
-    n_owner = int(torch.unique(mphf_lookup(t.g_packed, t.slots, keys, t.seed,
-                                            t.domain)).numel())
-    return 4 * int(words.numel()) + 12 * n_owner + 4 * int(torch.unique(slot[hit]).numel())
+    nodes = torch.unique(mphf_owner_node(t.g_packed, keys, t.seed, t.domain))
+    n_reached = int(torch.unique(t.records[nodes, 3]).numel())
+    return (4 * int(words.numel()) + 4 * int(nodes.numel()) + 8 * n_reached
+            + 4 * int(torch.unique(slot[hit]).numel()))
+
+
+def walk_edges_vs_plain(dev, card: str, index) -> None:
+    """K11's query exactly against its plain version, and against the host
+    arrays, on the keys where the record walk could differ from JAX's three
+    reads: keys whose walk ends at an unassigned node (it holds slot 0's
+    record), the key in slot 0 (checker[0]), 0 and 2^62 - 1, under the
+    KEYS and CANON rules, with slot and strand."""
+    import torch
+    from aindex_torch.kernels import probe
+    from aindex_torch.kernels.lookup import mphf_owner_node
+    t, k = index.tables, index.k
+    gen = torch.Generator(device=dev).manual_seed(67)
+    draws = torch.randint(0, 1 << 62, (1 << 22,), dtype=torch.int64, device=dev, generator=gen)
+    node = mphf_owner_node(t.g_packed, draws, t.seed, t.domain)
+    g = (t.g_packed[node >> 4].to(torch.int64) >> (2 * (node & 15))) & 3
+    unassigned = draws[g == 3]
+    check(unassigned.numel() > 0, "random keys that walk to an unassigned node")
+    first = int(index.checker_host[:1].view(np.int64)[0])
+    keys = torch.cat([unassigned, torch.tensor([first, 0, (1 << 62) - 1], device=dev)])
+    for rule in (probe.KEYS, probe.CANON):
+        got = probe.query(t, keys, k=k, rule=rule, slot=True, strand=rule != probe.KEYS)
+        ref = probe.query_plain(t, keys, k=k, rule=rule, slot=True, strand=rule != probe.KEYS)
+        for a, b in zip(got, ref):
+            max_abs_err(a, b)
+    tf, slot = probe.query(t, keys, k=k, rule=probe.KEYS, slot=True)
+    n_un = unassigned.numel()
+    check(not bool(tf[:n_un].view(torch.int32).any()) and bool((slot[:n_un] == -1).all()),
+          "unassigned-node keys are absent")
+    check(int(tf[n_un].view(torch.int32)) == int(index.tf_host[:1].view(np.int32)[0])
+          and int(slot[n_un]) == 0, "checker[0] hits slot 0 with its tf")
+    print(f"mphfwalk edge keys == plain: {n_un} unassigned-node keys absent, checker[0] at "
+          f"slot 0, keys 0 and 2^62 - 1, rules KEYS and CANON ({card})")
 
 
 def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
@@ -2138,6 +2286,8 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     tags = fill_edge_checks(dev, reads, k, t, index.rule, index.n)
     print(f"{f_name} edge shapes == plain: {'; '.join(tags)} "
           f"({time.perf_counter() - t0:.1f} s, {card})")
+    if q_name == "mphfwalk":
+        walk_edges_vs_plain(dev, card, index)
     return res
 
 
@@ -2563,10 +2713,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     n = codes.numel()
 
     # K12: per shard its node range (owner), a sum, its slot range (verify)
-    walk = MphfTables(g, torch.from_numpy(np.asarray(m.slots, np.int32)).to(dev),
-                      torch.from_numpy(index.checker_host.view(np.int64)).to(dev),
-                      torch.from_numpy(index.tf_host.view(np.int32)).to(dev),
-                      int(m.n), int(m.domain), int(m.seed))
+    walk = MphfTables.from_host(m, index.checker_host, index.tf_host, dev)
     want_tf, want_slot = probe.query(walk, codes, k=K23, rule=probe.CANON, slot=True)
     err = {"shardowner": 0, "shardverify": 0}
     for n_sh in SHARDS:

@@ -8,7 +8,7 @@
 //
 // The window -> slot step is the engine's (probe.cuh): the forward code
 // of a k <= 16 window (Dense), or the verified slot of the sparse index's
-// query rule (Quot, Cuckoo, Mphf). Design, on csrc/onesweep.cuh, 2 +
+// query rule (Buckets, Mphf). Design, on csrc/onesweep.cuh, 2 +
 // passes launches on one stream (7 for the dense k = 13 table's 26 slot
 // bits, 6 for a sparse index of up to 2^24 slots):
 //   0. one memset zeroes the sort's counters and look-back words;

@@ -2,7 +2,7 @@
 // one launch sequence per chunk of a data shard:
 //   1. each window's slot, by the same window -> slot step as the fill
 //      (probe.cuh: the forward code of a k <= 16 window, Dense, or the
-//      verified slot of the Quot, Cuckoo or Mphf engine under the CANON or
+//      verified slot of the Buckets or Mphf engine under the CANON or
 //      FWD_RC rule), -1 for invalid and absent windows; its destination
 //      shard is slot / m (n_dest for none);
 //   2. one radix pass on the destination digit (radix.cuh radix_hist and
@@ -22,7 +22,7 @@
 // Bound: bytes, plus the probe's random reads. The chunk comes in packed
 // (0.375 bytes a base); each window writes an 8-byte slot, and the
 // buckets (n_dest * cap * 8 bytes, zeroed first) take one 8-byte record a
-// window; the sparse engines add their table rows (probe.cuh). Design:
+// window; the sparse engines add their table reads (probe.cuh). Design:
 // the destination digit takes radix.cuh's histogram and a stable in-tile
 // ranking of its own, so a window's rank needs no sort at all.
 #include "probe.cuh"
@@ -156,8 +156,8 @@ int engine_rule(const void* const* p, const unsigned long long* u, int rule, con
 DNA13_EXPORT_ERROR_STRING
 
 // engine: 0 dense (slot = the forward code, k <= 16; p, u and rule
-// unused), 1 Quot, 2 Cuckoo, 3 Mphf (probe.cuh's p and u, rule CANON or
-// FWD_RC). packed uint32[n_words] + vbits uint8[2 * n_words]: the chunk's
+// unused), 1 Buckets (the quotient or the wide table), 2 Mphf (probe.cuh's
+// p and u, rule CANON or FWD_RC). packed uint32[n_words] + vbits uint8[2 * n_words]: the chunk's
 // n_win = 16 * n_words - k + 1 windows (n_win <= 2^24 with buckets). Slots
 // run over [0, n_slots); destination shard d owns [d * m, (d + 1) * m).
 // Out: slots int64[n_win]; buckets int64[n_dest, cap] or null (slots only);
@@ -184,13 +184,10 @@ extern "C" int posbucket(int engine, const void* const* p, const unsigned long l
                                             m, n_dest, cap, slots, buckets, counters, dest, hist,
                                             sums, s);
     case 1:
-      return engine_rule<probe::Quot>(p, u, rule, packed, vbits, n_words, k, n_slots, m, n_dest,
-                                      cap, slots, buckets, counters, dest, hist, sums, s);
+      return engine_rule<probe::Buckets>(p, u, rule, packed, vbits, n_words, k, n_slots, m,
+                                         n_dest, cap, slots, buckets, counters, dest, hist,
+                                         sums, s);
     case 2:
-      return engine_rule<probe::Cuckoo>(p, u, rule, packed, vbits, n_words, k, n_slots, m,
-                                        n_dest, cap, slots, buckets, counters, dest, hist, sums,
-                                        s);
-    case 3:
       return engine_rule<probe::Mphf>(p, u, rule, packed, vbits, n_words, k, n_slots, m, n_dest,
                                       cap, slots, buckets, counters, dest, hist, sums, s);
     default:

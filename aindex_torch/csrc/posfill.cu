@@ -8,7 +8,7 @@
 // window of csrc/dna13.cuh widened to any k <= 31; sparse, the verified
 // slot of the quotient cuckoo table under the index's query rule
 // (positional.py:208-216, index/sparse23.py:371 _resolve ->
-// index/quotcuckoo.py:378 quot_query), K6's probe (probe.cuh).
+// index/quotcuckoo.py:378 quot_query), K6's bucket probe (probe.cuh).
 //
 // The second entry, posfill_pairs, is the receive side of the mesh build's
 // exchange (fill.cuh pairs()): it replaces the _scatter_chunk calls of
@@ -18,7 +18,7 @@
 // Bound: bytes. The chunk comes in packed (0.375 bytes a base), each valid
 // window writes one 8-byte position, and each distinct slot reads its
 // 8-byte offset and reads and writes its 4-byte cursor; the sparse probe
-// adds one or two 8-byte table rows and a 4-byte slot per window. The
+// adds one 64-byte bucket of the quotient table's records per window. The
 // design (fill.cuh, on csrc/onesweep.cuh) spends most of its time in the
 // sort: each pass reads and writes every live key once (16 bytes a valid
 // window, four passes for the dense 13-mer slots, three for a sparse
@@ -31,7 +31,7 @@
 DNA13_EXPORT_ERROR_STRING
 
 // p null: dense mode, slot = the forward code of the k-mer (k <= 16; u and
-// rule unused). Otherwise the quotient table (probe::Quot's p and u) under
+// rule unused). Otherwise the quotient table (probe::Buckets' p and u) under
 // rule CANON or FWD_RC. The other arguments as fill::run takes them.
 extern "C" int posfill(const void* const* p, const unsigned long long* u, const void* packed,
                        const void* vbits, long long n_words, int k, long long off, int rule,
@@ -43,7 +43,7 @@ extern "C" int posfill(const void* const* p, const unsigned long long* u, const 
                                                 off, n_slots, slot_bits, idx_bits, offsets,
                                                 cursor, positions, total, scratch,
                                                 static_cast<cudaStream_t>(stream));
-  return fill::sparse<probe::Quot>(p, u, packed, vbits, n_words, k, off, rule, n_slots,
+  return fill::sparse<probe::Buckets>(p, u, packed, vbits, n_words, k, off, rule, n_slots,
                                    slot_bits, idx_bits, offsets, cursor, positions, total,
                                    scratch, stream);
 }

@@ -1,19 +1,24 @@
-// The verified key -> (tf, slot) probes of the sparse index's three query
+// The verified key -> (tf, slot) probes of the sparse index's two query
 // engines, the two query rules, and the kernels built on them: the query
 // kernel (K6, K10, K11), the coverage kernels (K7, K10, K11; and K7's
 // ASCII-rows entry) and the window -> slot step of the positional fill
 // (K9, K10, K11; fill.cuh).
 //
-// Engines (aindex_tpu/index/sparse23.py:313-369 chooses between them):
-//   Quot   <- index/quotcuckoo.py:281 _probe: two 8-byte (fingerprint, tf)
-//             rows of the quotient cuckoo table, a separate slot column;
-//   Cuckoo <- index/cuckoo.py:142 cuckoo_query: two 16-byte (key_lo,
-//             key_hi, tf, slot) rows at mix64(key ^ seed) & (m - 1);
-//   Mphf   <- kernels/lookup.py:100 mphf_lookup with sparse23.py:51
-//             _query_kernel: the MPHF walk (fmix64 triple hash, unsigned
-//             % domain, three 2-bit g-values, owner node (sum % 3)), then
-//             the owner node's 16-byte record (checker key, tf, slot) in
-//             place of JAX's node -> slot, checker and tf reads.
+// Engines (aindex_tpu/index/sparse23.py:313-369 chooses between the
+// tables):
+//   Buckets <- index/quotcuckoo.py:281 _probe (the quotient cuckoo table,
+//              two rows of (fingerprint, tf) and a slot column) and
+//              index/cuckoo.py:142 cuckoo_query (the wide cuckoo table, two
+//              rows of (key_lo, key_hi, tf, slot)): both tables answer
+//              whether a key is present and with which tf and slot, so on
+//              the device both are one layout, the same keys, tf and slots
+//              as bucketed 16-byte records (kernels/buckets.py builds them
+//              from the host rows at upload);
+//   Mphf    <- kernels/lookup.py:100 mphf_lookup with sparse23.py:51
+//              _query_kernel: the MPHF walk (fmix64 triple hash, unsigned
+//              % domain, three 2-bit g-values, owner node (sum % 3)), then
+//              the owner node's 16-byte record (checker key, tf, slot) in
+//              place of JAX's node -> slot, checker and tf reads.
 // Rules (aindex_tpu/index/sparse23.py:553-578 _resolve_device):
 //   KEYS   the codes are probed as they are (canonical keys given);
 //   CANON  one probe of min(code, revcomp), strand from code <= revcomp
@@ -26,18 +31,21 @@
 // parameter array u (both host memory; the layouts are under each make())
 // and passed to the kernels by value. find() returns whether the key is
 // present and writes its tf and a reference from which slot() gives its
-// slot. Nothing is treated specially: an empty row matches only what its
-// bits match, as in the JAX versions.
+// slot. The answers are bit for bit the JAX versions', the keys no host
+// row holds included: the quotient probe masks a key to 2k bits, and an
+// empty row of the wide table matches one key (Buckets below).
 //
-// Bound: random reads of device memory. A probe reads one or two rows (8
-// or 16 bytes, each in its own 32-byte sector) or, for the walk, three
-// g-words (a g-vector of a few MB, which L2 holds) and then one 16-byte
-// node record, at addresses unrelated to its neighbours'; the tables of
-// the E. coli-scale index (100-400 MB) are far beyond the 50 MB L2.
-// Design: one thread per query or window; invalid inputs read nothing; the
-// second row is read only on a first miss and the slot only when asked
-// for; the 64-bit arithmetic (revcomp, the bijections, mix64 and the
-// walk's 64-bit remainders) hides under the memory latency.
+// Bound: random reads of device memory, about 33 G of them a second on an
+// H100 whether a read is 16, 32 or 64 bytes from one aligned block, and
+// half that at 128 (scripts/randread.cu, PERF.md section 6). A Buckets
+// probe reads one 64-byte bucket, and a second only for the few keys whose
+// bucket overflowed (about 1% at E. coli scale), present or absent; the
+// walk reads three g-words (a g-vector of a few MB, which L2 holds) and
+// then one 16-byte node record. The tables of the E. coli-scale index
+// (200-520 MB) are far beyond the 50 MB L2. Design: one thread per query
+// or window; invalid inputs read nothing; the record carries the slot; the
+// 64-bit arithmetic (revcomp, mix64 and the walk's 64-bit remainders)
+// hides under the memory latency.
 #pragma once
 
 #include "dna23.cuh"
@@ -58,100 +66,82 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   return x;
 }
 
-// xorshift-multiply bijection on the low w bits (quotcuckoo.py:103
-// _bij_jnp): each multiply wraps modulo 2^64 and is masked back to w bits.
-__device__ __forceinline__ uint64_t quot_bij(uint64_t x, uint64_t ma, uint64_t mb, int w) {
-  const uint64_t mask = w >= 64 ? ~0ull : ((1ull << w) - 1ull);
-  const int s = (w + 1) / 2;
-  x &= mask;
-  x ^= x >> s;
-  x = (x * ma) & mask;
-  x ^= x >> s;
-  x = (x * mb) & mask;
-  x ^= x >> s;
-  return x;
-}
+// The bucketed records of the quotient and the wide cuckoo tables
+// (kernels/buckets.py, which builds them from the host tables at upload):
+// 16-byte records (key_lo, key_hi, tf, slot), BUCKET to a 64-byte aligned
+// bucket; level l has 2^lb[l] buckets from bucket first[l], a key's bucket
+// the top lb[l] bits of h, with h = mix64(key ^ seed) at level 0 and
+// mix64(h ^ LEVEL_SALT) at each next one. A bucket keeps its first BUCKET
+// keys; the rest went on to the next level, and then its first record's
+// key_hi carries MARK. An empty record's key_hi is EMPTY_HI (bit 30),
+// which no key below 2^62 has. A key is first masked to the table's w bits
+// (2k for the quotient table, whose bijection masks so; 64 for the wide
+// table); a masked key at or above 2^62 is absent but for EMPTY_KEY, the
+// key an empty row of the wide table matches, whose host answer comes in
+// u. p = {records}; u = {BUCKET, w, seed, empty hit, empty tf, empty slot,
+// levels, first[0], lb[0], first[1], lb[1], ...}.
+constexpr int BUCKET = 4;
+constexpr int MAX_LEVELS = 8;
+constexpr unsigned MARK = 0x80000000u;
+constexpr uint64_t LEVEL_SALT = 0x2545F4914F6CDD1Dull;
+constexpr uint64_t EMPTY_KEY = 0xFFFFFFFF00000000ull;
 
-// The quotient cuckoo table: two halves of m rows of (fingerprint, tf),
-// each half its own array, and the two slot columns. A fingerprint match
-// is an exact key match (row + fingerprint invert the bijection).
-// p = {half0, half1, slot0, slot1}; u = {m, lb, w, m1a, m1b, m2a, m2b}.
-struct Quot {
-  const uint2* half0;
-  const uint2* half1;
-  const int* slot0;
-  const int* slot1;
-  uint64_t m;
-  int lb;
-  int w;
-  uint64_t m1a, m1b, m2a, m2b;
+struct Buckets {
+  const uint4* records;
+  uint64_t mask;
+  uint64_t seed;
+  unsigned empty_tf;
+  int empty_slot;
+  bool empty_hit;
+  int levels;
+  long long first[MAX_LEVELS];
+  int shift[MAX_LEVELS];  // 63 - lb: (h >> 1) >> shift is the top lb bits
 
-  static int make(const void* const* p, const unsigned long long* u, Quot* e) {
-    const uint64_t m = u[0];
-    if (m == 0 || (m & (m - 1)) != 0 || (1ull << u[1]) != m || u[2] > 64) return BAD;
-    *e = Quot{static_cast<const uint2*>(p[0]), static_cast<const uint2*>(p[1]),
-              static_cast<const int*>(p[2]), static_cast<const int*>(p[3]), m,
-              static_cast<int>(u[1]), static_cast<int>(u[2]), u[3], u[4], u[5], u[6]};
+  static int make(const void* const* p, const unsigned long long* u, Buckets* e) {
+    const int levels = static_cast<int>(u[6]);
+    if (u[0] != BUCKET || u[1] < 1 || u[1] > 64 || levels < 1 || levels > MAX_LEVELS)
+      return BAD;
+    *e = Buckets{static_cast<const uint4*>(p[0]), u[1] == 64 ? ~0ull : (1ull << u[1]) - 1ull,
+                 u[2], static_cast<unsigned>(u[4]), static_cast<int>(u[5]), u[3] != 0, levels,
+                 {}, {}};
+    for (int l = 0; l < levels; ++l) {
+      if (u[8 + 2 * l] > 62) return BAD;
+      e->first[l] = static_cast<long long>(u[7 + 2 * l]);
+      e->shift[l] = 63 - static_cast<int>(u[8 + 2 * l]);
+    }
     return 0;
   }
 
-  // ref: the row, plus m for the second half
+  // ref: the record's slot. One aligned 64-byte bucket a level, the next
+  // level only when the bucket is marked.
   __device__ __forceinline__ bool find(uint64_t key, unsigned* tf, long long* ref) const {
-    uint64_t h = quot_bij(key, m1a, m1b, w);
-    long long r = static_cast<long long>(h & (m - 1));
-    uint2 c = half0[r];
-    if (c.x == static_cast<unsigned>(h >> lb)) {
-      *tf = c.y;
-      *ref = r;
+    key &= mask;
+    if (key >> 62) {
+      if (key != EMPTY_KEY || !empty_hit) return false;
+      *tf = empty_tf;
+      *ref = empty_slot;
       return true;
     }
-    h = quot_bij(key, m2a, m2b, w);
-    r = static_cast<long long>(h & (m - 1));
-    c = half1[r];
-    if (c.x == static_cast<unsigned>(h >> lb)) {
-      *tf = c.y;
-      *ref = r + static_cast<long long>(m);
-      return true;
-    }
-    return false;
-  }
-
-  __device__ __forceinline__ long long slot(long long ref) const {
-    const long long mm = static_cast<long long>(m);
-    return ref < mm ? slot0[ref] : slot1[ref - mm];
-  }
-};
-
-// The wide cuckoo table: 2m rows of (key_lo, key_hi, tf, slot), row
-// mix64(key ^ seed1) & (m - 1) in the first half, mix64(key ^ seed2) &
-// (m - 1) + m in the second. p = {table}; u = {m, seed1, seed2}.
-struct Cuckoo {
-  const uint4* table;
-  uint64_t m;
-  uint64_t seed1, seed2;
-
-  static int make(const void* const* p, const unsigned long long* u, Cuckoo* e) {
-    const uint64_t m = u[0];
-    if (m == 0 || (m & (m - 1)) != 0) return BAD;
-    *e = Cuckoo{static_cast<const uint4*>(p[0]), m, u[1], u[2]};
-    return 0;
-  }
-
-  // ref: the row's slot
-  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf, long long* ref) const {
     const unsigned lo = static_cast<unsigned>(key);
     const unsigned hi = static_cast<unsigned>(key >> 32);
-    uint4 c = table[mix64(key ^ seed1) & (m - 1)];
-    if (c.x == lo && c.y == hi) {
-      *tf = c.z;
-      *ref = static_cast<int>(c.w);
-      return true;
-    }
-    c = table[(mix64(key ^ seed2) & (m - 1)) + m];
-    if (c.x == lo && c.y == hi) {
-      *tf = c.z;
-      *ref = static_cast<int>(c.w);
-      return true;
+    uint64_t h = mix64(key ^ seed);
+#pragma unroll
+    for (int l = 0; l < MAX_LEVELS; ++l) {
+      if (l == levels) break;
+      const uint4* b = records + (first[l] + static_cast<long long>((h >> 1) >> shift[l])) * BUCKET;
+      uint4 r[BUCKET];
+#pragma unroll
+      for (int j = 0; j < BUCKET; ++j) r[j] = b[j];
+#pragma unroll
+      for (int j = 0; j < BUCKET; ++j) {
+        if (r[j].x == lo && (r[j].y & ~MARK) == hi) {
+          *tf = r[j].z;
+          *ref = static_cast<int>(r[j].w);
+          return true;
+        }
+      }
+      if (!(r[0].y & MARK)) return false;
+      h = mix64(h ^ LEVEL_SALT);
     }
     return false;
   }
@@ -245,7 +235,9 @@ __device__ __forceinline__ bool resolve(const E& e, uint64_t code, int k, unsign
 
 // One thread per query: optional ASCII [n, k] rows -> code (a non-ACGT
 // byte makes the row invalid), the rule's probes, tf (0 when absent or
-// invalid), optional slot (-1) and strand (0).
+// invalid), optional slot (-1) and strand (0). Codes, mask and answers
+// stream past L2 (__ldcs / __stcs: each is touched once), leaving it to
+// the table.
 template <class E, int RULE, bool ASCII, bool MASK, bool SLOT, bool STRAND>
 __global__ void query_kernel(E e, const long long* __restrict__ codes,
                              const unsigned char* __restrict__ valid,
@@ -260,16 +252,16 @@ __global__ void query_kernel(E e, const long long* __restrict__ codes,
     if (ASCII) {
       ok = dna23::ascii_window64(ascii + i * k, k, &code);
     } else {
-      code = static_cast<uint64_t>(codes[i]);
-      if (MASK) ok = valid[i] != 0;
+      code = static_cast<uint64_t>(__ldcs(codes + i));
+      if (MASK) ok = __ldcs(valid + i) != 0;
     }
     unsigned tf = 0u;
     long long ref = 0;
     int strand = 0;
     const bool hit = ok && resolve<E, RULE>(e, code, k, &tf, &ref, &strand);
-    tf_out[i] = hit ? tf : 0u;
-    if (SLOT) slot_out[i] = hit ? static_cast<int>(e.slot(ref)) : -1;
-    if (STRAND) strand_out[i] = hit ? strand : 0;
+    __stcs(tf_out + i, hit ? tf : 0u);
+    if (SLOT) __stcs(slot_out + i, hit ? static_cast<int>(e.slot(ref)) : -1);
+    if (STRAND) __stcs(strand_out + i, hit ? strand : 0);
   }
 }
 

@@ -1,7 +1,7 @@
 // K7 quotcov23: per-position k-mer coverage of many rows of packed ingest
 // at once in the quotient cuckoo table: unpack -> window -> the query rule
-// -> both quotient probes -> valid mask -> cutoff, uint32[rows, stride - k]
-// out (probe.cuh coverage_kernel on probe::Quot).
+// -> the bucket probe -> valid mask -> cutoff, uint32[rows, stride - k]
+// out (probe.cuh coverage_kernel on probe::Buckets).
 //
 // Replaces aindex_tpu/index/quotcuckoo.py:353 quot_tf_windows_packed, the
 // fused coverage kernel of the sparse index (and the cutoff that
@@ -12,14 +12,15 @@
 // Its entry quotcov23_rows replaces aindex_tpu/index/quotcuckoo.py:329
 // quot_tf_windows: the same coverage from ASCII rows (uint8[B, L] ->
 // uint32[B, L - k + 1]), canonical probes, no cutoff (probe.cuh
-// coverage_rows_kernel on probe::Quot).
+// coverage_rows_kernel on probe::Buckets).
 //
-// Bound: random reads of the 8-byte table rows, as in quot23; the packed
-// input is 0.375 bytes a base (ASCII rows 1 byte) and read coalesced.
-// Design: one thread per (row, window), with quot23's probe.
+// Bound: random reads of the table, as in quot23: one aligned 64-byte
+// bucket a window (a second for the ~1% of keys whose bucket overflowed);
+// the packed input is 0.375 bytes a base (ASCII rows 1 byte) and read
+// coalesced. Design: one thread per (row, window), with quot23's probe.
 #include "probe.cuh"
 
 DNA13_EXPORT_ERROR_STRING
 
-PROBE_COVERAGE_ENTRY(quotcov23, probe::Quot)
-PROBE_COVERAGE_ROWS_ENTRY(quotcov23_rows, probe::Quot)
+PROBE_COVERAGE_ENTRY(quotcov23, probe::Buckets)
+PROBE_COVERAGE_ROWS_ENTRY(quotcov23_rows, probe::Buckets)

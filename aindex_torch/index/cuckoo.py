@@ -8,8 +8,9 @@ Host copy of aindex_tpu/index/cuckoo.py's ``CuckooTable``: the verified
 slot)``; row ``mix64(key ^ seed_h) & (m - 1)`` (+ ``m`` for the second
 half); empty marker ``key_hi = 0xFFFFFFFF`` (keys are < 2^62). The build
 is the native random-walk insertion of native/aindex_host.cpp (the one
-aindex_tpu runs), so the table is byte-identical to aindex_tpu's; K10
-(kernels/cuckoo.py, ``csrc/cuckoo64.cu``) probes it on the device.
+aindex_tpu runs), so the table is byte-identical to aindex_tpu's. On the
+device its rows become bucketed records (kernels/buckets.py), which K10
+(kernels/cuckoo.py, ``csrc/cuckoo64.cu``) probes.
 """
 
 from __future__ import annotations
@@ -47,11 +48,12 @@ class CuckooTable:
         self._tables: CuckooTables | None = None
 
     def tables(self, device) -> CuckooTables:
-        """The table on ``device`` (uploaded once, then cached)."""
+        """The table on ``device`` (built once, then cached): its rows as
+        the bucketed records K10 probes (``CuckooTables.from_host``)."""
         device = torch.device(device)
         if self._tables is None or self._tables.device != device:
-            t = torch.from_numpy(self.table_host.view(np.int32)).to(device, copy=True)
-            self._tables = CuckooTables(t.contiguous(), self.m, self.seed1, self.seed2)
+            self._tables = CuckooTables.from_host(self.table_host, self.m, self.seed1,
+                                                  self.seed2, device)
         return self._tables
 
     def release_device(self) -> None:

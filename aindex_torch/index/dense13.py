@@ -346,12 +346,12 @@ class Dense13Index:
 
     def sequence_coverage(self, seq: str, cutoff: int = 0) -> np.ndarray:
         """Per-position forward tf vector over a sequence."""
-        return cov_kernels.coverage_dense(self.tf_query, seq, cutoff)
+        return cov_kernels.coverage_dense(self.tf_query, seq, K13, cutoff)
 
     def sequence_coverage_batch(self, seqs: list[str], cutoff: int = 0
                                 ) -> list[np.ndarray]:
         """Coverage for many sequences in few launches (length classes)."""
-        return cov_kernels.coverage_dense_batch(self.tf_query, seqs, cutoff)
+        return cov_kernels.coverage_dense_batch(self.tf_query, seqs, K13, cutoff)
 
     # -- statistics ------------------------------------------------------
 

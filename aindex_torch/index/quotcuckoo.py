@@ -18,8 +18,10 @@ half ``h``:
     cell = (fp, tf)                        8 bytes
 
 Slot ids (needed only by the pfid and position paths) live in parallel
-int32 columns read through the winning row. On the device each half and
-each slot column is its own tensor (``QuotCuckoo.tables``).
+int32 columns read through the winning row. On the device the occupied
+rows become bucketed 16-byte (key, tf, slot) records, each key recovered
+by inverting its half's bijection (``QuotCuckoo.tables``,
+kernels/buckets.py).
 
 Eligibility: fp must fit 31 bits (0xFFFFFFFF is the empty marker), i.e.
 ``lb >= 2k - 31``; an ineligible ``(n, k)`` is served by the wide cuckoo
@@ -120,19 +122,12 @@ class QuotCuckoo:
         self._tables: QuotTables | None = None
 
     def tables(self, device) -> QuotTables:
-        """The table on ``device`` (uploaded once, then cached): each half
-        int32[m, 2] and each slot column int32[m] as its own tensor."""
+        """The table on ``device`` (built once, then cached): its rows as
+        the bucketed records K6, K7 and K9 probe (``QuotTables.from_host``)."""
         device = torch.device(device)
         if self._tables is None or self._tables.device != device:
-            fp_tf = torch.from_numpy(self.fp_tf_host.view(np.int32))
-            slot = torch.from_numpy(self.slot_host)
-            m = self.m
-            self._tables = QuotTables(
-                fp_tf[:m].to(device, copy=True).contiguous(),
-                fp_tf[m:].to(device, copy=True).contiguous(),
-                slot[:m].to(device, copy=True).contiguous(),
-                slot[m:].to(device, copy=True).contiguous(),
-                m, self.lb, self.w, tuple(int(x) for x in self.mults))
+            self._tables = QuotTables.from_host(self.fp_tf_host, self.slot_host, self.m,
+                                                self.lb, self.w, self.mults, device)
         return self._tables
 
     def release_device(self) -> None:
@@ -219,8 +214,8 @@ class QuotCuckoo:
 
     def lookup_host(self, keys: np.ndarray
                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(found, tf, slot) host-side mirror of the device probe; the
-        second row is read only for first-probe misses."""
+        """(found, tf, slot) on the host rows, as aindex_tpu's device probe
+        reads them; the second row is read only for first-probe misses."""
         keys = np.asarray(keys, dtype=np.uint64)
         mask = np.uint64(self.m - 1)
         lbs = np.uint64(self.lb)

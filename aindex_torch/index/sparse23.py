@@ -277,8 +277,8 @@ class Sparse23Index(SharedQueryOps):
     @property
     def quot(self) -> quotcuckoo.QuotCuckoo | None:
         """The preferred engine (index/quotcuckoo.py), built on first use:
-        verified (key -> tf) in two 8-byte row probes plus a slot column;
-        None when the fingerprint-width floor makes the layout wasteful
+        the quotient cuckoo table (its device form: kernels/quot.py
+        ``QuotTables``); None when the fingerprint-width floor makes the layout wasteful
         for this (n, k), or k > 30."""
         if self._quot is None and self.k <= 30 and quotcuckoo.eligible(self.n, self.k):
             self._quot = quotcuckoo.QuotCuckoo.build(
@@ -287,8 +287,9 @@ class Sparse23Index(SharedQueryOps):
 
     @property
     def cuckoo(self) -> CuckooTable | None:
-        """The wide engine (index/cuckoo.py), built on first use: verified
-        (key -> tf, slot) in two 16-byte row probes; None for k > 30."""
+        """The wide engine (index/cuckoo.py), built on first use: the wide
+        cuckoo table (its device form: kernels/cuckoo.py ``CuckooTables``);
+        None for k > 30."""
         if self._cuckoo is None and self.k <= 30:
             self._cuckoo = CuckooTable.build(
                 self.checker_host, self.tf_host, np.arange(self.n, dtype=np.int32))
@@ -545,7 +546,7 @@ class Sparse23Index(SharedQueryOps):
         """Verified tf per pre-encoded 2-bit k-mer code: a ``torch.uint32``
         tensor shaped like ``codes`` on the index's device, one launch of
         the engine's query kernel (on the quotient table: revcomp +
-        canonical + two 8-byte row probes, no slot column). ``valid=None``
+        canonical + one bucket probe, no slot output). ``valid=None``
         asserts every code is a valid k-mer."""
         codes, valid, shape = codes_tensor(codes, valid, self.device)
         return probe.query(self.tables, codes, valid, k=self.k, rule=self.rule).reshape(shape)

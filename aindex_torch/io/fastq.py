@@ -137,8 +137,10 @@ def compute_reads(input1, input2: str | None, read_type: str,
     A single uncompressed input goes through the native reader
     (``aindex_torch.native``, the repository's ``native/aindex_host.cpp``)
     unless ``use_native`` is False; it writes the same files as the Python
-    reader. ``use_native=True`` raises when the native library cannot be
-    built or does not take the input; ``None`` then uses the Python reader.
+    reader. Gzipped and multi-file inputs always take the Python reader,
+    whatever ``use_native`` says. For a single uncompressed input,
+    ``use_native=True`` raises when the native reader cannot run it;
+    ``None`` then uses the Python reader.
     """
     inputs = list(input1) if isinstance(input1, (list, tuple)) else [input1]
     if read_type != "fastq" and input2 is not None:
@@ -166,9 +168,9 @@ def compute_reads(input1, input2: str | None, read_type: str,
             if read_type == "fasta":
                 result["header"] = header_path
             return result
-    if use_native:
-        raise RuntimeError("the native reader does not take this input "
-                           f"({read_type}, {len(inputs)} file(s), gzip {gz_input})")
+        if use_native:
+            raise RuntimeError("the native reader was asked for and could not run "
+                               f"({read_type}, {inputs[0]})")
 
     n_reads = 0
     start = 0

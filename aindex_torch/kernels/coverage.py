@@ -72,17 +72,21 @@ def coverage13_packed(table: torch.Tensor, packed: torch.Tensor, vbits: torch.Te
     return out.view(torch.uint32)
 
 
-def coverage_dense(table: torch.Tensor, seq: str, cutoff: int = 0) -> np.ndarray:
+def coverage_dense(table: torch.Tensor, seq: str, k: int, cutoff: int = 0) -> np.ndarray:
     """Forward coverage of one sequence: one packed row through K4. The
-    result has the table's dtype, as aindex_tpu's has."""
-    return coverage_dense_batch(table, [seq], cutoff)[0]
+    result has the table's dtype, as aindex_tpu's has. K4 serves the dense
+    13-mer table only: any other ``k`` raises ValueError."""
+    return coverage_dense_batch(table, [seq], k, cutoff)[0]
 
 
-def coverage_dense_batch(table: torch.Tensor, seqs: list[str],
+def coverage_dense_batch(table: torch.Tensor, seqs: list[str], k: int,
                          cutoff: int = 0) -> list[np.ndarray]:
     """Coverage of many sequences, one K4 launch per length class
     (``codec.coverage_row_batches``). Results have the table's dtype (empty
-    uint32 below 13 bases)."""
+    uint32 below 13 bases). ``k`` stands where aindex_tpu takes it and must
+    be 13."""
+    if k != K13:
+        raise ValueError(f"dense coverage serves k={K13} only, got k={k}")
     raws = [s.encode("ascii") for s in seqs]
     out = [np.zeros(0, dtype=np.uint32)] * len(seqs)
     dtype = _NP_DTYPES[table.dtype]

@@ -1,71 +1,56 @@
 """K10: the wide cuckoo engine of the sparse index.
 
-``CuckooTables`` is the table of index/cuckoo.py on one device, the
-engine of ``kernels/probe.py``'s query, coverage and fill (kernel
-``csrc/cuckoo64.cu``); ``CuckooTables.probe_plain`` is the plain version
-of aindex_tpu/index/cuckoo.py:142 ``cuckoo_query``: two rows of (key_lo,
-key_hi, tf, slot) per key, at ``mix64(key ^ seed) & (m - 1)`` in the first
-half and ``+ m`` in the second. Keys are int64 tensors holding uint64 bits;
-the seeds, which exceed int64, travel as their bit patterns. The empty
-marker key_hi = 0xFFFFFFFF reads -1 in the int32 storage and never equals
-the high half of a key below 2^62 (k <= 30).
+``CuckooTables`` is the table of index/cuckoo.py on one device as bucketed
+records (``kernels/buckets.py``), the engine of ``kernels/probe.py``'s
+query, coverage and fill (kernel ``csrc/cuckoo64.cu``); its
+``probe_plain`` answers as aindex_tpu/index/cuckoo.py:142 ``cuckoo_query``
+does on the host rows (key_lo, key_hi, tf, slot): a key is present when a
+row holds it. Keys are int64 tensors holding uint64 bits; the seeds, which
+exceed int64, travel as their bit patterns. An empty row (0, 0xFFFFFFFF,
+0, 0) matches the one key 0xFFFFFFFF_00000000 when JAX compares whole
+rows; that key's answer is taken from the host rows at upload.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from aindex_torch.kernels.buckets import EMPTY_KEY, BucketTables, build_records
 from aindex_torch.kernels.lookup import _s64, mix64
 
 
 @dataclasses.dataclass(frozen=True)
-class CuckooTables:
-    """table int32[2m, 4] rows (key_lo, key_hi, tf, slot), m rows a half,
-    and the halves' seeds (Python ints, uint64 values)."""
-    table: torch.Tensor
-    m: int
-    seed1: int
-    seed2: int
+class CuckooTables(BucketTables):
+    """The wide cuckoo table on one device as bucketed records, keyed by
+    the whole 64-bit key, level 0 hashed with the table's ``seed1``."""
 
     QUERY = "cuckoo64"
     COVERAGE = "cuckoocov64"
     FILL = "cuckoofill64"
 
-    @property
-    def device(self) -> torch.device:
-        return self.table.device
+    @classmethod
+    def from_host(cls, table: np.ndarray, m: int, seed1: int, seed2: int,
+                  device) -> "CuckooTables":
+        """The records of the host table (index/cuckoo.py: uint32[2m, 4]
+        rows, m a half, key_hi = 0xFFFFFFFF for an empty row), built on
+        ``device``."""
+        rows = torch.from_numpy(np.ascontiguousarray(table).view(np.int32)).to(device)
+        rows = rows[rows[:, 1] != -1]
+        keys = (rows[:, 0].to(torch.int64) & 0xFFFFFFFF) | (rows[:, 1].to(torch.int64) << 32)
+        records, levels = build_records(keys, rows[:, 2], rows[:, 3], seed1)
+        return cls(records, levels, seed1, 64, empty_answer(table, m, seed1, seed2))
 
-    def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.table,)
 
-    def engine_args(self) -> tuple[list, list]:
-        """probe.cuh ``Cuckoo``: p = {table}, u = {m, seed1, seed2}."""
-        return [self.table.data_ptr()], [self.m, self.seed1, self.seed2]
-
-    def check(self) -> None:
-        t = self.table
-        if t.dtype != torch.int32 or t.shape != (2 * self.m, 4) or not t.is_contiguous():
-            raise ValueError(f"table must be a contiguous int32[{2 * self.m}, 4] tensor")
-        if self.m <= 0 or self.m & (self.m - 1):
-            raise ValueError(f"m={self.m} is not a power of two")
-
-    def check_k(self, k: int) -> None:
-        if not 1 <= k <= 31:
-            raise ValueError(f"k={k} is outside 1..31")
-
-    def probe_plain(self, keys: torch.Tensor):
-        """(hit, tf int64, slot int64) per key: both rows' verified
-        compares of the whole 64-bit key, the first half winning."""
-        lo, hi = keys & 0xFFFFFFFF, (keys >> 32) & 0xFFFFFFFF
-        hit = torch.zeros_like(keys, dtype=torch.bool)
-        tf = torch.zeros_like(keys)
-        slot = torch.full_like(keys, -1)
-        for base, seed in ((self.m, self.seed2), (0, self.seed1)):
-            c = self.table[(mix64(keys ^ _s64(seed)) & (self.m - 1)) + base].to(torch.int64)
-            h = ((c[:, 0] & 0xFFFFFFFF) == lo) & ((c[:, 1] & 0xFFFFFFFF) == hi)
-            hit = hit | h
-            tf = torch.where(h, c[:, 2] & 0xFFFFFFFF, tf)
-            slot = torch.where(h, c[:, 3], slot)
-        return hit, tf, slot
+def empty_answer(table: np.ndarray, m: int, seed1: int, seed2: int) -> tuple[bool, int, int]:
+    """(hit, tf, slot) of EMPTY_KEY on the host rows, as JAX's row compare
+    gives it: its row in the first half, else in the second."""
+    key = torch.tensor([_s64(EMPTY_KEY)])
+    for base, seed in ((0, seed1), (m, seed2)):
+        r = int(mix64(key ^ _s64(seed))[0] & (m - 1)) + base
+        lo, hi, tf, slot = (int(x) for x in table[r:r + 1].view(np.int32)[0])
+        if lo == 0 and hi == -1:  # EMPTY_KEY's two words
+            return True, tf & 0xFFFFFFFF, slot
+    return False, 0, -1

@@ -48,7 +48,7 @@ KERNEL_PAIRS = _cuda.KERNELS["posfill_pairs"]
 #: in-chunk window offsets are packed into this many low bits of a record
 DELTA_BITS = 24
 #: posbucket's engine ids (csrc/posbucket.cu), by the engine's fill entry
-_ENGINE = {"posfill": 1, "cuckoofill64": 2, "mphffill": 3}
+_ENGINE = {"posfill": 1, "cuckoofill64": 1, "mphffill": 2}
 #: K8 scans at most this many items a launch (csrc/csr.cu PIECE)
 CSR_PIECE = 1 << 30
 #: K14's radix histogram tile and scan tile (csrc/radix.cuh, csrc/scan.cuh)

@@ -1,15 +1,16 @@
 """Verified queries and coverage of the sparse index on any of its three
-device engines, with the plain PyTorch versions of both.
+device tables, with the plain PyTorch versions of both.
 
-The engines are tables on one device, each a class with the same small
-interface (``QuotTables`` in kernels/quot.py, ``CuckooTables`` in
-kernels/cuckoo.py, ``MphfTables`` in kernels/lookup.py):
+The tables lie on one device, each a class with the same small interface
+(``QuotTables`` in kernels/quot.py and ``CuckooTables`` in
+kernels/cuckoo.py, both bucketed records of kernels/buckets.py;
+``MphfTables`` in kernels/lookup.py):
 
 * ``check()`` raises unless its tensors have the shapes and types its
   kernels take; ``check_k(k)`` raises for a k it cannot hold;
 * ``tensors()`` its tensors, ``device`` theirs;
 * ``engine_args()`` the pointer and parameter arrays of its C entries
-  (``csrc/probe.cuh``: ``Quot``, ``Cuckoo`` and ``Mphf``'s ``make``);
+  (``csrc/probe.cuh``: ``Buckets``' and ``Mphf``'s ``make``);
 * ``probe_plain(keys)`` the plain version of its probe: (hit bool, tf
   int64, slot int64) per int64 key;
 * ``QUERY``, ``COVERAGE`` and ``FILL``, the names of its kernels' C

@@ -14,90 +14,69 @@ Counterparts of aindex_tpu/index/quotcuckoo.py's device kernels:
   canonical probes, no cutoff.
 
 Both are ``kernels/probe.py``'s ``query`` and ``coverage`` on a
-``QuotTables``; ``quot23_plain``, ``quotcov23_plain`` and
-``quot_tf_windows_plain`` are their plain PyTorch versions. Codes and keys are int64 tensors holding uint64 bit
-patterns. The bijection masks to 2k bits after each multiply, so its int64
-products, which wrap modulo 2^64, keep their low bits exact; the empty-row
-marker 0xFFFFFFFF reads -1 in the int32 storage and never equals a
-fingerprint of 31 bits or fewer.
+``QuotTables``: the table's rows as bucketed records
+(``kernels/buckets.py``), each key recovered from its row by inverting
+the bijection; ``quot23_plain``, ``quotcov23_plain`` and
+``quot_tf_windows_plain`` are their plain PyTorch versions. Codes and keys
+are int64 tensors holding uint64 bit patterns. The bijection masks to 2k
+bits after each multiply, so its int64 products, which wrap modulo 2^64,
+keep their low bits exact; the empty-row marker 0xFFFFFFFF reads -1 in the
+int32 storage and never equals a fingerprint of 31 bits or fewer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from aindex_torch.kernels import _cuda, probe
+from aindex_torch.kernels.buckets import BucketTables, build_records
 from aindex_torch.kernels.encode import ascii_to_base_codes, window_codes
 from aindex_torch.kernels.probe import CANON
 
 KERNEL_ROWS = _cuda.KERNELS["quotcov23_rows"]
 
 
+#: the level-0 seed of the quotient table's buckets (any constant serves:
+#: the keys are a bijection's preimages, not the hashes)
+QUOT_SEED = 0x5851F42D4C957F2D
+
+
 @dataclasses.dataclass(frozen=True)
-class QuotTables:
-    """The quotient cuckoo table on one device: each half's ``(fp, tf)``
-    rows as its own int32[m, 2] tensor, the two int32[m] slot columns, and
-    the table's shape and multipliers (index/quotcuckoo.py)."""
-    half0: torch.Tensor
-    half1: torch.Tensor
-    slot0: torch.Tensor
-    slot1: torch.Tensor
-    m: int
-    lb: int
-    w: int
-    mults: tuple[int, int, int, int]
+class QuotTables(BucketTables):
+    """The quotient cuckoo table on one device as bucketed records
+    (``kernels/buckets.py``), keys masked to the table's w = 2k bits as
+    its bijection masks them."""
 
     QUERY = "quot23"
     COVERAGE = "quotcov23"
     FILL = "posfill"
 
-    @property
-    def device(self) -> torch.device:
-        return self.half0.device
-
-    def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.half0, self.half1, self.slot0, self.slot1)
-
-    def engine_args(self) -> tuple[list, list]:
-        """probe.cuh ``Quot``: p = {half0, half1, slot0, slot1}, u = {m, lb,
-        w, m1a, m1b, m2a, m2b}."""
-        return ([x.data_ptr() for x in self.tensors()],
-                [self.m, self.lb, self.w, *self.mults])
-
-    def check(self) -> None:
-        for name in ("half0", "half1"):
-            x = getattr(self, name)
-            if x.dtype != torch.int32 or x.shape != (self.m, 2) or not x.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous int32[{self.m}, 2] tensor")
-        for name in ("slot0", "slot1"):
-            x = getattr(self, name)
-            if x.dtype != torch.int32 or x.shape != (self.m,) or not x.is_contiguous():
-                raise ValueError(f"{name} must be a contiguous int32[{self.m}] tensor")
-        if self.m <= 0 or self.m & (self.m - 1) or (1 << self.lb) != self.m:
-            raise ValueError(f"m={self.m} is not 2^lb (lb={self.lb})")
+    @classmethod
+    def from_host(cls, fp_tf: np.ndarray, slot: np.ndarray, m: int, lb: int, w: int,
+                  mults, device) -> "QuotTables":
+        """The records of the host table (index/quotcuckoo.py: ``fp_tf``
+        uint32[2m, 2] rows (fingerprint, tf), ``slot`` int32[2m]), built on
+        ``device``: each occupied row's key is its bijection inverted at
+        (fingerprint << lb) | row, checked to probe back to that row."""
+        fp_tf = torch.from_numpy(np.ascontiguousarray(fp_tf).view(np.int32)).to(device)
+        slot = torch.from_numpy(np.ascontiguousarray(slot, dtype=np.int32)).to(device)
+        fp = fp_tf[:, 0].to(torch.int64) & 0xFFFFFFFF
+        rows = torch.nonzero(fp != 0xFFFFFFFF).reshape(-1)
+        h = (fp[rows] << lb) | (rows & (m - 1))
+        second = rows >= m
+        m1, m2 = tuple(int(x) for x in mults[:2]), tuple(int(x) for x in mults[2:])
+        keys = torch.where(second, bij_inverse(h, *m2, w), bij_inverse(h, *m1, w))
+        if not bool((torch.where(second, bij(keys, *m2, w), bij(keys, *m1, w)) == h).all()):
+            raise RuntimeError("a quotient row's key does not probe back to its row")
+        records, levels = build_records(keys, fp_tf[rows, 1], slot[rows], QUOT_SEED)
+        return cls(records, levels, QUOT_SEED, w)
 
     def check_k(self, k: int) -> None:
         if not 1 <= k <= 31 or 2 * k != self.w:
             raise ValueError(f"k={k} does not match the table's code width w={self.w}")
-
-    def probe_plain(self, keys: torch.Tensor):
-        """(hit, tf int64, slot int64) per key: both halves' verified
-        probes, the first half winning, as ``_probe`` and its callers
-        resolve them."""
-        out = []
-        for half, slots, ma, mb in ((self.half0, self.slot0, *self.mults[:2]),
-                                    (self.half1, self.slot1, *self.mults[2:])):
-            h = bij(keys, ma, mb, self.w)
-            r = h & (self.m - 1)
-            c = half[r]
-            hit = c[:, 0].to(torch.int64) == (h >> self.lb)
-            out.append((hit, c[:, 1].to(torch.int64) & 0xFFFFFFFF, slots[r].to(torch.int64)))
-        (hit1, tf1, sl1), (hit2, tf2, sl2) = out
-        tf = torch.where(hit1, tf1, torch.where(hit2, tf2, 0))
-        slot = torch.where(hit1, sl1, torch.where(hit2, sl2, -1))
-        return hit1 | hit2, tf, slot
 
 
 def bij(x: torch.Tensor, ma: int, mb: int, w: int) -> torch.Tensor:
@@ -110,6 +89,19 @@ def bij(x: torch.Tensor, ma: int, mb: int, w: int) -> torch.Tensor:
     x = (x * ma) & mask
     x = x ^ (x >> s)
     x = (x * mb) & mask
+    return x ^ (x >> s)
+
+
+def bij_inverse(x: torch.Tensor, ma: int, mb: int, w: int) -> torch.Tensor:
+    """The inverse of ``bij`` on values below 2^w (w <= 62): each xorshift
+    by s = (w + 1) / 2 >= w / 2 is its own inverse, and each odd
+    multiplier has one modulo 2^w."""
+    mask = (1 << w) - 1
+    s = (w + 1) // 2
+    x = x ^ (x >> s)
+    x = (x * pow(mb, -1, 1 << w)) & mask
+    x = x ^ (x >> s)
+    x = (x * pow(ma, -1, 1 << w)) & mask
     return x ^ (x >> s)
 
 

@@ -65,6 +65,9 @@ class BuildConfig:
     build_aindex: bool = True
     keep_dat: bool = False
     chunk: int = 1 << 22
+    lowercase_ok: bool = True     # accepted and unused, as in aindex_tpu: the
+    # packers read lowercase bases always; kept so that aindex_tpu's
+    # positional field order binds the same fields
     mesh: object | None = None
     n_devices: int | None = None
     progress: bool = False        # live per-phase progress bars / log lines

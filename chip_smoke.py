@@ -7,11 +7,19 @@ engines) and over the reference-built golden sets.
 
 Run from the repository root, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [parent=DIR]
+
+``parent=DIR`` names a checkout of an earlier commit (``git archive`` of it
+unpacked into ``dist/parent``): its K6 and K10 (``quot23.cu``,
+``cuckoo64.cu``) are then built and timed beside this tree's, on the
+layout that checkout uploads, in steps 7 and 13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
    builds the sixteen CUDA kernels (K1-K16, twenty-seven C entries) from
-   aindex_torch/csrc, one nvcc per source, all started together.
+   aindex_torch/csrc, one nvcc per source, all started together; then
+   times 2^26 random reads of 16, 32, 64 and 128 bytes from a 512 MiB
+   buffer (scripts/randread.cu), the cost that sets K6's and K10's bucket
+   width.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
    (all outputs are integers), and times both with CUDA events; K3 also on
@@ -40,7 +48,16 @@ Run from the repository root, with no arguments:
    windows of the read matrix + np.unique).
 7. Holds K6 (quotient cuckoo queries, every mode, the forward-else-
    reverse-complement rule of reference-keyed indexes included) and K7
-   (coverage) against their plain versions on the index built in step 6.
+   (coverage) against their plain versions on the index built in step 6;
+   prints the probes' mix on K6's batch (the share of present keys that
+   JAX's second row answers, the buckets a query reads) and the device
+   bytes of the bucketed records beside JAX's layout (at most 1.5x);
+   holds K6 on the keys where the buckets could differ from JAX's rows
+   (overflow levels, marked buckets, the first and last bucket, absent
+   keys in a present key's bucket, codes above 2k bits, 0xFFFFFFFF_00000000,
+   0, 2^62 - 1, 2^64 - 1) to its plain version and to the host table's own
+   probe under every rule; with ``parent=DIR``, that checkout's K6 on its
+   own layout, equal answers, each timed twice in turns.
 8. Drives the unpacked (ASCII-in and codes-in) functions on the corpus at
    full size: ``count_batch_13`` (and ``dense13._count_step``) over the read
    matrix in 28 row batches of ~2^22 bytes, equal to the oracle table;
@@ -88,7 +105,8 @@ Run from the repository root, with no arguments:
    k = 29: query, coverage and fill) against their plain versions at the
    path's shapes, and the fill at step 10's edge shapes; K11's query also
    on keys whose walk ends at an unassigned node, the key in slot 0, 0 and
-   2^62 - 1, under the KEYS and CANON rules.
+   2^62 - 1, under the KEYS and CANON rules; K10 as step 7 holds K6 (the
+   mix, the device bytes, the edge keys, the parent's K10).
 14. Loads the reference-built tests/golden_ref sets through
    ``AIndex.load_from_prefix``: p.23 against p.23.dat and the positions
    of p.reads, p.13 (re-keyed by its emphf .pf) against counts of p.reads.
@@ -113,7 +131,8 @@ Run from the repository root, with no arguments:
    world-of-one path's shape.
 17. Prints K3's three entries, K11's three, the rows built on
    csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
-   K10 fill) and K14 beside their earlier times, with their launches a
+   K10 fill), K14, and K6, K7's two entries and K10's query and coverage
+   beside their earlier times, with their launches a
    call, from a torch.profiler trace of twenty calls in a fresh process
    (``chip_smoke.py --launches``); then
    the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
@@ -124,6 +143,7 @@ Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
 """
 
+import functools
 import hashlib
 import itertools
 import json
@@ -348,17 +368,19 @@ def report(card, name, shape, rec):
           f"{rec['plain_ms'] / rec['ms']:.1f}x ({card})")
 
 
-#: earlier chip_smoke times (ms) on NVIDIA H100 80GB HBM3, 700.00 W: K3's
-#: three entries (default cache policy) and K11's three (the walk's node ->
-#: slot, checker and tf reads) before the streamed codes and the node
-#: records, and the rows on the onesweep sort and the
+#: earlier chip_smoke times (ms) on NVIDIA H100 80GB HBM3, 700.00 W, as
+#: PERF.md section 6 records them from the calls before the bucketed K6 and
+#: K10: K3's and K11's three entries, the rows on the onesweep sort and the
 #: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
-#: entries, the K10 fill) and K14 as last measured
-EARLIER_MS = {"gather13": 0.9509, "gather13_table": 1.2779, "gather13_total": 2.9164,
-              "mphfwalk": 5.0373, "mphfcov": 0.1163, "mphffill": 0.6076,
+#: entries, the K10 fill), K14, and the rows on the quotient and wide
+#: tables' two-row probes (K6, K7's two entries, K10's query and coverage)
+EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
+              "mphfwalk": 2.5804, "mphfcov": 0.0574, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
-              "posbucket": 0.3931, "posfill_pairs": 0.5888}
+              "posbucket": 0.3931, "posfill_pairs": 0.5888, "quot23": 3.4678,
+              "quotcov23": 0.0516, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
+              "cuckoocov64": 0.0545}
 
 
 def launches_per_call(fn, calls: int = 20) -> float:
@@ -564,16 +586,353 @@ def fresh_launches_main() -> int:
     return 0
 
 
-def distinct_probed_rows(t, keys) -> int:
-    """Distinct rows of the quotient table ``t`` that the probes of the
-    canonical ``keys`` read (the second half only for first-half misses)."""
+def distinct_probed_rows(index, keys) -> int:
+    """Distinct rows of the quotient table's host layout (the index's
+    ``QuotCuckoo``: JAX's two halves of (fingerprint, tf) rows) that the
+    probes of the canonical ``keys`` read (the second half only for
+    first-half misses): a K6 probe's work, whatever layout the device
+    reads."""
     import torch
     from aindex_torch.kernels.quot import bij
-    h1 = bij(keys, *t.mults[:2], t.w)
-    r1 = h1 & (t.m - 1)
-    miss = t.half0[r1][:, 0].to(torch.int64) != (h1 >> t.lb)
-    r2 = bij(keys[miss], *t.mults[2:], t.w) & (t.m - 1)
+    qc = index.quot
+    mults = [int(x) for x in qc.mults]
+    r1 = bij(keys, *mults[:2], qc.w) & (qc.m - 1)
+    r2 = bij(keys[~old_first_hit(index, keys)], *mults[2:], qc.w) & (qc.m - 1)
     return int(torch.unique(r1).numel()) + int(torch.unique(r2).numel())
+
+
+# -- the bucketed tables of K6 and K10 ----------------------------------------
+
+#: the argument that names a checkout of the parent commit, whose K6 and
+#: K10 are then timed beside this tree's (``parent=dist/parent``)
+PARENT_ARG = "parent="
+PARENT: str | None = None
+WIDTHS = (16, 32, 64, 128)
+
+
+def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -> dict:
+    """Random-read cost by width (``scripts/randread.cu``): ``n_reads``
+    reads of 16, 32, 64 and 128 bytes, each as uint4 loads from one aligned
+    block at a hashed address of an ``n_bytes`` device buffer, each width
+    timed twice in turns. Prints reads/s and 32-byte sectors/s; returns
+    width -> mean ms."""
+    import ctypes
+
+    import torch
+    from aindex_torch.kernels import _cuda
+    out_dir = os.path.join(HERE, "build", "measure")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "randread.so")
+    subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", lib_path,
+                    os.path.join(HERE, "scripts", "randread.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.randread.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.randint(-2 ** 31, 2 ** 31, (n_bytes // 4,), dtype=torch.int32, device=dev,
+                        generator=gen)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    st = _cuda.stream(dev)
+
+    def call(width):
+        lb = (n_bytes // width).bit_length() - 1
+        return lambda: check(lib.randread(buf.data_ptr(), lb, width, n_reads, 0x5EED,
+                                          out.data_ptr(), st) == 0, f"randread {width}")
+    times = {w: [] for w in WIDTHS}
+    for order in (WIDTHS, WIDTHS[::-1]):
+        for w in order:
+            times[w].append(cuda_ms(call(w), 20))
+    torch.cuda.synchronize()
+    res = {w: sum(t) / 2 for w, t in times.items()}
+    for w in WIDTHS:
+        ms = res[w]
+        sectors = n_reads * max(1, w // 32)
+        print(f"random reads, {w} B a read ({w // 16} uint4 load(s)), {n_reads} reads over "
+              f"{n_bytes >> 20} MiB: {times[w][0]:.4f} / {times[w][1]:.4f} ms, "
+              f"{n_reads / ms / 1e6:.3f} G reads/s, {sectors / ms / 1e6:.3f} G sectors/s, "
+              f"{ms / res[32]:.3f}x the 32-byte time ({card})")
+    del buf
+    torch.cuda.empty_cache()
+    return res
+
+
+def key_of(rec):
+    """The keys (int64) of bucketed records (``kernels/buckets.py``), the
+    mark bit cleared."""
+    import torch
+    return (rec[..., 0].to(torch.int64) & 0xFFFFFFFF) | ((rec[..., 1].to(torch.int64)
+                                                          & 0x7FFFFFFF) << 32)
+
+
+def bucket_reads(t, keys):
+    """Buckets (int64 per key) that a K6 or K10 probe of ``keys`` reads on
+    the bucketed table ``t``: one a level, on while the bucket is marked
+    and the key not found."""
+    import torch
+    from aindex_torch.kernels.buckets import BUCKET, LEVEL_SALT, MARK, bucket_of
+    from aindex_torch.kernels.lookup import _s64, _shr, mix64
+    if t.w < 64:
+        keys = keys & ((1 << t.w) - 1)
+    active = (keys >> 62) == 0
+    reads = torch.zeros_like(keys)
+    buckets = t.records.view(-1, BUCKET, 4)
+    h = mix64(keys ^ _s64(t.seed))
+    lo, hi = keys & 0xFFFFFFFF, _shr(keys, 32)
+    for first, lb in t.levels:
+        reads += active.to(torch.int64)
+        rec = buckets[first + bucket_of(h, lb)].to(torch.int64)
+        found = (((rec[..., 0] & 0xFFFFFFFF) == lo[:, None])
+                 & ((rec[..., 1] & 0x7FFFFFFF) == hi[:, None])).any(dim=1)
+        active = active & ~found & ((rec[:, 0, 1] & MARK) != 0)
+        h = mix64(h ^ LEVEL_SALT)
+    return reads
+
+
+def old_first_hit(index, keys):
+    """Whether the first of the two rows JAX's layout reads holds each key
+    (the quotient table's first half, or the wide table's), from the
+    index's host table."""
+    import torch
+    from aindex_torch.kernels.lookup import _s64, mix64
+    from aindex_torch.kernels.quot import bij
+    if index.engine == "quot":
+        qc = index.quot
+        mults = [int(x) for x in qc.mults]
+        fp0 = torch.from_numpy(np.ascontiguousarray(qc.fp_tf_host[:qc.m, 0]).view(np.int32))
+        h1 = bij(keys, *mults[:2], qc.w)
+        return fp0.to(keys.device)[h1 & (qc.m - 1)].to(torch.int64) == (h1 >> qc.lb)
+    ct = index.cuckoo
+    rows = torch.from_numpy(np.ascontiguousarray(ct.table_host[:ct.m, :2]).view(np.int64))
+    r1 = mix64(keys ^ _s64(ct.seed1)) & (ct.m - 1)
+    return rows.reshape(-1).to(keys.device)[r1] == keys
+
+
+def device_table_bytes(card: str, index) -> int:
+    """Prints and returns the bytes of the engine's device records beside
+    the host table's (JAX's device layout), and checks them against 1.5x
+    those."""
+    t = index.tables
+    new = t.records.numel() * 4
+    old = (index.quot.fp_tf_host.nbytes + index.quot.slot_host.nbytes
+           if index.engine == "quot" else index.cuckoo.table_host.nbytes)
+    first, lb = t.levels[-1]
+    print(f"{index.engine} k={index.k}: {index.n} keys, device records {new / 2 ** 20:.1f} MiB "
+          f"({len(t.levels)} levels, buckets {[1 << b for _, b in t.levels]}), JAX's layout "
+          f"{old / 2 ** 20:.1f} MiB ({card})")
+    check(new <= 1.5 * old, f"device records {new} B within 1.5x JAX's layout ({old} B)")
+    return new
+
+
+def sector_mix(card: str, label: str, index, keys) -> None:
+    """The probes' mix on the batch ``keys`` (the keys the engine is asked
+    for, after the rule): present share; in JAX's layout the share of
+    present keys the second row answers and its sectors a query (a row a
+    sector, tf only); in the bucketed layout the buckets a query reads, for
+    present and for absent keys."""
+    import torch
+    t = index.tables
+    hit = t.probe_plain(keys)[0]
+    first = old_first_hit(index, keys)
+    reads = bucket_reads(t, keys).to(torch.float64)
+    n, n_hit = keys.numel(), int(hit.sum())
+    second = int((hit & ~first).sum())
+    old = (n + int((~first).sum())) / n
+    print(f"{label}: {n} queries, {n_hit / n:.4f} present; JAX's layout: {second / max(n_hit, 1):.4f} "
+          f"of present keys in the second row, {old:.4f} rows a query; buckets: "
+          f"{float(reads.mean()):.4f} a query, {float(reads[hit].mean()):.4f} a present key, "
+          f"{float(reads[~hit].mean()) if n_hit < n else 0:.4f} an absent one ({card})")
+
+
+def wide_host_probe(ct, keys: np.ndarray):
+    """(found, tf, slot) of uint64 ``keys`` on the wide table's host rows,
+    as aindex_tpu/index/cuckoo.py:142 compares whole rows, the first half
+    winning."""
+    from aindex_torch.index.cuckoo import _mix64_np
+    lo, hi = keys & np.uint64(0xFFFFFFFF), keys >> np.uint64(32)
+    found = np.zeros(keys.size, bool)
+    tf = np.zeros(keys.size, np.uint32)
+    slot = np.full(keys.size, -1, np.int32)
+    for base, seed in ((ct.m, ct.seed2), (0, ct.seed1)):
+        r = (_mix64_np(keys ^ np.uint64(seed)) & np.uint64(ct.m - 1)).astype(np.int64) + base
+        row = ct.table_host[r]
+        h = (row[:, 0] == lo) & (row[:, 1] == hi)
+        found |= h
+        tf = np.where(h, row[:, 2], tf)
+        slot = np.where(h, row[:, 3].view(np.int32), slot)
+    return found, tf, slot
+
+
+def host_answers(index, codes: np.ndarray, rc: np.ndarray, rule: int):
+    """(tf, slot, strand) of uint64 ``codes`` (with their reverse
+    complements ``rc``) under ``rule``, from the index's host table's own
+    probe."""
+    from aindex_torch.kernels import probe
+    fn = index.quot.lookup_host if index.engine == "quot" else \
+        (lambda x: wide_host_probe(index.cuckoo, x))
+    if rule == probe.KEYS:
+        hit, tf, slot = fn(codes)
+        strand = np.ones(codes.size, np.int32)
+    elif rule == probe.CANON:
+        fwd = codes <= rc
+        hit, tf, slot = fn(np.where(fwd, codes, rc))
+        strand = np.where(fwd, 1, 2)
+    else:
+        h1, tf1, s1 = fn(codes)
+        h2, tf2, s2 = fn(rc)
+        hit, tf, slot, strand = h1 | h2, np.where(h1, tf1, tf2), np.where(h1, s1, s2), \
+            np.where(h1, 1, 2)
+    return (np.where(hit, tf, 0).astype(np.uint32), np.where(hit, slot, -1).astype(np.int32),
+            np.where(hit, strand, 0).astype(np.int32))
+
+
+def engine_edges_vs_plain(dev, card: str, index) -> None:
+    """K6's or K10's query exactly against its plain version and against
+    the host table's own probe, on the keys where the bucketed layout could
+    differ from JAX's rows: keys in an overflow level (there must be some),
+    keys of marked and of unmarked buckets, of the first and the last
+    bucket, absent keys that share a present key's bucket, codes with bits
+    above 2k, and 0xFFFFFFFF_00000000 (the key an empty wide row matches),
+    0, 2^62 - 1 and 2^64 - 1, under the KEYS, CANON and FWD_RC rules with
+    slot (and strand)."""
+    import torch
+    from aindex_torch.kernels import probe
+    from aindex_torch.kernels.buckets import BUCKET, EMPTY_HI, EMPTY_KEY, bucket_of
+    from aindex_torch.kernels.encode import revcomp_code64
+    from aindex_torch.kernels.lookup import _s64, mix64
+    t, k = index.tables, index.k
+    gen = torch.Generator(device=dev).manual_seed(73)
+    rec = t.records.view(-1, BUCKET, 4)
+    real = (rec[..., 1] & EMPTY_HI) == 0
+    n0 = 1 << t.levels[0][1]
+
+    def some(x, n=4096):
+        return x[torch.randperm(x.numel(), device=dev, generator=gen)[:n]]
+    over = key_of(rec[n0:])[real[n0:]]
+    check(over.numel() > 0, f"{index.engine}: keys in an overflow level")
+    marked = rec[:n0, 0, 1] < 0
+    groups = {
+        "overflow": some(over),
+        "marked buckets": some(key_of(rec[:n0][marked])[real[:n0][marked]]),
+        "unmarked buckets": some(key_of(rec[:n0][~marked])[real[:n0][~marked]]),
+        "first and last buckets": torch.cat([key_of(rec[0])[real[0]],
+                                             key_of(rec[n0 - 1])[real[n0 - 1]]]),
+    }
+    draws = torch.randint(0, 1 << (2 * k), (1 << 20,), dtype=torch.int64, device=dev,
+                          generator=gen)
+    shared = real[:n0].any(dim=1)[bucket_of(mix64(draws ^ _s64(t.seed)), t.levels[0][1])]
+    groups["absent, in a present key's bucket"] = some(draws[shared & ~t.probe_plain(draws)[0]])
+    members = some(key_of(rec[:n0])[real[:n0]])
+    high = torch.randint(1, 1 << (62 - 2 * k), (members.numel(),), dtype=torch.int64,
+                         device=dev, generator=gen)
+    groups["codes above 2k bits"] = members | (high << (2 * k))
+    groups["0xFFFFFFFF_00000000, 0, 2^62 - 1, 2^64 - 1"] = torch.tensor(
+        [_s64(EMPTY_KEY), 0, (1 << 62) - 1, -1], device=dev)
+    keys = torch.cat(list(groups.values()))
+    codes = keys.cpu().numpy().view(np.uint64)
+    rc = revcomp_code64(keys, k).cpu().numpy().view(np.uint64)
+    for rule in probe.RULES:
+        kw = {"k": k, "rule": rule, "slot": True, "strand": rule != probe.KEYS}
+        got = probe.query(t, keys, **kw)
+        for a, b in zip(got, probe.query_plain(t, keys, **kw)):
+            max_abs_err(a, b)
+        want = host_answers(index, codes, rc, rule)
+        check(np.array_equal(got[0].view(torch.int32).cpu().numpy().view(np.uint32), want[0])
+              and np.array_equal(got[1].cpu().numpy(), want[1]),
+              f"{index.engine} tf and slot == the host table's, rule {rule}")
+        if rule != probe.KEYS:
+            check(np.array_equal(got[2].cpu().numpy(), want[2]),
+                  f"{index.engine} strand == the host table's, rule {rule}")
+    print(f"{t.QUERY} edge keys == plain == host table, rules KEYS, CANON, FWD_RC: "
+          + "; ".join(f"{len(v)} {g}" for g, v in groups.items())
+          + f"; empty-row key answer {t.empty} ({card})")
+
+
+@functools.lru_cache(maxsize=2)
+def parent_engines(parent: str) -> dict:
+    """The K6, K7 and K10 query and coverage entries of the checkout at
+    ``parent`` (its ``quot23.cu``, ``quotcov23.cu`` and ``cuckoo64.cu``,
+    one nvcc each, all started together), by name."""
+    import ctypes
+
+    from aindex_torch.kernels import _cuda
+    out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = os.path.join(parent, "aindex_torch", "csrc")
+    sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23",),
+               "cuckoo64": ("cuckoo64", "cuckoocov64")}
+    procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
+         os.path.join(out_dir, f"{src}.so"), os.path.join(csrc, f"{src}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)) for src in sources}
+    fns = {}
+    for src, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"{parent}'s {src}.cu builds:\n{log.decode(errors='replace')}")
+        for name in sources[src]:
+            fn = getattr(ctypes.CDLL(lib), name)
+            fn.argtypes = _cuda.KERNELS[name].argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return fns
+
+
+def parent_tables(dev, index) -> tuple:
+    """The parent's device layout of the index's table, built from the host
+    table as the parent uploaded it, as (p, u, tensors) for its C entry:
+    the quotient table's two halves of (fingerprint, tf) rows and two slot
+    columns, or the wide table's rows."""
+    import ctypes
+
+    import torch
+    if index.engine == "quot":
+        qc = index.quot
+        fp_tf = torch.from_numpy(qc.fp_tf_host.view(np.int32)).to(dev)
+        slot = torch.from_numpy(qc.slot_host).to(dev)
+        tensors = (fp_tf[:qc.m].contiguous(), fp_tf[qc.m:].contiguous(),
+                   slot[:qc.m].contiguous(), slot[qc.m:].contiguous())
+        params = [qc.m, qc.lb, qc.w, *(int(x) for x in qc.mults)]
+    else:
+        ct = index.cuckoo
+        tensors = (torch.from_numpy(ct.table_host.view(np.int32)).to(dev),)
+        params = [ct.m, ct.seed1, ct.seed2]
+
+    ptrs = [x.data_ptr() for x in tensors]
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_ulonglong * len(params))(*(int(x) & (2 ** 64 - 1) for x in params)),
+            tensors)
+
+
+def parent_vs_this(dev, card: str, label: str, fn, old, t, codes, k: int, rule: int,
+                   slot: bool, strand: bool, other: str = "parent") -> dict:
+    """The parent's query entry ``fn`` on its layout ``old`` (parent_tables)
+    beside this tree's on ``t``, on the same codes: answers equal, then each
+    timed twice in turns. Returns name -> [ms, ms]."""
+    import torch
+    from aindex_torch.kernels import _cuda, probe
+    p, u, _ = old
+    n = codes.numel()
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+
+    def parent():
+        check(fn(p, u, codes.data_ptr(), None, None, k, n, rule, outs[0].data_ptr(),
+                 outs[1].data_ptr() if slot else None, outs[2].data_ptr() if strand else None,
+                 _cuda.stream(dev)) == 0, "the parent's query")
+        return outs
+
+    def this():
+        return probe.query(t, codes, k=k, rule=rule, slot=slot, strand=strand)
+    mine = this()
+    mine = mine if isinstance(mine, tuple) else (mine,)
+    for a, b in zip(mine, parent()):
+        max_abs_err(a.view(torch.int32), b)
+    calls = {"this tree": this, other: parent}
+    times = {name: [] for name in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for name in order:
+            times[name].append(cuda_ms(calls[name], 20))
+    print(f"{label}: this tree {times['this tree'][0]:.4f} / {times['this tree'][1]:.4f} ms, "
+          f"{other} {times[other][0]:.4f} / {times[other][1]:.4f} ms ({card})")
+    return times
 
 
 def upload(dev, packed, vbits):
@@ -1028,8 +1387,9 @@ def sparse_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, oracle)
               f"(torch.profiler, profiler on) ({card})")
     else:
         print("sparse build device idle share: not measured (the profiler saw no device events)")
-    print(f"sparse index: n {index.n}, quotient table m 2^{tables.lb} rows per half, "
-          f"{index.quot.nbytes / 1e6:.1f} MB")
+    print(f"sparse index: n {index.n}, quotient table m 2^{index.quot.lb} rows per half, "
+          f"{index.quot.nbytes / 1e6:.1f} MB; device records "
+          f"{tables.records.numel() * 4 / 1e6:.1f} MB")
 
     check(index.n == keys.size, f"n {index.n} == oracle {keys.size}")
     order = np.argsort(index.checker_host)
@@ -1176,7 +1536,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.core import codec
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
                                              packed_window_codes, revcomp_code64, window_codes)
-    from aindex_torch.kernels.probe import FWD_RC
+    from aindex_torch.kernels.probe import CANON, FWD_RC
     from aindex_torch.kernels.quot import quot23, quot23_plain, quotcov23, quotcov23_plain
 
     t = index.tables
@@ -1198,8 +1558,8 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     rows = torch.from_numpy(rows_np).to(dev)
     canon = canonical_code64(codes, K23)
     # rows the probes read: a masked-off code reads none
-    n_probe = {False: distinct_probed_rows(t, canon),
-               True: distinct_probed_rows(t, canon[valid])}
+    n_probe = {False: distinct_probed_rows(index, canon),
+               True: distinct_probed_rows(index, canon[valid])}
     del canon
     res = {}
     k6 = []
@@ -1230,7 +1590,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     ms = cuda_ms(lambda: quot23(t, k=K23, **kw), 20)
     pms = cuda_ms(lambda: quot23_plain(t, k=K23, **kw), 2)
     miss = ~t.probe_plain(codes)[0]
-    n_fr = distinct_probed_rows(t, torch.cat([codes, revcomp_code64(codes[miss], K23)]))
+    n_fr = distinct_probed_rows(index, torch.cat([codes, revcomp_code64(codes[miss], K23)]))
     rec = record(err, ms, pms, n_codes * (8 + 12) + n_fr * 12)
     report(card, "quot23", f"codes, forward else reverse complement, tf+slot+strand, "
            f"{n_codes} codes", rec)
@@ -1238,7 +1598,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     del miss, got, ref
     row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K23)
     ascii_probe = distinct_probed_rows(
-        t, canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)], K23))
+        index, canonical_code64(row_codes.reshape(-1)[row_valid.reshape(-1)], K23))
     for tag, kw, n_out in (("ascii, tf", {}, 4),
                            ("ascii, tf+slot+strand", {"slot": True, "strand": True}, 12)):
         got = quot23(t, ascii=rows, k=K23, **kw)
@@ -1253,6 +1613,21 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         k6.append((tag, rec))
     head = dict(k6)["codes, tf"]
     res["quot23"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k6)}
+    sector_mix(card, f"K6 batch ({n_codes} codes, canonical, half present)", index,
+               canonical_code64(codes, K23))
+    device_table_bytes(card, index)
+    if PARENT:
+        old = parent_tables(dev, index)
+        for tag, rule, with_slot in (("codes, tf", CANON, False),
+                                     ("codes, tf+slot+strand", CANON, True),
+                                     ("codes, fwd-rc, tf+slot+strand", FWD_RC, True)):
+            parent_vs_this(dev, card, f"quot23 {tag}, {n_codes} codes",
+                           parent_engines(PARENT)["quot23"], old, t, codes, K23, rule,
+                           with_slot, with_slot)
+        del old
+    else:
+        print(f"parent: not given ({PARENT_ARG}DIR times a checkout's K6 and K10 beside these)")
+    engine_edges_vs_plain(dev, card, index)
     del codes, valid, picks, sample
 
     # K7: 10,000 reads of the corpus, cutoff 0 and 10, packed as
@@ -1263,7 +1638,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     n_rows = len(members)
     packed, vbits = upload(dev, packed, vbits)
     wcodes, wvalid = packed_window_codes(packed, vbits, K23)
-    n_probe = distinct_probed_rows(t, canonical_code64(wcodes[wvalid], K23))
+    n_probe = distinct_probed_rows(index, canonical_code64(wcodes[wvalid], K23))
     k7 = []
     for cutoff in (0, 10):
         args = (t, packed, vbits, n_rows, stride, K23, cutoff)
@@ -1571,7 +1946,7 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
     t = index.tables
     mat = torch.from_numpy(reads[:N_SEQ]).to(dev)
     wcodes, wvalid = window_codes(ascii_to_base_codes(mat), K23)
-    n_probe = distinct_probed_rows(t, canonical_code64(wcodes[wvalid], K23))
+    n_probe = distinct_probed_rows(index, canonical_code64(wcodes[wvalid], K23))
     # the rows in, tf out, each probed row read once
     held("quotcov23_rows", f"{N_SEQ} x {READ_LEN} reads", lambda: quot_tf_windows(t, mat, K23),
          lambda: quot_tf_windows_plain(t, mat, K23), 50, 5,
@@ -1663,7 +2038,7 @@ def positional_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, in
         if tables is not None:
             codes, wvalid = packed_window_codes(packed, vbits, k)
             n_bytes += 4 * n_distinct + 8 * distinct_probed_rows(
-                tables, canonical_code64(codes[wvalid], k))
+                index, canonical_code64(codes[wvalid], k))
         rec = record(err, ms, pms, n_bytes, lib)
         report(card, "posfill", f"{tag}, corpus chunk 2^22 B at {off}, {n_valid} valid "
                f"windows, {n_distinct} slots", rec)
@@ -2113,25 +2488,25 @@ def trace_stages(path: str) -> dict[str, float]:
     return out
 
 
-def probe_bytes(t, keys, k: int) -> int:
-    """Bytes of the table that the canonical probes of literal ``keys``
-    read, each distinct row, word or entry once: wide cuckoo rows (16 B,
-    the second only for first misses); or the walk's g-words (4 B), the
-    slot entries of the owner nodes (4 B), the checker words of the slots
-    those hold (8 B; every unassigned node holds slot 0) and, on a hit, tf
-    entries (4 B)."""
+def probe_bytes(index, keys, k: int) -> int:
+    """Bytes of the index's table that the canonical probes of literal
+    ``keys`` read, each distinct row, word or entry once, in JAX's layout
+    (whatever layout the device reads): the wide cuckoo table's host rows
+    (16 B, the second only for first misses); or the walk's g-words (4 B),
+    the slot entries of the owner nodes (4 B), the checker words of the
+    slots those hold (8 B; every unassigned node holds slot 0) and, on a
+    hit, tf entries (4 B)."""
     import torch
-    from aindex_torch.kernels.cuckoo import CuckooTables
     from aindex_torch.kernels.encode import canonical_code64
     from aindex_torch.kernels.lookup import _s64, hash_triple, mix64, mphf_owner_node
     keys = canonical_code64(keys, k)
-    if isinstance(t, CuckooTables):
-        r1 = mix64(keys ^ _s64(t.seed1)) & (t.m - 1)
-        c = t.table[r1].to(torch.int64)
-        hit1 = ((c[:, 0] & 0xFFFFFFFF) == (keys & 0xFFFFFFFF)) \
-            & ((c[:, 1] & 0xFFFFFFFF) == ((keys >> 32) & 0xFFFFFFFF))
-        r2 = mix64(keys[~hit1] ^ _s64(t.seed2)) & (t.m - 1)
+    if index.engine == "cuckoo":
+        ct = index.cuckoo
+        r1 = mix64(keys ^ _s64(ct.seed1)) & (ct.m - 1)
+        hit1 = old_first_hit(index, keys)
+        r2 = mix64(keys[~hit1] ^ _s64(ct.seed2)) & (ct.m - 1)
         return 16 * (int(torch.unique(r1).numel()) + int(torch.unique(r2).numel()))
+    t = index.tables
     words = torch.unique(torch.cat([n >> 4 for n in hash_triple(keys, t.seed, t.domain)]))
     hit, _, slot = t.probe_plain(keys)
     nodes = torch.unique(mphf_owner_node(t.g_packed, keys, t.seed, t.domain))
@@ -2182,8 +2557,8 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     from aindex_torch.core import codec
     from aindex_torch.core.reads import blob_chunks
     from aindex_torch.kernels import probe
-    from aindex_torch.kernels.encode import (ascii_to_base_codes, packed_window_codes,
-                                             window_codes)
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
+                                             packed_window_codes, window_codes)
     from aindex_torch.kernels.positional import (chunk_slots_plain, csr_offsets_plain,
                                                  fill_scratch, posfill, scatter_chunk_plain)
     t, k = index.tables, index.k
@@ -2204,7 +2579,7 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     rows_np[::97, 3] = ord("N")
     rows = torch.from_numpy(rows_np).to(dev)
     recs = []
-    n_probe = probe_bytes(t, codes, k)
+    n_probe = probe_bytes(index, codes, k)
     for tag, kw, n_io in (("codes, tf", {"codes": codes}, N_CODES * 12),
                           ("codes, tf+slot+strand", {"codes": codes, "slot": True,
                                                      "strand": True}, N_CODES * 20),
@@ -2218,7 +2593,7 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
         pms = cuda_ms(lambda: probe.query_plain(t, k=k, **kw), 2)
         if "ascii" in kw:
             rc, rv = window_codes(ascii_to_base_codes(rows), k)
-            n_tab = probe_bytes(t, rc.reshape(-1)[rv.reshape(-1)], k)
+            n_tab = probe_bytes(index, rc.reshape(-1)[rv.reshape(-1)], k)
         else:
             n_tab = n_probe
         rec = record(err, ms, pms, n_io + n_tab)
@@ -2226,13 +2601,24 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
                rec)
         recs.append(rec)
     res[q_name] = {**recs[0], "max_abs_err": max(r["max_abs_err"] for r in recs)}
+    if q_name == "cuckoo64":
+        sector_mix(card, f"K10 batch ({N_CODES} codes, canonical, half present)", index,
+                   canonical_code64(codes, k))
+        device_table_bytes(card, index)
+        if PARENT:
+            old = parent_tables(dev, index)
+            parent_vs_this(dev, card, f"cuckoo64 codes, tf, {N_CODES} k={k} codes",
+                           parent_engines(PARENT)["cuckoo64"], old, t, codes, k, index.rule,
+                           False, False)
+            del old
+        engine_edges_vs_plain(dev, card, index)
     del codes, rows
 
     [(members, stride, packed, vbits)] = codec.coverage_row_batches(
         [row.tobytes() for row in reads[:N_SEQ]], k)
     packed, vbits = upload(dev, packed, vbits)
     wcodes, wvalid = packed_window_codes(packed, vbits, k)
-    n_tab = probe_bytes(t, wcodes[wvalid], k)
+    n_tab = probe_bytes(index, wcodes[wvalid], k)
     recs = []
     for cutoff in (0, 10):
         args = (t, packed, vbits, len(members), stride, k, cutoff, index.rule)
@@ -2276,7 +2662,7 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
     lib = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
     fcodes, fvalid = packed_window_codes(packed, vbits, k)
     n_bytes = (packed.numel() * 4 + vbits.numel() + 8 * n_valid + 16 * n_distinct
-               + probe_bytes(t, fcodes[fvalid], k))
+               + probe_bytes(index, fcodes[fvalid], k))
     rec = record(err, ms, pms, n_bytes, lib)
     report(card, f_name, f"corpus chunk 2^22 B at {off}, k={k}, {n_valid} valid windows, "
            f"{n_distinct} slots", rec)
@@ -2883,7 +3269,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.kernels.encode import canonical_code64, packed_window_codes
     wc, wv = packed_window_codes(*ups[0], K23)
     n_bytes = (ups[0][0].numel() * 4 + ups[0][1].numel() + 8 * n_win + 8 * n_live
-               + 4 * n_distinct + 8 * distinct_probed_rows(tables, canonical_code64(wc[wv], K23)))
+               + 4 * n_distinct + 8 * distinct_probed_rows(index, canonical_code64(wc[wv], K23)))
     rec = record(err14, ms, pms, n_bytes, lib)
     report(card, "posbucket", f"corpus chunk {CHUNK_BYTES} B, {n_live} present windows, "
            f"1 shard, cap {cap}", rec)
@@ -2913,6 +3299,10 @@ def main() -> int:
         return 1
     if sys.argv[1:] == [LAUNCHES_FLAG]:
         return fresh_launches_main()
+    global PARENT
+    for arg in sys.argv[1:]:
+        check(arg.startswith(PARENT_ARG), f"argument {arg!r} (takes only {PARENT_ARG}DIR)")
+        PARENT = os.path.abspath(arg[len(PARENT_ARG):])
     from aindex_torch.kernels import _cuda
 
     dev = torch.device("cuda", 0)
@@ -2930,6 +3320,9 @@ def main() -> int:
                      for line in k.build_log.splitlines() if "spill stores" in line)
         print(f"  {k.name}: registers per thread {regs}, instantiations with spills {spills}")
 
+    t0 = time.perf_counter()
+    width_test(dev, card)
+    print(f"phase random reads by width: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     measured = dense_kernels_vs_plain(dev, card)
     print(f"phase dense kernels-vs-plain: {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,64 @@
+// Random-read cost by width, the measurement behind the bucket width of
+// aindex_torch/csrc/probe.cuh's Buckets engine: n reads of W bytes (W = 16,
+// 32, 64 or 128), one read a thread, each from a W-aligned block at a
+// hashed address of a buffer of 2^lb blocks, as W / 16 uint4 loads (the
+// engine's bucket read). The loaded words are folded and written only on a
+// value the random buffer almost never holds, so the reads are kept and
+// nearly nothing is written.
+//
+// Built and run by scripts/lookup_profile.py (width_test), which
+// chip_smoke.py also calls.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ uint64_t mix64(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xFF51AFD7ED558CCDull;
+  x ^= x >> 33;
+  x *= 0xC4CEB9FE1A85EC53ull;
+  x ^= x >> 33;
+  return x;
+}
+
+template <int W>
+__global__ void randread_kernel(const uint4* __restrict__ buf, int lb, long long n,
+                                uint64_t seed, unsigned* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const uint64_t h = mix64(static_cast<uint64_t>(i) ^ seed);
+    const uint4* b = buf + ((h >> 1) >> (63 - lb)) * (W / 16);
+    unsigned acc = 0u;
+#pragma unroll
+    for (int j = 0; j < W / 16; ++j) {
+      const uint4 v = b[j];
+      acc ^= v.x ^ v.y ^ v.z ^ v.w;
+    }
+    if (acc == 0x9E3779B9u) out[0] = static_cast<unsigned>(i);
+  }
+}
+
+}  // namespace
+
+// buf: 2^lb blocks of width bytes (16-byte aligned); n reads; out uint32[1].
+extern "C" int randread(const void* buf, int lb, int width, long long n,
+                        unsigned long long seed, void* out, void* stream) {
+  if (n <= 0 || lb < 0 || lb > 62) return static_cast<int>(cudaErrorInvalidValue);
+  const int block = 256;
+  const long long blocks = (n + block - 1) / block;
+  const unsigned grid = static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
+  const auto* b = static_cast<const uint4*>(buf);
+  auto* o = static_cast<unsigned*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 16: randread_kernel<16><<<grid, block, 0, s>>>(b, lb, n, seed, o); break;
+    case 32: randread_kernel<32><<<grid, block, 0, s>>>(b, lb, n, seed, o); break;
+    case 64: randread_kernel<64><<<grid, block, 0, s>>>(b, lb, n, seed, o); break;
+    case 128: randread_kernel<128><<<grid, block, 0, s>>>(b, lb, n, seed, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -61,7 +61,7 @@ def test_coverage_dense_single(tables, cutoff):
     jt, tt = tables
     for seq in _seqs(2):
         want = jcov.coverage_dense(jt, seq, 13, cutoff)
-        got = tcov.coverage_dense(tt, seq, cutoff)
+        got = tcov.coverage_dense(tt, seq, 13, cutoff)
         assert got.dtype == want.dtype, seq
         np.testing.assert_array_equal(got, want)
 
@@ -71,7 +71,7 @@ def test_coverage_dense_batch(tables, cutoff):
     jt, tt = tables
     seqs = _seqs(3) + _seqs(4)
     want = jcov.coverage_dense_batch(jt, seqs, 13, cutoff)
-    got = tcov.coverage_dense_batch(tt, seqs, cutoff)
+    got = tcov.coverage_dense_batch(tt, seqs, 13, cutoff)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
@@ -90,3 +90,28 @@ def test_rejects_bad_arguments(tables):
         tcov.coverage13_packed(tt, packed, vbits, 1, 20, -1)
     with pytest.raises(ValueError):
         tcov.coverage13_packed(tt[:-1], packed, vbits, 1, 20, 0)
+
+
+def test_coverage_dense_positional_k():
+    """aindex_tpu's call form coverage_dense(t, seq, 13) binds 13 to k in
+    both packages, and the cutoff keeps its default of 0."""
+    rng = np.random.default_rng(7)
+    t = rng.integers(0, 30, size=SPACE_13).astype(np.uint32)
+    seq = bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=60)]).decode()
+    want = jcov.coverage_dense(jnp.asarray(t), seq, 13)
+    got = tcov.coverage_dense(torch.from_numpy(t), seq, 13)
+    assert (want < 13).any()
+    np.testing.assert_array_equal(got, want)
+    wants = jcov.coverage_dense_batch(jnp.asarray(t), [seq, seq[:20]], 13)
+    gots = tcov.coverage_dense_batch(torch.from_numpy(t), [seq, seq[:20]], 13)
+    for g, w in zip(gots, wants):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [12, 23])
+def test_coverage_dense_other_k_raises(k):
+    t = torch.zeros(SPACE_13, dtype=torch.uint32)
+    with pytest.raises(ValueError, match="k=13"):
+        tcov.coverage_dense(t, "ACGT" * 10, k)
+    with pytest.raises(ValueError, match="k=13"):
+        tcov.coverage_dense_batch(t, ["ACGT" * 10], k)

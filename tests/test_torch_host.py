@@ -155,6 +155,36 @@ class TestFastq:
             with open(a[key], "rb") as fa, open(b[key], "rb") as fb:
                 assert fa.read() == fb.read(), key
 
+    @pytest.mark.parametrize("form", ["gzip", "two files"])
+    def test_native_request_on_python_inputs(self, tmp_path, form):
+        """use_native=True on a gzipped FASTA and on a list of two FASTA
+        files: both packages take the Python reader and write the same
+        files."""
+        import gzip
+        recs = [b">r1\nACGTACGTNN\nacgt\n>r2\nTTTTGGGGCCCC\n",
+                b">r3 x\nGATTACA\n>r4\nCCCCAAAATTTTGG\n"]
+        if form == "gzip":
+            path = str(tmp_path / "in.fa.gz")
+            with gzip.open(path, "wb") as f:
+                f.write(recs[0])
+            inp, n_want = path, 2
+        else:
+            inp = []
+            for i, rec in enumerate(recs):
+                path = str(tmp_path / f"in{i}.fa")
+                with open(path, "wb") as f:
+                    f.write(rec)
+                inp.append(path)
+            n_want = 4
+        a = tfastq.compute_reads(inp, None, "fasta", str(tmp_path / "t" / "p"),
+                                 use_native=True)
+        b = jfastq.compute_reads(inp, None, "fasta", str(tmp_path / "j" / "p"),
+                                 use_native=True)
+        assert a["n_reads"] == b["n_reads"] == n_want
+        for key in ("reads", "ridx", "header"):
+            with open(a[key], "rb") as fa, open(b[key], "rb") as fb:
+                assert fa.read() == fb.read(), key
+
     @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(DATA, "*"))),
                              ids=lambda p: os.path.basename(p))
     def test_iter_sequence_bytes(self, path):

@@ -210,3 +210,17 @@ def test_paired_fastq_requires_two(out):
     with pytest.raises(ValueError, match="exactly two"):
         tbuild.build_all([str(fq)] * 3, tbuild.BuildConfig(prefix=str(out / "x"), device="cpu"),
                          read_type="fastq")
+
+
+def test_build_config_positional_fields():
+    """aindex_tpu's positional field order binds the same fields of both
+    BuildConfigs, lowercase_ok (accepted and unused) in its place."""
+    import dataclasses
+    jnames = [f.name for f in dataclasses.fields(jbuild.BuildConfig)]
+    tnames = [f.name for f in dataclasses.fields(tbuild.BuildConfig)]
+    assert tnames[:len(jnames)] == jnames
+    args = ("p", 23, 2, False, True, 1 << 20, False, None, None, True, None, None, True)
+    j, t = jbuild.BuildConfig(*args), tbuild.BuildConfig(*args)
+    for name in jnames:
+        assert getattr(t, name) == getattr(j, name), name
+    assert tbuild.BuildConfig("p", lowercase_ok=False).lowercase_ok is False

@@ -16,7 +16,7 @@ the reference it is tested against.
 ``AIndex`` (api.py) is the user-facing facade over all of them, and
 ``aindex-torch`` / ``python -m aindex_torch`` (cli.py) the command line.
 ``parallel`` holds the multi-device paths on ``torch.distributed``: the
-data-parallel builds and the slot-sharded query engine over a (data,
+data-parallel builds and the node-sharded query engine over a (data,
 index) device mesh.
 """
 

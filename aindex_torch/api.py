@@ -65,8 +65,8 @@ class AIndex:
 
     def shard_to(self, mesh) -> "AIndex":
         """Place the loaded indexes on a device mesh (``parallel.mesh``): the
-        sparse table's per-slot arrays shard by slot range over the
-        ``index`` axis and each query merges with two all_reduces
+        sparse table's node records shard by MPHF node range over the
+        ``index`` axis and each query merges with one all_reduce
         (``parallel/query23.py``); the dense 13-mer table stays whole on
         every rank's device (4^13 entries fit every card, and a whole table
         makes its queries collective-free). Returns self; later sparse

@@ -185,13 +185,17 @@ struct Mphf {
     return v == 0 ? n0 : (v == 1 ? n1 : n2);
   }
 
+  // Whether a node record holds the key as its checker key.
+  __device__ static __forceinline__ bool holds(const uint4& r, uint64_t key) {
+    return r.x == static_cast<unsigned>(key) && r.y == static_cast<unsigned>(key >> 32);
+  }
+
   // ref: the slot. One random 16-byte read a key, after the g-words it
   // depends on.
   __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
     if (n == 0) return false;
     const uint4 r = records[owner(key)];
-    if (r.x != static_cast<unsigned>(key) || r.y != static_cast<unsigned>(key >> 32))
-      return false;
+    if (!holds(r, key)) return false;
     *tf_out = r.z;
     *ref = static_cast<int>(r.w);
     return true;

@@ -3,8 +3,8 @@
 Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
 includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface and loaded with ctypes; a source may hold several C
-entries (K10 and K11 each hold a query, a coverage and a fill entry, K12
-an owner and a verify entry, K9 a chunk and a pairs-in entry; K1, K15 and
+entries (K10 and K11 each hold a query, a coverage and a fill entry, K9 a
+chunk and a pairs-in entry; K1, K15 and
 K16 share ``count13.cu``; K3 has its table-length and total entries, K5
 its ASCII spectrum and canonical-windows entries, K7 its ASCII-rows
 entry), each a ``Kernel`` of its own with its own count. Nothing is built
@@ -174,15 +174,11 @@ KERNELS: dict[str, Kernel] = {
         *_probe_kernels("mphfwalk", "mphfcov", "mphffill", "mphfwalk.cu",
                         "aindex_tpu/kernels/lookup.py:100", "aindex_tpu/index/sparse23.py:172",
                         "aindex_tpu/index/positional.py:205"),
-        # g, slots_local, node_lo, n_nodes, domain, seed, codes, packed, vbits, n_words,
-        # stride, k, canonical, n, key_out, fwd_out, valid_out, slot_part, stream
-        Kernel("shardowner", "shard23.cu",
-               [_P, _P, _LL, _LL, _ULL, _ULL, _P, _P, _P, _LL, _LL, _I, _I, _LL, _P, _P, _P, _P,
-                _P], "aindex_tpu/kernels/lookup.py:124"),
-        # slot, tf_local, checker_local, slot_lo, n_slots, key, valid, n, tf_part,
-        # found_part, stream
-        Kernel("shardverify", "shard23.cu", [_P, _P, _P, _LL, _LL, _P, _P, _LL, _P, _P, _P],
-               "aindex_tpu/parallel/query23.py:62"),
+        # g, records, node_lo, n_nodes, n_keys, domain, seed, codes, valid, packed, vbits,
+        # n_words, stride, k, canonical, n, fwd_out, out, stream
+        Kernel("shardwalk", "shard23.cu",
+               [_P, _P, _LL, _LL, _ULL, _ULL, _ULL, _P, _P, _P, _P, _LL, _LL, _I, _I, _LL, _P,
+                _P, _P], "aindex_tpu/parallel/query23.py:62"),
         # keys_in, weights_in, weight_bytes, n, lo, hi, key_bits, keys_out, counts_out,
         # counters, scratch, stream
         Kernel("spectrummerge", "merge23.cu", [_P, _P, _I, _LL, _ULL, _ULL, _I, _P, _P, _P, _P, _P],

@@ -20,12 +20,13 @@ K3 takes one code a thread and streams codes and answers past L2 with
 evict-first loads and stores; the table is read with plain loads
 (``csrc/gather13.cu``).
 
-K12 (kernel ``csrc/shard23.cu``: ``shard_owner`` and ``shard_verify``)
-is one index shard's part of a query against the slot-sharded index
-(``parallel/query23.py``): the owner node from the replicated g-values and
-the shard's node -> slot range, then the verify against the shard's slot
-range; ``mphf_owner_node`` (aindex_tpu/kernels/lookup.py:124),
-``shard_owner_plain`` and ``shard_verify_plain`` are its plain versions.
+K12 (kernel ``csrc/shard23.cu``: ``shard_walk``) is one index shard's
+part of a query against the node-sharded index (``parallel/query23.py``):
+the owner node from the replicated g-values, then the node's record when
+the node lies in the shard's node range (``walk_records`` of the range:
+the raw slot, and the checker verify and tf); ``mphf_owner_node``
+(aindex_tpu/kernels/lookup.py:124) and ``shard_walk_plain`` are its plain
+versions.
 
 K11 (kernel ``csrc/mphfwalk.cu``) is ``kernels/probe.py``'s query,
 coverage and fill on an ``MphfTables``; ``mix64``, ``hash_triple``,
@@ -54,8 +55,7 @@ from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check
 KERNEL = _cuda.KERNELS["gather13"]
 KERNEL_TABLE = _cuda.KERNELS["gather13_table"]
 KERNEL_TOTAL = _cuda.KERNELS["gather13_total"]
-KERNEL_OWNER = _cuda.KERNELS["shardowner"]
-KERNEL_VERIFY = _cuda.KERNELS["shardverify"]
+KERNEL_WALK = _cuda.KERNELS["shardwalk"]
 
 #: table dtype -> bits per entry (the narrowed widths of ``_narrow``)
 WIDTHS = {torch.uint8: 8, torch.uint16: 16, torch.uint32: 32}
@@ -386,10 +386,10 @@ def _check_i32(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a contiguous 1-D int32/uint32 tensor")
 
 
-def shard_owner_plain(g_packed, slots_local, node_lo: int, seed: int, domain: int,
-                      codes=None, windows=None, k: int = 23, canonical: bool = False):
-    """Plain version of ``shard_owner``, same arguments and results."""
-    valid = None
+def shard_walk_plain(g_packed, records_local, node_lo: int, n_keys: int, seed: int,
+                     domain: int, codes=None, valid=None, windows=None, k: int = 23,
+                     canonical: bool = False):
+    """Plain version of ``shard_walk``, same arguments and results."""
     if codes is None:
         packed, vbits, rows, stride = windows
         all_codes, all_valid = packed_window_codes(packed, vbits, k)
@@ -402,31 +402,46 @@ def shard_owner_plain(g_packed, slots_local, node_lo: int, seed: int, domain: in
         fwd = u64_le(codes, rc)
         key = torch.where(fwd, codes, rc)
     local = mphf_owner_node(g_packed, key, seed, domain) - node_lo
-    inside = (local >= 0) & (local < slots_local.numel())
-    part = torch.where(inside, slots_local.view(torch.int32)[torch.where(inside, local, 0)], 0)
-    return key, part.to(torch.int32), fwd, valid
+    inside = (local >= 0) & (local < records_local.shape[0])
+    rec = torch.where(inside[:, None], records_local[torch.where(inside, local, 0)], 0)
+    ck = (rec[:, 0].to(torch.int64) & 0xFFFFFFFF) | (rec[:, 1].to(torch.int64) << 32)
+    ok = inside & (ck == key) & (n_keys > 0)
+    if valid is not None:
+        ok = ok & valid
+    parts = torch.stack([torch.where(ok, rec[:, 2], 0), rec[:, 3], ok.to(torch.int32)])
+    return parts, fwd
 
 
-def shard_owner(g_packed: torch.Tensor, slots_local: torch.Tensor, node_lo: int, seed: int,
-                domain: int, codes: torch.Tensor | None = None, windows=None, k: int = 23,
-                canonical: bool = False):
-    """One index shard's slot part per key: the owner node of the MPHF walk
-    from the replicated ``g_packed`` (int32[ceil(3 domain / 16)]), then
-    ``slots_local[node - node_lo]`` when the node lies in this shard's node
-    range (``slots_local``, int32[n_nodes]), else 0 (the local body of
-    aindex_tpu/parallel/query23.py:62 before its first psum).
+def shard_walk(g_packed: torch.Tensor, records_local: torch.Tensor, node_lo: int, n_keys: int,
+               seed: int, domain: int, codes: torch.Tensor | None = None,
+               valid: torch.Tensor | None = None, windows=None, k: int = 23,
+               canonical: bool = False):
+    """One index shard's part of a verified query: per key the owner node
+    of the MPHF walk from the replicated ``g_packed``
+    (int32[ceil(3 domain / 16)]); when the node lies in this shard's node
+    range from ``node_lo``, its record in ``records_local`` (int32[n_nodes,
+    4], ``walk_records`` of the range) gives the raw slot, and the checker
+    compare gives the tf and a found flag (gated by ``valid`` and by
+    ``n_keys`` > 0); else all three are 0 (the local body of
+    aindex_tpu/parallel/query23.py:62, its two psums' parts at once).
 
-    The keys are ``codes`` (1-D int64 of uint64 bits), or with ``windows`` =
-    (packed, vbits, rows, stride) the windows of ``rows`` packed rows of
-    ``stride`` bases (``codec.pack_ascii_chunk`` of newline-padded rows, as
-    coverage takes them); ``canonical`` probes min(code, revcomp).
+    The keys are ``codes`` (1-D int64 of uint64 bits, optionally masked by a
+    bool ``valid``), or with ``windows`` = (packed, vbits, rows, stride) the
+    windows of ``rows`` packed rows of ``stride`` bases
+    (``codec.pack_ascii_chunk`` of newline-padded rows, as coverage takes
+    them; an invalid window is masked); ``canonical`` probes min(code,
+    revcomp).
 
-    Returns (key int64[n], slot_part int32[n], fwd bool[n] or None (with
-    ``canonical``: code <= revcomp), valid bool[n] or None (with
-    ``windows``)). A CPU tensor runs the plain version; a CUDA tensor
-    launches K12's owner entry."""
+    Returns (parts int32[3, n]: tf (uint32 bits), raw slot and found, which
+    the shards sum; fwd bool[n] or None (with ``canonical``: code <=
+    revcomp)). A CPU tensor runs the plain version; a CUDA tensor launches
+    K12."""
     _check_i32("g_packed", g_packed)
-    _check_i32("slots_local", slots_local)
+    if records_local.dtype != torch.int32 or records_local.dim() != 2 \
+            or records_local.shape[1] != 4 or records_local.shape[0] < 1 \
+            or not records_local.is_contiguous():
+        raise ValueError("records_local must be a contiguous torch.int32[n_nodes >= 1, 4] "
+                         "tensor")
     if not 1 <= k <= 31:
         raise ValueError(f"k={k} is outside 1..31")
     if not 0 < domain < (1 << 32) // 3:
@@ -436,9 +451,14 @@ def shard_owner(g_packed: torch.Tensor, slots_local: torch.Tensor, node_lo: int,
     if codes is not None:
         if codes.dtype != torch.int64 or codes.dim() != 1 or not codes.is_contiguous():
             raise ValueError("codes must be a contiguous 1-D int64 tensor")
-        inputs = (codes,)
+        if valid is not None and (valid.dtype != torch.bool or valid.shape != codes.shape
+                                  or not valid.is_contiguous()):
+            raise ValueError("valid must be a contiguous bool tensor shaped like codes")
+        inputs = (codes,) if valid is None else (codes, valid)
         n = codes.numel()
     else:
+        if valid is not None:
+            raise ValueError("windows carry their own validity")
         packed, vbits, rows, stride = windows
         check_packed(packed, vbits)
         if stride <= k or rows < 0 or 16 * packed.numel() < rows * stride:
@@ -446,74 +466,22 @@ def shard_owner(g_packed: torch.Tensor, slots_local: torch.Tensor, node_lo: int,
                              f"rows * stride = {rows} * {stride} (stride > {k})")
         inputs = (packed, vbits)
         n = rows * (stride - k)
-    if not _cuda.on_cuda(g_packed, slots_local, *inputs):
-        return shard_owner_plain(g_packed, slots_local, node_lo, seed, domain, codes, windows,
-                                 k, canonical)
+    if not _cuda.on_cuda(g_packed, records_local, *inputs):
+        return shard_walk_plain(g_packed, records_local, node_lo, n_keys, seed, domain, codes,
+                                valid, windows, k, canonical)
     dev = g_packed.device
-    key = torch.empty(n, dtype=torch.int64, device=dev) if (canonical or codes is None) \
-        else codes
-    part = torch.empty(n, dtype=torch.int32, device=dev)
+    parts = torch.empty((3, n), dtype=torch.int32, device=dev)
     fwd = torch.empty(n, dtype=torch.bool, device=dev) if canonical else None
-    valid = torch.empty(n, dtype=torch.bool, device=dev) if codes is None else None
     if n:
         packed, vbits, _, stride = windows if windows is not None else (None, None, 0, 0)
         with torch.cuda.device(dev):
-            KERNEL_OWNER.launch(
-                g_packed.data_ptr(), slots_local.data_ptr(), node_lo, slots_local.numel(),
-                domain, seed & ((1 << 64) - 1), None if codes is None else codes.data_ptr(),
+            KERNEL_WALK.launch(
+                g_packed.data_ptr(), records_local.data_ptr(), node_lo, records_local.shape[0],
+                n_keys, domain, seed & ((1 << 64) - 1),
+                None if codes is None else codes.data_ptr(),
+                None if valid is None else valid.data_ptr(),
                 None if packed is None else packed.data_ptr(),
                 None if vbits is None else vbits.data_ptr(),
                 0 if packed is None else packed.numel(), stride, k, int(canonical), n,
-                None if key is codes else key.data_ptr(),
-                None if fwd is None else fwd.data_ptr(),
-                None if valid is None else valid.data_ptr(), part.data_ptr(), _cuda.stream(dev))
-    return key, part, fwd, valid
-
-
-def shard_verify_plain(slot, tf_local, checker_local, slot_lo: int, key, valid=None):
-    """Plain version of ``shard_verify``, same arguments and results."""
-    local = slot.to(torch.int64) - slot_lo
-    inside = (local >= 0) & (local < checker_local.numel())
-    safe = torch.where(inside, local, 0)
-    ok = inside & (checker_local[safe] == key)
-    if valid is not None:
-        ok = ok & valid
-    tf = torch.where(ok, tf_local.view(torch.int32)[safe], 0)
-    return tf.view(torch.uint32), ok.to(torch.int32)
-
-
-def shard_verify(slot: torch.Tensor, tf_local: torch.Tensor, checker_local: torch.Tensor,
-                 slot_lo: int, key: torch.Tensor, valid: torch.Tensor | None = None):
-    """One index shard's verified tf part per key: for a summed ``slot``
-    (int32) in this shard's slot range from ``slot_lo`` (``tf_local``
-    uint32 and ``checker_local`` int64 of uint64 keys, one entry a slot),
-    the shard's tf when its checker holds ``key`` (int64) and ``valid``
-    (bool or None) holds, else 0 (the local body of
-    aindex_tpu/parallel/query23.py:62 between its two psums).
-
-    Returns (tf_part uint32[n], found_part int32[n]). A CPU tensor runs the
-    plain version; a CUDA tensor launches K12's verify entry."""
-    _check_i32("slot", slot)
-    _check_i32("tf_local", tf_local)
-    if checker_local.dtype != torch.int64 or checker_local.shape != tf_local.shape \
-            or not checker_local.is_contiguous():
-        raise ValueError("checker_local must be a contiguous int64 tensor shaped like tf_local")
-    if key.dtype != torch.int64 or key.shape != slot.shape or not key.is_contiguous():
-        raise ValueError("key must be a contiguous int64 tensor shaped like slot")
-    if valid is not None and (valid.dtype != torch.bool or valid.shape != slot.shape
-                              or not valid.is_contiguous()):
-        raise ValueError("valid must be a contiguous bool tensor shaped like slot")
-    extra = (valid,) if valid is not None else ()
-    if not _cuda.on_cuda(slot, tf_local, checker_local, key, *extra):
-        return shard_verify_plain(slot, tf_local, checker_local, slot_lo, key, valid)
-    dev = slot.device
-    n = slot.numel()
-    tf = torch.empty(n, dtype=torch.int32, device=dev)
-    found = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        with torch.cuda.device(dev):
-            KERNEL_VERIFY.launch(
-                slot.data_ptr(), tf_local.data_ptr(), checker_local.data_ptr(), slot_lo,
-                tf_local.numel(), key.data_ptr(), None if valid is None else valid.data_ptr(),
-                n, tf.data_ptr(), found.data_ptr(), _cuda.stream(dev))
-    return tf.view(torch.uint32), found
+                None if fwd is None else fwd.data_ptr(), parts.data_ptr(), _cuda.stream(dev))
+    return parts, fwd

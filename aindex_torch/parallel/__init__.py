@@ -2,7 +2,7 @@
 ``torch.distributed``: the (data, index) device mesh (``mesh``), joining a
 job and the rank-level helpers (``distributed``), the data-parallel dense
 count (``count13``), the key-range-sharded spectrum (``spectrum23``), the
-slot-sharded sparse query engine (``query23``) and the slot-range-sharded
+node-sharded sparse query engine (``query23``) and the slot-range-sharded
 positional fill (``positional``).
 
 Each sharded step is a local function of plain tensors and a shard index

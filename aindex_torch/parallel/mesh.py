@@ -6,7 +6,7 @@ axes:
 
 * ``data``: read batches stream data-parallel (the analogue of the
   reference's byte-range worker sharding, reference: src/hash.hpp:414-423);
-* ``index``: the sparse k-mer table is sharded by slot range (the dense
+* ``index``: the sparse k-mer table is sharded by MPHF node range (the dense
   13-mer table is replicated).
 
 Count partials merge with an ``all_reduce`` over ``data``; sharded-table

@@ -1,22 +1,23 @@
 """Index-sharded sparse k-mer queries over a device mesh.
 
 Counterpart of aindex_tpu/parallel/query23.py. Everything that grows with
-the key count is sharded over the ``index`` axis:
+the key count is sharded over the ``index`` axis, by MPHF node range:
 
-* ``slots`` (owner node -> slot id, the big MPHF component at ~13 B/key)
-  shards by node range;
-* ``tf`` and ``checker`` (12 B/key) shard by slot range;
+* each rank holds the node records of its range (``walk_records``: the
+  checker key, tf and slot of each node's slot, 16 B a node, ~20 B/key);
 * only the 2-bit g-values (~1 bit/key) and the query batch are held by
   every rank,
 
-so the bytes a rank holds fall as the mesh grows. A query is: every rank
-computes the owner nodes from the g-values, the rank owning a node's range
-contributes its slot id (one ``all_reduce``), the rank owning that slot's
-range contributes the verified tf and a found flag (a second
-``all_reduce``): routing with two sums per key and no all-to-all. Each
-rank's part is K12 (``kernels/lookup.py`` ``shard_owner``,
-``shard_verify``). Slots cross as int32, tf as the int32 bit pattern of
-uint32, found as int32.
+so the bytes a rank holds fall as the mesh grows. aindex_tpu shards the
+node -> slot map by node range and tf and checker by slot range, so its
+query sums twice: the slot, then the verified tf and found. Here the rank
+that owns a key's node holds its slot's checker and tf too: every rank
+walks to the owner node from the g-values, the owning rank reads the
+node's record and verifies, and one ``all_reduce`` of (tf, slot, found)
+gives every rank every answer: routing with one sum per key and no
+all-to-all. Each rank's part is K12 (``kernels/lookup.py``
+``shard_walk``). The three cross as one int32 block (tf as the int32 bit
+pattern of uint32).
 
 ``ShardedSparse23`` serves the whole query surface of the single-device
 index: tf (ASCII and codes-in), both directions, De Bruijn continuation
@@ -32,11 +33,8 @@ import torch.distributed as dist
 from aindex_torch.core import codec
 from aindex_torch.index.common import host_u32
 from aindex_torch.index.sparse23 import SharedQueryOps, codes_tensor
-from aindex_torch.kernels.lookup import shard_owner, shard_verify
+from aindex_torch.kernels.lookup import shard_walk, walk_records
 from aindex_torch.parallel.mesh import INDEX_AXIS, axis_group, axis_rank, axis_size, mesh_device
-
-#: the checker key of padding slots: the sentinel, never a k-mer code
-_PAD_KEY = -1
 
 
 def shard_slice(arr: np.ndarray, n_shards: int, shard: int, pad_value) -> tuple[np.ndarray, int]:
@@ -53,54 +51,42 @@ def shard_slice(arr: np.ndarray, n_shards: int, shard: int, pad_value) -> tuple[
     return part, padded
 
 
-def _shard_1d(mesh, arr: np.ndarray, pad_value) -> tuple[torch.Tensor, int]:
-    """This rank's ``index`` shard of a host array (padded to divide) on its
-    device. Returns (the shard, the padded length)."""
-    part, padded = shard_slice(arr, axis_size(mesh, INDEX_AXIS), axis_rank(mesh, INDEX_AXIS),
-                               pad_value)
-    return torch.from_numpy(part).to(mesh_device(mesh)), padded
+def shard_records(mphf, checker: np.ndarray, tf: np.ndarray, n_shards: int, shard: int
+                  ) -> tuple[torch.Tensor, int]:
+    """Shard ``shard`` of ``n_shards`` of an MPHF's node records, built on
+    the host: ``walk_records`` of its node range (the node -> slot map cut
+    as ``shard_slice`` cuts it, padding nodes holding slot 0) over the
+    slot-ordered checker (uint64[n]) and tf (uint32[n]). Returns (int32
+    [padded / n_shards, 4] CPU tensor, the padded node count)."""
+    slots, padded = shard_slice(np.asarray(mphf.slots, dtype=np.int32), n_shards, shard, 0)
+    records = walk_records(torch.from_numpy(slots),
+                           torch.from_numpy(np.asarray(checker, dtype=np.uint64).view(np.int64)),
+                           torch.from_numpy(np.asarray(tf, dtype=np.uint32).view(np.int32)))
+    return records, padded
 
 
-def shard_slot_arrays(mesh, tf: np.ndarray, checker: np.ndarray
-                      ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """This rank's slot-range shard of tf (int32 storage of uint32) and
-    checker (int64 of uint64 keys); padding slots hold an impossible key."""
-    tf_s, padded = _shard_1d(mesh, np.asarray(tf, dtype=np.uint32).view(np.int32), 0)
-    ck_s, _ = _shard_1d(mesh, np.asarray(checker, dtype=np.uint64).view(np.int64), _PAD_KEY)
-    return tf_s, ck_s, padded
-
-
-def resolve23_sharded(g_packed, slots_local, tf_local, checker_local, seed: int, domain: int,
-                      codes=None, valid=None, *, mesh, windows=None, k: int = 23,
-                      canonical: bool = False):
-    """(tf uint32, raw slot int32, found bool, key int64, fwd, valid) per
-    key against the sharded tables (aindex_tpu/parallel/query23.py:62).
-    ``slot`` is the unverified MPHF id (get_hash_value semantics); ``found``
-    gates tf and verified-slot consumers. The keys are ``codes`` (int64,
-    optionally masked by ``valid``) or the ``windows`` of packed rows;
-    ``canonical`` probes min(code, revcomp) (``fwd``: code <= revcomp), as
-    ``shard_owner`` takes them."""
-    group = axis_group(mesh, INDEX_AXIS)
+def resolve23_sharded(g_packed, records_local, n: int, seed: int, domain: int, codes=None,
+                      valid=None, *, mesh, windows=None, k: int = 23, canonical: bool = False):
+    """(tf uint32, raw slot int32, found bool, fwd) per key against the
+    node-sharded records (aindex_tpu/parallel/query23.py:62). ``slot`` is
+    the unverified MPHF id (get_hash_value semantics); ``found`` gates tf
+    and verified-slot consumers. The keys are ``codes`` (int64, optionally
+    masked by ``valid``) or the ``windows`` of packed rows; ``canonical``
+    probes min(code, revcomp) (``fwd``: code <= revcomp), as
+    ``shard_walk`` takes them. One ``all_reduce`` over the index axis."""
     shard = axis_rank(mesh, INDEX_AXIS)
-    key, slot, fwd, w_valid = shard_owner(g_packed, slots_local, shard * slots_local.numel(),
-                                          seed, domain, codes, windows, k, canonical)
-    if w_valid is not None:
-        valid = w_valid
-    dist.all_reduce(slot, group=group)
-    tf, found = shard_verify(slot, tf_local, checker_local, shard * tf_local.numel(), key, valid)
-    tf = tf.view(torch.int32)
-    dist.all_reduce(tf, group=group)
-    dist.all_reduce(found, group=group)
-    return tf.view(torch.uint32), slot, found > 0, key, fwd, valid
+    parts, fwd = shard_walk(g_packed, records_local, shard * records_local.shape[0], n, seed,
+                            domain, codes, valid, windows, k, canonical)
+    dist.all_reduce(parts, group=axis_group(mesh, INDEX_AXIS))
+    return parts[0].view(torch.uint32), parts[1], parts[2] > 0, fwd
 
 
 class ShardedSparse23(SharedQueryOps):
-    """Mesh-resident engine over a ``Sparse23Index`` with node-sharded MPHF
-    slots and slot-sharded tf/checker (canonical-keyed indexes with an
-    ATPF MPHF only; the facade keeps reference-keyed indexes on the
-    single-device engine). Every rank of the mesh builds it from the same
-    index and asks the same queries (SPMD); each holds its ``index``
-    shard and gets every answer."""
+    """Mesh-resident engine over a ``Sparse23Index`` with node-sharded
+    records (canonical-keyed indexes with an ATPF MPHF only; the facade
+    keeps reference-keyed indexes on the single-device engine). Every rank
+    of the mesh builds it from the same index and asks the same queries
+    (SPMD); each holds its ``index`` shard and gets every answer."""
 
     def __init__(self, index, mesh):
         if not index.canonical_keys or not hasattr(index.mphf, "g_packed"):
@@ -114,32 +100,30 @@ class ShardedSparse23(SharedQueryOps):
                                          .view(np.int32)).to(self.device)
         self.seed = int(m.seed)
         self.domain = int(m.domain)
-        self.slots_local, self.padded_nodes = _shard_1d(
-            mesh, np.asarray(m.slots, dtype=np.int32), 0)
-        self.tf_local, self.checker_local, self.padded_n = shard_slot_arrays(
-            mesh, index.tf_host, index.checker_host)
+        records, self.padded_nodes = shard_records(
+            m, index.checker_host, index.tf_host, axis_size(mesh, INDEX_AXIS),
+            axis_rank(mesh, INDEX_AXIS))
+        self.records_local = records.to(self.device)
 
     @property
     def per_device_bytes(self) -> int:
-        """Device bytes a rank holds: its shards of the sharded arrays plus
-        the g-values every rank holds."""
-        sharded = (4 * self.padded_nodes + (4 + 8) * self.padded_n)
-        return sharded // axis_size(self.mesh, INDEX_AXIS) + \
+        """Device bytes a rank holds: its node records (16 B a node of the
+        padded node range) plus the g-values every rank holds."""
+        return 16 * self.padded_nodes // axis_size(self.mesh, INDEX_AXIS) + \
             self.g_packed.numel() * self.g_packed.element_size()
 
     # -- core resolution -----------------------------------------------------
 
     def _resolve(self, codes=None, valid=None, canonical=True, windows=None):
-        return resolve23_sharded(self.g_packed, self.slots_local, self.tf_local,
-                                 self.checker_local, self.seed, self.domain, codes, valid,
-                                 mesh=self.mesh, windows=windows, k=self.k,
-                                 canonical=canonical)
+        return resolve23_sharded(self.g_packed, self.records_local, self.n, self.seed,
+                                 self.domain, codes, valid, mesh=self.mesh, windows=windows,
+                                 k=self.k, canonical=canonical)
 
     def _resolve_codes(self, codes, valid=None):
         """(tf uint32, slot int32, strand int32) for literal codes, all on
         the device; slot -1 when absent; strand 0/1/2 = absent/forward/
         revcomp."""
-        tf, slot, found, _, fwd, _ = self._resolve(codes, valid)
+        tf, slot, found, fwd = self._resolve(codes, valid)
         strand = torch.where(found, torch.where(fwd, 1, 2), 0).to(torch.int32)
         return tf, torch.where(found, slot, -1), strand
 
@@ -162,7 +146,7 @@ class ShardedSparse23(SharedQueryOps):
     def _coverage_rows(self, packed: np.ndarray, vbits: np.ndarray, rows: int, stride: int,
                        cutoff: int) -> np.ndarray:
         """Coverage of packed [rows, stride] rows: every window's verified
-        tf against the sharded tables (K12 reads the windows), then the
+        tf against the sharded records (K12 reads the windows), then the
         cutoff; uint32[rows, stride - k] on the host."""
         windows = (torch.from_numpy(packed.view(np.int32)).to(self.device),
                    torch.from_numpy(vbits).to(self.device), rows, stride)

@@ -15,7 +15,7 @@ unpacked into ``dist/parent``): its K6 and K10 (``quot23.cu``,
 layout that checkout uploads, in steps 7 and 13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the sixteen CUDA kernels (K1-K16, twenty-seven C entries) from
+   builds the sixteen CUDA kernels (K1-K16, twenty-six C entries) from
    aindex_torch/csrc, one nvcc per source, all started together; then
    times 2^26 random reads of 16, 32, 64 and 128 bytes from a 512 MiB
    buffer (scripts/randread.cu), the cost that sets K6's and K10's bucket
@@ -119,11 +119,11 @@ layout that checkout uploads, in steps 7 and 13.
    codes-in (4 x 2^24), ASCII tf, pfids, hash values and strands (2^20),
    coverage (10,000 reads) and next/prev (2^16) against the single-device
    engine's answers.
-16. Holds K12 (owner and verify), K13, K14 and K9's pairs-in entry against
-   their plain versions at 1, 2, 4 and 8 simulated shards on the card (each
-   shard called with its own slice; the collectives stood in for by sums
-   and concatenations): K12 on 4 x 2^24 codes, summed over the shards, also
-   against K11's single-device walk; K13 on the concatenated K5 spectra of
+16. Holds K12 (the walk over a shard's node records), K13, K14 and K9's
+   pairs-in entry against their plain versions at 1, 2, 4 and 8 simulated
+   shards on the card (each shard called with its own slice; the
+   collectives stood in for by sums and concatenations): K12 on 4 x 2^24
+   codes, summed over the shards, also against K11's single-device walk; K13 on the concatenated K5 spectra of
    8 corpus chunks, per key range, also against ``merge_spectra``; K14 per
    source on corpus chunks (with a forced small cap that overflows, and the
    dense k = 13 windows) and the pairs-in fill per destination, at one
@@ -131,7 +131,7 @@ layout that checkout uploads, in steps 7 and 13.
    world-of-one path's shape.
 17. Prints K3's three entries, K11's three, the rows built on
    csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
-   K10 fill), K14, and K6, K7's two entries and K10's query and coverage
+   K10 fill), K14, K6, K7's two entries, K10's query and coverage, and K12
    beside their earlier times, with their launches a
    call, from a torch.profiler trace of twenty calls in a fresh process
    (``chip_smoke.py --launches``); then
@@ -373,14 +373,15 @@ def report(card, name, shape, rec):
 #: K10: K3's and K11's three entries, the rows on the onesweep sort and the
 #: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
 #: entries, the K10 fill), K14, and the rows on the quotient and wide
-#: tables' two-row probes (K6, K7's two entries, K10's query and coverage)
+#: tables' two-row probes (K6, K7's two entries, K10's query and coverage);
+#: and K12's, the sum of its two entries (owner, verify) before the walk
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0574, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
               "posbucket": 0.3931, "posfill_pairs": 0.5888, "quot23": 3.4678,
               "quotcov23": 0.0516, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
-              "cuckoocov64": 0.0545}
+              "cuckoocov64": 0.0545, "shardwalk": 5.3189}
 
 
 def launches_per_call(fn, calls: int = 20) -> float:
@@ -515,10 +516,11 @@ def fill_calls(dev) -> dict:
 
 
 def lookup_calls(dev) -> dict:
-    """K3's three entries and K11's query and coverage: name -> (kernel
-    call, plain call), K3 on 2^22 codes over the whole uint32 range (a u8
-    4^13 table; a u32 table for the table-length entries), K11 on 2^22 of
-    the coverage-1 chunk's k = 31 windows and on 1,000 of its rows."""
+    """K3's three entries, K11's query and coverage and K12: name ->
+    (kernel call, plain call), K3 on 2^22 codes over the whole uint32
+    range (a u8 4^13 table; a u32 table for the table-length entries), K11
+    on 2^22 of the coverage-1 chunk's k = 31 windows and on 1,000 of its
+    rows, K12 as one shard of that index on the same windows."""
     import torch
     from aindex_torch import Sparse23Index
     from aindex_torch.core import codec
@@ -526,7 +528,8 @@ def lookup_calls(dev) -> dict:
     from aindex_torch.kernels.encode import packed_window_codes
     from aindex_torch.kernels.lookup import (gather13, gather13_plain, gather_tf,
                                              gather_tf_plain, gather_tf_total_13,
-                                             gather_tf_total_13_plain)
+                                             gather_tf_total_13_plain, shard_walk,
+                                             shard_walk_plain)
     gen = torch.Generator(device=dev).manual_seed(71)
     u8 = torch.randint(0, 256, (SPACE,), dtype=torch.uint8, device=dev, generator=gen)
     u32 = torch.randint(-2 ** 31, 2 ** 31, (SPACE,), dtype=torch.int32, device=dev,
@@ -543,6 +546,7 @@ def lookup_calls(dev) -> dict:
     packed, vbits = upload(dev, packed, vbits)
     cov = (t, packed, vbits, 1000, stride, 31, 0, index.rule)
     keys = packed_window_codes(*upload(dev, *codec.pack_ascii_chunk(chunk)), 31)[0][:1 << 22]
+    shard = (t.g_packed, t.records, 0, t.n, t.seed, t.domain, keys)  # one shard: every node
     return {
         "gather13": (lambda: (gather13(u8, codes),), lambda: (gather13_plain(u8, codes),)),
         "gather13_table": (lambda: (gather_tf(u32, codes),),
@@ -552,13 +556,15 @@ def lookup_calls(dev) -> dict:
         "mphfwalk": (lambda: probe.query(t, keys, k=31, rule=index.rule, slot=True),
                      lambda: probe.query_plain(t, keys, k=31, rule=index.rule, slot=True)),
         "mphfcov": (lambda: (probe.coverage(*cov),), lambda: (probe.coverage_plain(*cov),)),
+        "shardwalk": (lambda: shard_walk(*shard, k=31, canonical=True),
+                      lambda: shard_walk_plain(*shard, k=31, canonical=True)),
     }
 
 
 LAUNCHES_FLAG = "--launches"
 #: the rows whose launches a call the fresh process counts
 LAUNCH_ROWS = ("gather13", "gather13_table", "gather13_total", "mphfwalk", "mphfcov",
-               "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
+               "shardwalk", "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
                "posfill_pairs", "cuckoofill64", "mphffill")
 
 
@@ -2492,13 +2498,11 @@ def probe_bytes(index, keys, k: int) -> int:
     """Bytes of the index's table that the canonical probes of literal
     ``keys`` read, each distinct row, word or entry once, in JAX's layout
     (whatever layout the device reads): the wide cuckoo table's host rows
-    (16 B, the second only for first misses); or the walk's g-words (4 B),
-    the slot entries of the owner nodes (4 B), the checker words of the
-    slots those hold (8 B; every unassigned node holds slot 0) and, on a
-    hit, tf entries (4 B)."""
+    (16 B, the second only for first misses); or the MPHF walk's
+    (``walk_bytes``)."""
     import torch
     from aindex_torch.kernels.encode import canonical_code64
-    from aindex_torch.kernels.lookup import _s64, hash_triple, mix64, mphf_owner_node
+    from aindex_torch.kernels.lookup import _s64, mix64
     keys = canonical_code64(keys, k)
     if index.engine == "cuckoo":
         ct = index.cuckoo
@@ -2506,7 +2510,17 @@ def probe_bytes(index, keys, k: int) -> int:
         hit1 = old_first_hit(index, keys)
         r2 = mix64(keys[~hit1] ^ _s64(ct.seed2)) & (ct.m - 1)
         return 16 * (int(torch.unique(r1).numel()) + int(torch.unique(r2).numel()))
-    t = index.tables
+    return walk_bytes(index.tables, keys)
+
+
+def walk_bytes(t, keys) -> int:
+    """Bytes of JAX's layout that the MPHF walk over ``t`` (``MphfTables``)
+    of the canonical ``keys`` reads, each distinct entry once: the
+    g-words (4 B), the slot entries of the owner nodes (4 B), the checker
+    words of the slots those hold (8 B; every unassigned node holds slot 0)
+    and, on a hit, tf entries (4 B)."""
+    import torch
+    from aindex_torch.kernels.lookup import hash_triple, mphf_owner_node
     words = torch.unique(torch.cat([n >> 4 for n in hash_triple(keys, t.seed, t.domain)]))
     hit, _, slot = t.probe_plain(keys)
     nodes = torch.unique(mphf_owner_node(t.g_packed, keys, t.seed, t.domain))
@@ -2919,11 +2933,13 @@ def golden_path(dev, tmp: str) -> None:
 
 # -- phases 15-16: the mesh path on NCCL, K12-K14 against their plain versions ---
 
-#: kernels that only the mesh path runs (K12's two entries, K13, K14, K9's
-#: pairs-in entry)
-MESH_KERNELS = ("shardowner", "shardverify", "spectrummerge", "posbucket", "posfill_pairs")
+#: kernels that only the mesh path runs (K12, K13, K14, K9's pairs-in entry)
+MESH_KERNELS = ("shardwalk", "spectrummerge", "posbucket", "posfill_pairs")
 #: the simulated shard counts at which K12-K14 meet their plain versions
 SHARDS = (1, 2, 4, 8)
+#: the sharded engine's codes-in rate at world size 1 before the walk
+#: (G queries/s; NVIDIA H100 80GB HBM3, 700.00 W), K12 as two entries
+SHARDED_EARLIER_G = 12.303
 ARTIFACTS = (".reads", ".ridx", ".header", ".tf.bin", ".pf", ".kmers.bin", ".index.bin",
              ".indices.bin")
 
@@ -3054,7 +3070,8 @@ def mesh_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
         eng.get_tf_values(kmers)
         dt = time.perf_counter() - t0
         print(f"mesh shard_to: codes-in {N_CODES} device codes {ms:.4f} ms = "
-              f"{N_CODES / ms / 1e6:.3f} G queries/s (CUDA events); ASCII tf {N_ASCII / dt / 1e6:.2f} "
+              f"{N_CODES / ms / 1e6:.3f} G queries/s (CUDA events; {SHARDED_EARLIER_G} G "
+              f"with K12 as two entries); ASCII tf {N_ASCII / dt / 1e6:.2f} "
               f"M k-mers/s (host clock); tf, pfids, hash, strands, coverage of {N_SEQ} reads, "
               f"next/prev of {N_DB}: == the single-device engine; {eng.per_device_bytes} "
               f"bytes on the device ({card})")
@@ -3080,8 +3097,8 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.core import codec
     from aindex_torch.core.reads import blob_chunks
     from aindex_torch.kernels import probe
-    from aindex_torch.kernels.lookup import (MphfTables, shard_owner, shard_owner_plain,
-                                             shard_verify, shard_verify_plain)
+    from aindex_torch.kernels.encode import canonical_code64
+    from aindex_torch.kernels.lookup import MphfTables, shard_walk, shard_walk_plain
     from aindex_torch.kernels.positional import (bucket_scratch, chunk_slots_plain,
                                                  fill_scratch, posbucket, posbucket_plain,
                                                  posfill, posfill_pairs, posfill_pairs_plain)
@@ -3089,7 +3106,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
                                                sorted_spectrum_weighted,
                                                sorted_spectrum_weighted_plain)
     from aindex_torch.parallel.positional import bucket_cap, range_layout
-    from aindex_torch.parallel.query23 import shard_slice
+    from aindex_torch.parallel.query23 import shard_records
     from aindex_torch.parallel.spectrum23 import key_range
 
     res = {}
@@ -3098,61 +3115,41 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     codes = query_codes(dev, reads, index)
     n = codes.numel()
 
-    # K12: per shard its node range (owner), a sum, its slot range (verify)
+    # K12: per shard the walk over its node range's records, one sum
     walk = MphfTables.from_host(m, index.checker_host, index.tf_host, dev)
     want_tf, want_slot = probe.query(walk, codes, k=K23, rule=probe.CANON, slot=True)
-    err = {"shardowner": 0, "shardverify": 0}
+    n_tab = walk_bytes(walk, canonical_code64(codes, K23))
+    del walk
+    err = 0
     for n_sh in SHARDS:
         t0 = time.perf_counter()
-        parts, plain_parts, shards = [], [], []
+        total = torch.zeros((3, n), dtype=torch.int32, device=dev)
         for i in range(n_sh):
-            s_i, _ = shard_slice(np.asarray(m.slots, np.int32), n_sh, i, 0)
-            tf_i, _ = shard_slice(index.tf_host.view(np.int32), n_sh, i, 0)
-            ck_i, _ = shard_slice(index.checker_host.view(np.int64), n_sh, i, -1)
-            shards.append(tuple(torch.from_numpy(x).to(dev) for x in (s_i, tf_i, ck_i)))
-            args = (g, shards[-1][0], i * s_i.size, int(m.seed), int(m.domain), codes)
-            got = shard_owner(*args, k=K23, canonical=True)
-            ref = shard_owner_plain(*args, k=K23, canonical=True)
-            err["shardowner"] = max(err["shardowner"], max_abs_err(got[0], ref[0]),
-                                    max_abs_err(got[1], ref[1]),
-                                    max_abs_err(got[2].to(torch.int64), ref[2].to(torch.int64)))
-            parts.append(got)
-        key = parts[0][0]
-        slot = torch.stack([p[1] for p in parts]).sum(0, dtype=torch.int32)
-        tf = torch.zeros(n, dtype=torch.int32, device=dev)
-        found = torch.zeros(n, dtype=torch.int32, device=dev)
-        for i, (_, tf_i, ck_i) in enumerate(shards):
-            got = shard_verify(slot, tf_i, ck_i, i * tf_i.numel(), key)
-            ref = shard_verify_plain(slot, tf_i, ck_i, i * tf_i.numel(), key)
-            err["shardverify"] = max(err["shardverify"], max_abs_err(got[0], ref[0]),
-                                     max_abs_err(got[1], ref[1]))
-            tf += got[0].view(torch.int32)
-            found += got[1]
-        check(bool((tf == want_tf.view(torch.int32)).all())
-              and bool((torch.where(found > 0, slot, -1) == want_slot).all()),
+            rec = shard_records(m, index.checker_host, index.tf_host, n_sh, i)[0].to(dev)
+            args = (g, rec, i * rec.shape[0], index.n, int(m.seed), int(m.domain), codes)
+            got, fwd = shard_walk(*args, k=K23, canonical=True)
+            ref, ref_fwd = shard_walk_plain(*args, k=K23, canonical=True)
+            err = max(err, max_abs_err(got, ref),
+                      max_abs_err(fwd.to(torch.int64), ref_fwd.to(torch.int64)))
+            total += got
+            del rec, got, ref, fwd, ref_fwd
+        check(bool((total[0] == want_tf.view(torch.int32)).all())
+              and bool((torch.where(total[2] > 0, total[1], -1) == want_slot).all()),
               f"K12 at {n_sh} shards == K11's single-device tf and slot")
-        print(f"K12 at {n_sh} shards: owner, sum, verify, sums of {n} codes == plain and == "
-              f"K11 ({time.perf_counter() - t0:.1f} s)")
-    # timed at the path's shape: one shard holds everything
-    s_all, tf_all, ck_all = shards_1 = tuple(torch.from_numpy(x).to(dev) for x in (
-        np.asarray(m.slots, np.int32), index.tf_host.view(np.int32),
-        index.checker_host.view(np.int64)))
-    args = (g, s_all, 0, int(m.seed), int(m.domain), codes)
-    key, slot, _, _ = shard_owner(*args, k=K23, canonical=True)
-    hit = torch.unique(slot)
-    n_nodes = int(torch.unique(key).numel())
-    ms = cuda_ms(lambda: shard_owner(*args, k=K23, canonical=True), 20)
-    pms = cuda_ms(lambda: shard_owner_plain(*args, k=K23, canonical=True), 3)
-    # codes in; key, fwd and slot out; the g-vector once; a slot a distinct key
-    rec = record(err["shardowner"], ms, pms, n * (8 + 8 + 1 + 4) + g.numel() * 4 + 4 * n_nodes)
-    report(card, "shardowner", f"{n} codes, canonical, 1 shard", rec)
-    res["shardowner"] = rec
-    ms = cuda_ms(lambda: shard_verify(slot, tf_all, ck_all, 0, key), 20)
-    pms = cuda_ms(lambda: shard_verify_plain(slot, tf_all, ck_all, 0, key), 3)
-    rec = record(err["shardverify"], ms, pms, n * (4 + 8 + 4 + 4) + hit.numel() * 12)
-    report(card, "shardverify", f"{n} codes, 1 shard", rec)
-    res["shardverify"] = rec
-    del codes, key, slot, hit, shards, parts, walk, want_tf, want_slot, shards_1, s_all
+        print(f"K12 at {n_sh} shards: each shard's walk of {n} codes == plain; their sum == "
+              f"K11's tf and slot ({time.perf_counter() - t0:.1f} s)")
+        del total
+    # timed at the path's shape: one shard holds every node
+    rec = shard_records(m, index.checker_host, index.tf_host, 1, 0)[0].to(dev)
+    args = (g, rec, 0, index.n, int(m.seed), int(m.domain), codes)
+    ms = cuda_ms(lambda: shard_walk(*args, k=K23, canonical=True), 20)
+    pms = cuda_ms(lambda: shard_walk_plain(*args, k=K23, canonical=True), 3)
+    # codes in; tf, slot, found and fwd out; the table K11's walk of the
+    # same codes reads (walk_bytes, JAX's layout)
+    res["shardwalk"] = record(err, ms, pms, n * (8 + 3 * 4 + 1) + n_tab)
+    report(card, "shardwalk", f"{n} codes, canonical, 1 shard; earlier as two entries "
+           f"{EARLIER_MS['shardwalk']} ms", res["shardwalk"])
+    del codes, rec, want_tf, want_slot
     torch.cuda.empty_cache()
 
     # K13: the concatenated K5 spectra of 8 corpus chunks, per key range

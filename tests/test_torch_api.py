@@ -19,6 +19,10 @@ from aindex_tpu.core import codec as jcodec
 from aindex_torch import AIndex as TAIndex
 from aindex_torch.parallel import distributed as tdist
 from aindex_torch.parallel.mesh import make_mesh as t_make_mesh
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden_ref")
 KS = [13, 23, 27, 31]
@@ -58,7 +62,9 @@ _BUILT: dict = {}
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _clear():
+def _clear(jax_native):
+    """aindex_tpu's native library is loaded before _BUILT fills, and
+    _BUILT is emptied after the module."""
     yield
     _BUILT.clear()
 

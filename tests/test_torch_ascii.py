@@ -27,6 +27,10 @@ from aindex_torch.kernels import count as tcount
 from aindex_torch.kernels import lookup as tlookup
 from aindex_torch.kernels import quot as tquot
 from aindex_torch.kernels import spectrum as tspec
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 #: codes at the edges of the index rules, as uint32
 EDGES = np.array([0, 1, 15, 16, 17, SPACE_13 - 1, SPACE_13, 2 ** 31 - 1, 2 ** 31, 2 ** 31 + 3,
@@ -335,7 +339,7 @@ def test_chunk_spectrum_rejects():
 # -- quot_tf_windows (K7's ASCII-rows entry) ----------------------------------------------
 
 @pytest.fixture(scope="module")
-def quot_built(random_reads):
+def quot_built(random_reads, jax_native):
     """(port QuotCuckoo, JAX QuotCuckoo) over the conftest reads' spectrum,
     as tests/test_torch_mphf_quot.py builds them for the packed twin."""
     jindex = jsparse.Sparse23Index.build_from_sequences(random_reads)

@@ -26,6 +26,10 @@ from aindex_torch.index import quotcuckoo as tq
 from aindex_torch.index.cuckoo import CuckooTable as TCuckoo, _mix64_np
 from aindex_torch.kernels import buckets, probe
 from aindex_torch.kernels.quot import QuotTables, bij, bij_inverse
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 EMPTY_KEY = np.uint64(buckets.EMPTY_KEY)
 ENGINES = {"quot": 23, "wide": 27}
@@ -41,7 +45,7 @@ def _u32(x: torch.Tensor) -> np.ndarray:
 
 
 @pytest.fixture(scope="module")
-def indexes(random_reads):
+def indexes(random_reads, jax_native):
     """engine -> (port index, JAX index) over the conftest reads."""
     blob = ReadsStore.from_sequences(random_reads).blob
     out = {}

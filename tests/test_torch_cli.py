@@ -15,6 +15,10 @@ import pytest
 
 from aindex_tpu.cli import main as jmain
 from aindex_torch.cli import main as tmain
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

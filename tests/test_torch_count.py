@@ -14,6 +14,10 @@ from aindex_tpu.constants import SPACE_13
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.kernels.count import count_batch_13_packed
 from aindex_torch.kernels import count as tcount
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 _jax_count = jax.jit(functools.partial(count_batch_13_packed, k=13, space=SPACE_13))
 

@@ -12,6 +12,10 @@ from aindex_tpu.constants import SPACE_13
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.kernels import coverage as jcov
 from aindex_torch.kernels import coverage as tcov
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 WIDTHS = {8: np.uint8, 16: np.uint16, 32: np.uint32}
 

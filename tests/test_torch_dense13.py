@@ -21,12 +21,16 @@ from aindex_torch.index import dense13 as td
 from aindex_torch.io.fastq import iter_sequence_bytes as t_iter_bytes
 
 import oracle
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "data", "*")))
 
 
 @pytest.fixture(scope="module")
-def built(random_reads):
+def built(random_reads, jax_native):
     """(port index, JAX index) over the conftest reads, default chunk."""
     blob = ReadsStore.from_sequences(random_reads).blob
     return (td.Dense13Index.build_from_blob(blob, device="cpu"),

@@ -21,6 +21,10 @@ from aindex_torch import native as tnative
 from aindex_torch.index import emphf as temphf
 from aindex_torch.index.dense13 import Dense13Index as TDense
 from aindex_torch.index.sparse23 import Sparse23Index as TIndex
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden_ref")
 PREFIX = os.path.join(GOLD, "p.23")
@@ -52,7 +56,7 @@ def golden_reads():
 
 
 @pytest.fixture(scope="module")
-def indexes():
+def indexes(jax_native):
     return TIndex.load(PREFIX, device="cpu"), JIndex.load(PREFIX)
 
 

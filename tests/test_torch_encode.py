@@ -10,6 +10,10 @@ import torch
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.kernels import encode as jenc
 from aindex_torch.kernels import encode as tenc
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 ALPHABET = np.frombuffer(b"ACGTacgtN~\nxACGTACGT", dtype=np.uint8)
 

@@ -23,6 +23,10 @@ from aindex_tpu.io.fastq import read_sequences
 from aindex_tpu.kernels import lookup as jlookup
 from aindex_torch import PositionalIndex as TPos, Sparse23Index as TIndex
 from aindex_torch.kernels import lookup as tlookup, probe
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 HERE = os.path.dirname(__file__)
 DATA = sorted(p for p in glob.glob(os.path.join(HERE, "data", "*"))
@@ -65,7 +69,9 @@ def _built(k: int, source: str, random_reads):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _clear_cache():
+def _clear_cache(jax_native):
+    """aindex_tpu's native library is loaded before _CACHE fills, and
+    _CACHE is emptied after the module."""
     yield
     _CACHE.clear()
 

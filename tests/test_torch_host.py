@@ -156,7 +156,7 @@ class TestFastq:
                 assert fa.read() == fb.read(), key
 
     @pytest.mark.parametrize("form", ["gzip", "two files"])
-    def test_native_request_on_python_inputs(self, tmp_path, form):
+    def test_native_request_on_python_inputs(self, tmp_path, form, jax_native):
         """use_native=True on a gzipped FASTA and on a list of two FASTA
         files: both packages take the Python reader and write the same
         files."""

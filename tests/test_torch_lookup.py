@@ -11,6 +11,10 @@ from aindex_tpu.constants import SPACE_13
 from aindex_tpu.index import dense13 as jd
 from aindex_tpu.kernels.lookup import gather_tf_both_13, gather_tf_valid
 from aindex_torch.kernels import lookup as tl
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 EDGES = np.array([0, 7, SPACE_13 - 1, SPACE_13, SPACE_13 + 5, 2 ** 31 - 1, 2 ** 31,
                   2 ** 31 + SPACE_13, 2 ** 32 - SPACE_13, 2 ** 32 - 1], dtype=np.uint32)

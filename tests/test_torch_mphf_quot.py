@@ -28,6 +28,9 @@ from aindex_torch.kernels import probe as tprobe
 from aindex_torch.kernels import quot as tquot
 from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
@@ -95,7 +98,7 @@ def test_builds_need_native_at_main_path_sizes():
 # -- quotient cuckoo: host build -------------------------------------------------
 
 @pytest.fixture(scope="module")
-def jindex(random_reads):
+def jindex(random_reads, jax_native):
     return JIndex.build_from_sequences(random_reads)
 
 

@@ -29,6 +29,12 @@ import sys
 import numpy as np
 import pytest
 
+if __name__ != "__main__":   # a rank imports aindex_torch only
+    from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+    #: aindex_tpu's native library loads before anything here builds through it
+    pytestmark = pytest.mark.usefixtures("jax_native")
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ARTIFACTS_23 = (".reads", ".ridx", ".pf", ".tf.bin", ".kmers.bin", ".index.bin",
                 ".indices.bin")
@@ -131,7 +137,7 @@ def fasta(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def single(fasta, tmp_path_factory):
+def single(fasta, tmp_path_factory, jax_native):
     """aindex_tpu's single-process build of the same FASTA."""
     from aindex_tpu.pipeline.build import BuildConfig, build_all
     d = tmp_path_factory.mktemp("single")
@@ -140,7 +146,7 @@ def single(fasta, tmp_path_factory):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
-def spawned(request, fasta, tmp_path_factory):
+def spawned(request, fasta, tmp_path_factory, jax_native):
     """One spawn of ``world`` ranks; (world, out dir, per-rank results)."""
     world = request.param
     out = str(tmp_path_factory.mktemp(f"world{world}"))
@@ -222,13 +228,19 @@ def test_sharded_queries_match_aindex_tpu(spawned, single, fasta, eight_devices,
             "hash": eng.get_hash_values(kms), "strands": eng.get_strands(kms),
             "codes": np.asarray(eng.get_tf_values_codes(codes)),
             "cov": np.concatenate(eng.sequence_coverage_batch(reads[:6], 1)),
-            "next": eng.debruijn_next(kms[:40], 0), "prev": eng.debruijn_prev(kms[:40], 1),
-            "bytes": eng.per_device_bytes}
+            "next": eng.debruijn_next(kms[:40], 0), "prev": eng.debruijn_prev(kms[:40], 1)}
     assert want["tf"][:100].all()
+    # the port's layout differs from aindex_tpu's by design: a rank holds
+    # the 16-byte node records of its node range and the whole g-vector
+    m = index.mphf
+    nodes = -(-3 * int(m.domain) // n_index) * n_index
+    want["bytes"] = 16 * nodes // n_index + np.asarray(m.g_packed, np.uint32).nbytes
     for res in ranks:
         for key, value in want.items():
             np.testing.assert_array_equal(res[f"{mesh_name}_{key}"], np.asarray(value),
                                           err_msg=key)
+        if mesh_name == "index":    # n_index = world against the build mesh's 1 or 2
+            assert int(res["index_bytes"]) < int(res["build_bytes"])
 
 
 if __name__ == "__main__":

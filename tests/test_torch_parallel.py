@@ -43,10 +43,14 @@ from aindex_torch.parallel import count13 as tcount13
 from aindex_torch.parallel import distributed as tdist
 from aindex_torch.parallel import positional as tppos
 from aindex_torch.parallel.mesh import make_mesh as t_make_mesh
-from aindex_torch.parallel.query23 import shard_slice
+from aindex_torch.parallel.query23 import shard_records
 from aindex_torch.parallel.spectrum23 import merge_range
 
 import oracle
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 SHARDS = (1, 2, 4, 8)
 
@@ -144,13 +148,29 @@ def test_spectrum23_sharded_per_shard(blob, eight_devices, n):
             assert int(n_u) == int(jn[d])
 
 
-# -- resolve23: K12 owner per shard, a sum, K12 verify per shard, sums -------------
+# -- resolve23: K12 per shard (the walk over its node records), one sum -----------
+
+def _walk_sum(mphf, checker, tf, n_keys: int, n: int, codes=None, valid=None, windows=None,
+              k: int = 23, canonical: bool = False):
+    """resolve23_sharded's local step for ``n`` shards in one process: each
+    shard's ``shard_walk`` over its own node records, and the one
+    all_reduce stood in for by a sum. Returns (the summed int32[3, m]
+    parts, fwd, every shard's parts)."""
+    g = _t(np.asarray(mphf.g_packed, np.uint32))
+    each, fwd = [], None
+    for i in range(n):
+        rec, padded = shard_records(mphf, checker, tf, n, i)
+        assert rec.shape == (padded // n, 4) and padded >= 3 * int(mphf.domain)
+        parts, fwd = tlookup.shard_walk(g, rec, i * rec.shape[0], n_keys, int(mphf.seed),
+                                        int(mphf.domain), codes, valid, windows, k, canonical)
+        each.append(parts)
+    return torch.stack(each).sum(0, dtype=torch.int32), fwd, each
+
 
 @pytest.mark.parametrize("n", SHARDS)
 def test_resolve23_sharded(blob, eight_devices, n):
     jindex = JSparse.build_from_blob(blob)
     sharded = JSharded(jindex, _j_mesh(1, n, eight_devices))
-    m = jindex.mphf
     rng = np.random.default_rng(7 + n)
     present = jindex.checker_host[rng.integers(0, jindex.n, size=300)]
     absent = rng.integers(0, 4 ** 23, size=200, dtype=np.uint64)
@@ -161,28 +181,187 @@ def test_resolve23_sharded(blob, eight_devices, n):
         sharded.g_packed, sharded.slots_sharded, sharded.tf_sharded, sharded.checker_sharded,
         sharded.seed, sharded.domain, jnp.asarray(canon), jnp.asarray(valid),
         mesh=sharded.mesh))
-    g = _t(np.asarray(m.g_packed, np.uint32))
-    codes = _t(canon.view(np.int64))
-    slot = torch.zeros(canon.size, dtype=torch.int32)
-    for i in range(n):
-        slots_i, _ = shard_slice(np.asarray(m.slots, np.int32), n, i, 0)
-        key, part, fwd, w_valid = tlookup.shard_owner(g, _t(slots_i), i * slots_i.size,
-                                                      int(m.seed), int(m.domain), codes)
-        assert key is codes and fwd is None and w_valid is None
-        slot += part
-    tf = torch.zeros(canon.size, dtype=torch.int32)
-    found = torch.zeros(canon.size, dtype=torch.int32)
-    for i in range(n):
-        tf_i, _ = shard_slice(jindex.tf_host.view(np.int32), n, i, 0)
-        ck_i, _ = shard_slice(jindex.checker_host.view(np.int64), n, i, -1)
-        t_part, f_part = tlookup.shard_verify(slot, _t(tf_i), _t(ck_i), i * tf_i.size, codes,
-                                              torch.from_numpy(valid))
-        tf += t_part.view(torch.int32)
-        found += f_part
+    parts, fwd, _ = _walk_sum(jindex.mphf, jindex.checker_host, jindex.tf_host, jindex.n, n,
+                              _t(canon.view(np.int64)), torch.from_numpy(valid))
+    assert fwd is None
+    tf, slot, found = parts
     np.testing.assert_array_equal(tf.numpy().view(np.uint32), jtf)
     np.testing.assert_array_equal(slot.numpy(), jslot)
     np.testing.assert_array_equal(found.numpy() > 0, jfound)
     np.testing.assert_array_equal(jfound[:300], valid[:300])    # present keys, masked
+
+
+@pytest.fixture(scope="module")
+def walk_index(blob):
+    """(port index, its MphfTables: the single-device walk over every node)."""
+    t = TSparse.build_from_blob(blob, device="cpu")
+    return t, tlookup.MphfTables.from_host(t.mphf, t.checker_host, t.tf_host, "cpu")
+
+
+def _walk_keys(t, tables, rng) -> np.ndarray:
+    """Members, their reverse complements, random codes, codes that walk to
+    unassigned nodes, the key in slot 0, 0 and 4^23 - 1."""
+    draws = rng.integers(0, 4 ** 23, 100_000, dtype=np.uint64)
+    node = tlookup.mphf_owner_node(tables.g_packed, _t(draws.view(np.int64)), tables.seed,
+                                   tables.domain).numpy()
+    g = (np.asarray(t.mphf.g_packed, np.uint32)[node >> 4] >> (2 * (node & 15))) & 3
+    unassigned = draws[g == 3][:500]
+    assert unassigned.size == 500
+    members = t.checker_host
+    return np.concatenate([members, jcodec.revcomp_code(members, 23), draws[:2000], unassigned,
+                           members[:1], np.array([0, 4 ** 23 - 1], np.uint64)])
+
+
+def _walk_want(tables, keys: torch.Tensor, valid) -> torch.Tensor:
+    """The parts the shards must sum to, from the single-device walk: tf
+    and found where the key is present (and valid), the raw slot always."""
+    hit, tf, slot = tables.probe_plain(keys)
+    if valid is not None:
+        hit = hit & valid
+    return torch.stack([torch.where(hit, tf, 0).to(torch.int32), slot.to(torch.int32),
+                        hit.to(torch.int32)])
+
+
+@pytest.mark.parametrize("n", SHARDS)
+@pytest.mark.parametrize("case", ["raw", "masked", "canonical"])
+def test_shard_walk_matches_walk(walk_index, n, case):
+    """Summed over n shards, shard_walk_plain == MphfTables.probe_plain:
+    present, absent and unassigned-node keys, raw (canonical=False) slots,
+    a mask, and canonical probes with their strand; the owner of each key
+    lies in one shard's node range, so no other shard answers."""
+    t, tables = walk_index
+    rng = np.random.default_rng(211 + n)
+    codes = _t(_walk_keys(t, tables, rng).view(np.int64))
+    valid = torch.from_numpy(rng.random(codes.numel()) < 0.8) if case == "masked" else None
+    got, fwd, each = _walk_sum(t.mphf, t.checker_host, t.tf_host, t.n, n, codes, valid,
+                               canonical=case == "canonical")
+    keys = codes
+    if case == "canonical":
+        rc = tlookup.revcomp_code64(codes, 23)
+        keys = torch.where(codes <= rc, codes, rc)    # codes below 2^46: signed order holds
+        np.testing.assert_array_equal(fwd.numpy(), (codes <= rc).numpy())
+    else:
+        assert fwd is None
+    want = _walk_want(tables, keys, valid)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    owners = torch.stack([(p != 0).any(0) for p in each]).sum(0)
+    assert int(owners.max()) <= 1
+    assert bool(want[2, :t.n].all()) == (case != "masked")
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_shard_walk_windows(walk_index, reads, n):
+    """The windows entry (packed rows, as coverage takes them) == the codes
+    entry on the same windows encoded from their strings, each window's
+    validity its mask; a row's padding is invalid."""
+    t, tables = walk_index
+    stride = 80
+    rows = [r[:stride - 1] for r in reads]
+    packed, vbits = tcodec.pack_ascii_chunk(np.frombuffer(
+        "".join(r.ljust(stride, "\n") for r in rows).encode(), np.uint8))
+    windows = (_t(packed), _t(vbits), len(rows), stride)
+    got, fwd, _ = _walk_sum(t.mphf, t.checker_host, t.tf_host, t.n, n, windows=windows,
+                            canonical=True)
+    kms = [r.ljust(stride, "\n")[j:j + 23] for r in rows for j in range(stride - 23)]
+    codes, valid = tcodec.encode_kmers(kms, 23)
+    codes = _t(np.ascontiguousarray(codes).view(np.int64))
+    want, want_fwd, _ = _walk_sum(t.mphf, t.checker_host, t.tf_host, t.n, n, codes,
+                                  torch.from_numpy(valid), canonical=True)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[2].numpy(), want[2].numpy())
+    ok = torch.from_numpy(valid)
+    np.testing.assert_array_equal(got[1][ok].numpy(), want[1][ok].numpy())
+    np.testing.assert_array_equal(fwd[ok].numpy(), want_fwd[ok].numpy())
+    assert int(got[2].sum()) > 0 and not bool(ok.all())
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_shard_walk_no_keys(n):
+    """n = 0: every key absent (tf 0, not found) at every shard count, its
+    raw slot 0, as aindex_tpu's node -> slot table of zeros reads."""
+    t = TSparse.build_from_blob(ReadsStore.from_sequences(["ACGTACG"]).blob, device="cpu")
+    assert t.n == 0
+    codes = np.array([0, 5, 4 ** 23 - 1, 12345678901], dtype=np.uint64)
+    got, _, _ = _walk_sum(t.mphf, t.checker_host, t.tf_host, 0, n, _t(codes.view(np.int64)),
+                          canonical=True)
+    np.testing.assert_array_equal(got.numpy(), 0)
+    raw = jlookup.mphf_lookup(jnp.asarray(t.mphf.g_packed), jnp.asarray(t.mphf.slots),
+                              jnp.asarray(codes), jnp.uint64(t.mphf.seed),
+                              jnp.uint64(t.mphf.domain))
+    np.testing.assert_array_equal(np.asarray(raw), 0)
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_shard_walk_padding_shards(n):
+    """An index of 2 keys (6 nodes): at 4 and 8 shards the last shards'
+    node ranges are padding only. They answer nothing, and the sum is the
+    single-device walk's."""
+    t = TSparse.build_from_blob(ReadsStore.from_sequences(["ACGT" * 5 + "ACGTA"]).blob,
+                                device="cpu")
+    tables = tlookup.MphfTables.from_host(t.mphf, t.checker_host, t.tf_host, "cpu")
+    assert t.n == 2 and 3 * t.mphf.domain == 6
+    rng = np.random.default_rng(223)
+    keys = np.concatenate([t.checker_host, rng.integers(0, 4 ** 23, 3000, dtype=np.uint64)])
+    codes = _t(keys.view(np.int64))
+    got, _, each = _walk_sum(t.mphf, t.checker_host, t.tf_host, t.n, n, codes)
+    np.testing.assert_array_equal(got.numpy(), _walk_want(tables, codes, None).numpy())
+    size = -(-6 // n)
+    for i, parts in enumerate(each):
+        if i * size >= 6:
+            assert not parts.any()
+    assert (n >= 4) == any(i * size >= 6 for i in range(n))
+
+
+def test_sharded_query_is_one_sum(blob, world, monkeypatch):
+    """On the world-of-one mesh a codes-in, an ASCII and a coverage query
+    each make one all_reduce, of the int32[3, n] parts; the answers are
+    the single-device index's, and a rank holds 16 B a node and the
+    g-vector."""
+    from aindex_torch.parallel import query23
+    t = TSparse.build_from_blob(blob, device="cpu")
+    eng = query23.ShardedSparse23(t, world)
+    calls = []
+    real = query23.dist.all_reduce
+
+    def counted(x, **kw):
+        calls.append((x.dtype, tuple(x.shape)))
+        return real(x, **kw)
+    monkeypatch.setattr(query23.dist, "all_reduce", counted)
+    rng = np.random.default_rng(227)
+    codes = np.concatenate([t.checker_host, rng.integers(0, 4 ** 23, 500, dtype=np.uint64)])
+    got = eng.get_tf_values_codes(codes)
+    assert calls == [(torch.int32, (3, codes.size))]
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  t.get_tf_values_codes(codes).view(torch.int32).numpy())
+    seqs = [q for q in blob.tobytes().decode().split("\n") if len(q) >= 23][:5]
+    kms = [q[i:i + 23] for q in seqs for i in range(0, len(q) - 22, 3)]
+    calls.clear()
+    np.testing.assert_array_equal(eng.get_tf_values(kms), t.get_tf_values(kms))
+    assert calls == [(torch.int32, (3, len(kms)))]
+    calls.clear()
+    cov = eng.sequence_coverage_batch(seqs)
+    assert len(calls) == 1    # the reads share one length class
+    for a, b in zip(cov, t.sequence_coverage_batch(seqs)):
+        np.testing.assert_array_equal(a, b)
+    assert eng.per_device_bytes == 16 * 3 * t.mphf.domain + 4 * eng.g_packed.numel()
+    assert eng.records_local.shape == (3 * t.mphf.domain, 4)
+
+
+def test_shard_walk_rejects():
+    """shard_walk's argument checks."""
+    g = torch.zeros(1, dtype=torch.int32)
+    rec = torch.zeros((3, 4), dtype=torch.int32)
+    codes = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="records_local"):
+        tlookup.shard_walk(g, torch.zeros((0, 4), dtype=torch.int32), 0, 1, 0, 1, codes)
+    with pytest.raises(ValueError, match="records_local"):
+        tlookup.shard_walk(g, rec[:, :3].contiguous(), 0, 1, 0, 1, codes)
+    with pytest.raises(ValueError, match="exactly one"):
+        tlookup.shard_walk(g, rec, 0, 1, 0, 1)
+    with pytest.raises(ValueError, match="valid"):
+        tlookup.shard_walk(g, rec, 0, 1, 0, 1, codes, torch.ones(3, dtype=torch.bool))
+    with pytest.raises(ValueError, match="domain"):
+        tlookup.shard_walk(g, rec, 0, 1, 0, 0, codes)
 
 
 # -- positional: K14 per source, the exchange, K9 pairs per destination ------------

@@ -17,6 +17,10 @@ import pytest
 from aindex_tpu.pipeline import build as jbuild
 from aindex_torch.pipeline import build as tbuild
 from aindex_torch.pipeline.progress import Progress, make_progress
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 INPUTS = {

@@ -22,6 +22,10 @@ from aindex_torch.core import codec as tcodec
 from aindex_torch.kernels import positional as tk
 
 import oracle
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 DATA = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "data", "*")))
 JPos = jpos.PositionalIndex
@@ -62,13 +66,13 @@ def blob(random_reads):
 
 
 @pytest.fixture(scope="module")
-def sparse(blob):
+def sparse(blob, jax_native):
     """(port index, JAX index) of the conftest reads' canonical 23-mers."""
     return TSparse.build_from_blob(blob, device="cpu"), JSparse.build_from_blob(blob)
 
 
 @pytest.fixture(scope="module")
-def dense(blob):
+def dense(blob, jax_native):
     """(port, JAX) dense 13-mer positional indexes, default chunk."""
     return TPos.build_dense13(blob, device="cpu"), JPos.build_dense13(blob)
 

@@ -22,6 +22,10 @@ from aindex_torch import Sparse23Index as TIndex
 from aindex_torch.io.fastq import iter_sequence_bytes as t_iter_bytes
 
 import oracle
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 HERE = os.path.dirname(__file__)
 DATA = sorted(glob.glob(os.path.join(HERE, "data", "*")))
@@ -50,7 +54,7 @@ def _eq(a, b) -> None:
 
 
 @pytest.fixture(scope="module")
-def built(random_reads):
+def built(random_reads, jax_native):
     """(port index, JAX index) over the conftest reads."""
     blob = ReadsStore.from_sequences(random_reads).blob
     return (TIndex.build_from_blob(blob, device="cpu"), JIndex.build_from_blob(blob))

@@ -18,6 +18,10 @@ from aindex_torch.core.reads import stream_blob_chunks
 from aindex_torch.index import sparse23 as tsparse
 from aindex_torch.kernels import encode as tencode
 from aindex_torch.kernels import spectrum as tspec
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def _chunk(case: str) -> np.ndarray:

@@ -15,6 +15,10 @@ from aindex_tpu.index.sparse23 import Sparse23Index as JIndex, _query_kernel
 from aindex_tpu.kernels import lookup as jlookup
 from aindex_torch import Sparse23Index as TIndex
 from aindex_torch.kernels import lookup as tlookup, probe
+from test_torch_host import jax_native  # noqa: F401 (a fixture)
+
+#: aindex_tpu's native library loads before anything here builds through it
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 RULES = {"keys": probe.KEYS, "canon": probe.CANON, "fwd_rc": probe.FWD_RC}
 _CACHE: dict = {}
@@ -41,7 +45,9 @@ def _built(name: str, random_reads):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _clear_cache():
+def _clear_cache(jax_native):
+    """aindex_tpu's native library is loaded before _CACHE fills, and
+    _CACHE is emptied after the module."""
     yield
     _CACHE.clear()
 

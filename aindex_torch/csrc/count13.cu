@@ -1,36 +1,76 @@
 // The dense count kernels: K1 count13_packed, K15 scatter_count and K16
-// count13_rows, each a scatter-add into a uint32 count table.
+// count13_rows, each adding into a uint32 count table.
 //
 // K1 count13_packed: fused unpack -> 13-mer windows -> scatter-add into the
 // dense uint32[4^13] count table, one packed ingest chunk per launch.
 // Replaces aindex_tpu/kernels/count.py:69 count_batch_13_packed (with
 // scatter_count_into, :45), which JAX lowers to a masked scatter-add.
 //
-// K15 scatter_count: given codes and a valid mask -> a fresh table.
-// Replaces aindex_tpu/kernels/count.py:31 scatter_count.
+// K15 scatter_count: given codes and a weight (valid) per code -> a fresh
+// table. Replaces aindex_tpu/kernels/count.py:31 scatter_count.
 //
 // K16 count13_rows: ASCII rows -> forward k-mer windows (k <= 16) ->
 // scatter-add into the table in place. Replaces
 // aindex_tpu/kernels/count.py:54 count_batch_13 (jitted with donation as
 // index/dense13.py:29 _count_step).
 //
-// Bound: the atomics. A 2^22-base chunk reads 1.5 MB of packed input (4 MB
-// as ASCII rows), but its 4M windows each do one 4-byte atomicAdd at a
-// random address of a 256 MB table, far beyond the 50 MB L2. Design: K1
-// takes one thread per window position, rebuilt from at most two packed
-// words and three validity bytes (neighbouring threads share them through
-// L1); K15 one thread per code; K16 one thread per segment of SEG windows
-// of a row, which rolls the code one byte at a time and counts the run of
-// valid bases, so a window is counted once the run reaches k and no
-// [B, L] window tensor exists. Invalid windows issue no atomic at all. The
-// sum does not depend on the order of the atomics, so the result is exact;
+// K1 and K16, bound: the atomics. A 2^22-base chunk reads 1.5 MB of packed
+// input (4 MB as ASCII rows), but its 4M windows each do one 4-byte
+// atomicAdd at a random address of a 256 MB table, far beyond the 50 MB
+// L2. Design: K1 takes one thread per window position, rebuilt from at
+// most two packed words and three validity bytes (neighbouring threads
+// share them through L1); K16 one thread per segment of SEG windows of a
+// row, which rolls the code one byte at a time and counts the run of valid
+// bases, so a window is counted once the run reaches k and no [B, L]
+// window tensor exists. Invalid windows issue no atomic at all. The sum
+// does not depend on the order of the atomics, so the result is exact;
 // uint32 wraps as JAX's add does.
+//
+// K15, bound: bytes. Its codes are many (every window of a read set:
+// 107M at E. coli scale) and the table is written whole, so one random
+// atomic per code in device memory (15 G a second at 5 bytes a code) costs
+// 29x what the bytes do. Design: partition, then count in shared memory.
+// The table is cut into bins of W = 2^15 consecutive entries (128 KB of
+// counters); codes of weight 0 or outside the table drop out. Four
+// launches, per round of up to 2^28 entries and piece of up to 2^27 codes:
+//   bin_hist     the codes cut into at most 128 contiguous ranges, one
+//                block each: each counts its range's codes by bin in
+//                shared memory, equal bins of a warp row combined first.
+//   bin_prefix   thread b scans bin b's column of range counts into each
+//                range's prefix, and writes the bin's total. (A decoupled
+//                look-back measured slower here: the ranges all finish
+//                counting at once, so each walks back to the first.)
+//   bin_scatter  each range again, a tile of 16,384 codes at a time: every
+//                block scans the bin totals into the bins' starts; the
+//                tile's codes are ranked by bin in shared memory, staged in
+//                bin order as 4-byte records (offset in the bin << 8 |
+//                weight), and each bin's run is written to the bin's next
+//                positions in the range's share. Records end up grouped by
+//                bin, written as runs (one scattered 4-byte store a code
+//                measured slower: as slow as the atomics it replaces).
+//   bin_count    one block of 128 KB of dynamic shared memory a bin: the
+//                bin's records are summed into shared uint32 counters
+//                (equal offsets of a warp row combined first, then one
+//                shared atomic each), and the bin's slice of the table is
+//                written once, zeros included, with coalesced plain stores.
+//                A bin of more than CAP records (a skewed input: poly-A
+//                reads make code 0 common) is split over ceil(n / CAP)
+//                blocks, whose partial slices are added with atomics into
+//                the slice bin_scatter zeroed.
+// So no code does an atomic in device memory, the table needs no memset,
+// and a code costs 5 + 5 bytes read and a 4-byte record written and read,
+// the table 4 bytes an entry. Equal keys of a warp row are combined by two
+// rounds of one ballot each (group_of), which catch a skewed row's common
+// key; a full multi-split (a ballot a key bit) measured slower. Spaces of
+// at most W entries take no partition: each block counts into a shared
+// histogram of the whole table and adds its nonzero entries to the zeroed
+// table.
 //
 // K15 and K16 index as JAX's scatter with mode="drop" does
 // (dna13::scatter_index): a code is cast to int32, a negative index gains
 // the table length, anything outside the table is dropped. So with k = 16
 // a code >= 2^31 lands at code - 2^32 + space when that is >= 0.
-#include "dna13.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -47,19 +87,6 @@ __global__ void count13_packed_kernel(unsigned* __restrict__ counts,
        p < n_win; p += stride) {
     unsigned code;
     if (dna13::packed_window(packed, vbits, n_words, p, &code)) atomicAdd(counts + code, 1u);
-  }
-}
-
-__global__ void scatter_count_kernel(unsigned* __restrict__ counts, const int* __restrict__ codes,
-                                     const unsigned char* __restrict__ valid, long long n,
-                                     long long space) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const unsigned w = valid[i];
-    long long at;
-    if (w != 0u && dna13::scatter_index(static_cast<unsigned>(codes[i]), space, &at))
-      atomicAdd(counts + at, w);
   }
 }
 
@@ -88,6 +115,387 @@ __global__ void count13_rows_kernel(unsigned* __restrict__ counts,
   }
 }
 
+
+// -- K15 ----------------------------------------------------------------------
+
+namespace bins {
+
+constexpr int BIN_BITS = 15;
+constexpr long long W = 1LL << BIN_BITS;     // table entries a bin
+constexpr int MAX_BINS = 1 << 13;            // bins a round
+constexpr long long ROUND = W * MAX_BINS;    // table entries a round
+constexpr long long PIECE = 1LL << 27;       // codes a round partitions at once
+constexpr long long CAP = 1LL << 18;         // records a bin_count block takes
+constexpr int WEIGHT_BITS = 8;
+constexpr int HIST_BLOCK = 1024;             // threads of bin_hist
+constexpr int PART_BLOCK = 1024;             // threads of bin_scatter
+constexpr int UNROLL = 16;                   // warp rows a thread loads at once
+// codes a bin_scatter thread stages a tile: a bin's run in a tile grows
+// with the tile, and shorter runs (8 a thread, even at two blocks an SM)
+// measured slower
+constexpr int ITEMS = 16;
+constexpr int STILE = PART_BLOCK * ITEMS;    // codes a bin_scatter tile
+constexpr int MAX_RANGES = 128;
+constexpr long long MIN_RANGE = 1LL << 14;
+constexpr int COUNT_BLOCK = 1024;
+constexpr int SMALL_GRID = 264;              // blocks of the no-partition count
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The ranges of a piece of n codes: at most MAX_RANGES, each of range_len
+// codes (a multiple of 128), the last shorter.
+inline long long max_ranges(long long n) {
+  const long long r = cdiv(n, MIN_RANGE);
+  return r < MAX_RANGES ? r : MAX_RANGES;
+}
+inline long long range_len(long long n) { return cdiv(cdiv(n, max_ranges(n)), 128) * 128; }
+inline long long ranges(long long n) { return cdiv(n, range_len(n)); }
+// bin_scatter's dynamic shared memory for nb bins
+inline int scatter_smem(int nb) { return 12 * nb + 6 * STILE; }
+
+// The scratch of scatter_count(n, space > W), carved from one buffer
+// (aindex_torch/kernels/count.py scatter_scratch_bytes computes its size):
+// the records of a piece, the counts of each (range, bin), turned in place
+// into each range's prefix, the bins' totals and their starts.
+struct Scratch {
+  unsigned* records;
+  unsigned* pre;
+  unsigned* tot;
+  unsigned* start;
+};
+
+inline Scratch carve(void* base, long long n, long long space) {
+  const long long piece = n < PIECE ? n : PIECE;
+  const long long nb = cdiv(space, W) < MAX_BINS ? cdiv(space, W) : MAX_BINS;
+  Scratch sc;
+  sc.records = static_cast<unsigned*>(base);
+  sc.pre = sc.records + piece;
+  sc.tot = sc.pre + max_ranges(piece) * nb;
+  sc.start = sc.tot + nb;
+  return sc;
+}
+
+// A code's bin in the round [lo, lo + len) of the table and its record
+// (offset in the bin << 8 | weight); -1 when it drops out: weight 0, the
+// JAX scatter drops it, or it lies in another round.
+__device__ __forceinline__ int bin_of(int code, unsigned w, long long space, long long lo,
+                                      long long len, unsigned* rec) {
+  long long at;
+  if (w == 0u || !dna13::scatter_index(static_cast<unsigned>(code), space, &at)) return -1;
+  at -= lo;
+  if (at < 0 || at >= len) return -1;
+  *rec = (static_cast<unsigned>(at & (W - 1)) << WEIGHT_BITS) | w;
+  return static_cast<int>(at >> BIN_BITS);
+}
+
+// The warp's equal keys combined before their add: up to ROUNDS groups,
+// each of the lanes that share the key of the lowest lane not yet grouped
+// (so a skewed row's common key lands in one), every other lane alone.
+// Returns this lane's group (itself where ok fails) and, in *sum, the sum
+// of v over it. One shuffle, one ballot and one full-warp add a round (a
+// multi-split of one ballot a key bit measured slower).
+constexpr int ROUNDS = 2;
+__device__ __forceinline__ unsigned group_of(bool ok, unsigned key, unsigned v, unsigned* sum) {
+  const int lane = threadIdx.x & 31;
+  unsigned left = __ballot_sync(0xffffffffu, ok);
+  unsigned mine = 1u << lane;
+  *sum = v;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    if (left == 0u) break;
+    const unsigned k = __shfl_sync(0xffffffffu, key, __ffs(left) - 1);
+    const bool in = (left >> lane & 1u) && key == k;
+    const unsigned g = __ballot_sync(0xffffffffu, in);
+    const unsigned s = __reduce_add_sync(0xffffffffu, in ? v : 0u);
+    if (in) {
+      mine = g;
+      *sum = s;
+    }
+    left &= ~g;
+  }
+  return mine;
+}
+
+// Launch 1: each range's codes counted by bin into cnt[range, bin],
+// UNROLL warp rows loaded at once. Grid: the ranges.
+__global__ void __launch_bounds__(HIST_BLOCK)
+    bin_hist(const int* __restrict__ codes, const unsigned char* __restrict__ valid, long long n,
+             long long space, long long lo, long long len, int nb, long long range,
+             unsigned* __restrict__ cnt) {
+  __shared__ unsigned s_cnt[MAX_BINS];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int b = threadIdx.x; b < nb; b += HIST_BLOCK) s_cnt[b] = 0u;
+  __syncthreads();
+  const long long first = blockIdx.x * range;
+  const long long last = first + range < n ? first + range : n;
+  for (long long i0 = first + warp * 32 * UNROLL; i0 < last; i0 += HIST_BLOCK * UNROLL) {
+    int code[UNROLL];
+    unsigned w[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = i0 + u * 32 + lane;
+      code[u] = i < last ? codes[i] : 0;
+      w[u] = i < last ? valid[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      unsigned rec, c;
+      const int bin = bin_of(code[u], w[u], space, lo, len, &rec);
+      const unsigned peers = group_of(bin >= 0, static_cast<unsigned>(bin), 1u, &c);
+      if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s_cnt[bin], c);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += HIST_BLOCK)
+    cnt[static_cast<long long>(blockIdx.x) * nb + b] = s_cnt[b];
+}
+
+// Launch 2: thread b turns bin b's column of counts into each range's
+// exclusive prefix, in place, and writes the bin's total. The ranges all
+// finish counting at once, so a decoupled look-back here would walk back
+// to the first range (quadratic in the ranges); a column scan is not.
+__global__ void bin_prefix(unsigned* __restrict__ pre, long long n_ranges, int nb,
+                           unsigned* __restrict__ tot) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  unsigned run = 0;
+  for (long long j0 = 0; j0 < n_ranges; j0 += 16) {   // 16 loads in flight
+    unsigned c[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) c[u] = j0 + u < n_ranges ? pre[(j0 + u) * nb + b] : 0u;
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      if (j0 + u < n_ranges) {
+        pre[(j0 + u) * nb + b] = run;
+        run += c[u];
+      }
+  }
+  tot[b] = run;
+}
+
+// Launch 3: each range's codes as records grouped by bin, a tile of STILE
+// codes at a time: the tile's codes ranked by bin in shared memory, staged
+// in bin order, and each bin's run written to the bin's next positions in
+// the range's share, so the writes are runs and not one sector a code.
+// Block 0 writes the bins' starts (start[nb] = the records); on the
+// round's first piece the slices of bins bin_count splits are zeroed here.
+// Grid: the ranges. Dynamic shared memory: scatter_smem(nb) bytes.
+__global__ void __launch_bounds__(PART_BLOCK)
+    bin_scatter(const int* __restrict__ codes, const unsigned char* __restrict__ valid,
+                long long n, long long space, long long lo, long long len, int nb, long long range, const unsigned* __restrict__ pre,
+                const unsigned* __restrict__ tot, unsigned* __restrict__ start,
+                unsigned* __restrict__ records, unsigned* __restrict__ table, int first_piece) {
+  extern __shared__ unsigned s_dyn[];
+  unsigned* s_cur = s_dyn;          // each bin's next record position of the range
+  unsigned* s_cnt = s_cur + nb;     // the tile's count of each bin, then its run's start
+  unsigned* s_off = s_cnt + nb;     // a staged record's position, less its stage index
+  unsigned* s_stage = s_off + nb;   // the tile's records in bin order
+  auto* s_bin = reinterpret_cast<unsigned short*>(s_stage + STILE);
+  const int lane = threadIdx.x & 31;
+  const long long tile = blockIdx.x;
+  // the bins' starts: a scan of the totals, a run of `per` bins a thread
+  const int per = (nb + PART_BLOCK - 1) / PART_BLOCK;
+  const int b0 = threadIdx.x * per;
+  const int b1 = b0 + per < nb ? b0 + per : nb;
+  unsigned sum = 0;
+  for (int b = b0; b < b1; ++b) sum += tot[b];
+  unsigned all;
+  unsigned run = scan::block_exclusive_scan(sum, &all);
+  for (int b = b0; b < b1; ++b) {
+    if (tile == 0) start[b] = run;
+    s_cur[b] = run + pre[tile * nb + b];
+    run += tot[b];
+  }
+  if (tile == 0 && threadIdx.x == 0) start[nb] = all;
+  if (first_piece)
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+      if (tot[b] <= CAP) continue;
+      const long long end = len - b * W < W ? len - b * W : W;
+      for (long long o = threadIdx.x; o < end; o += PART_BLOCK) table[lo + b * W + o] = 0u;
+    }
+  const unsigned lower = (1u << lane) - 1u;
+  const long long first = tile * range;
+  const long long last = first + range < n ? first + range : n;
+  for (long long t0 = first; t0 < last; t0 += STILE) {
+    for (int b = threadIdx.x; b < nb; b += PART_BLOCK) s_cnt[b] = 0u;
+    __syncthreads();
+    // per code: its record, then (rank in the tile's codes of its bin << 13)
+    // | bin, or ~0 for none
+    unsigned rec[ITEMS], rb[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long i = t0 + j * PART_BLOCK + threadIdx.x;
+      rec[j] = i < last ? static_cast<unsigned>(codes[i]) : 0u;
+      rb[j] = i < last ? valid[i] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      unsigned r = 0, c;
+      const int bin = bin_of(static_cast<int>(rec[j]), rb[j], space, lo, len, &r);
+      const unsigned peers = group_of(bin >= 0, static_cast<unsigned>(bin), 1u, &c);
+      const int leader = __ffs(peers) - 1;
+      unsigned at = 0;
+      if (bin >= 0 && lane == leader) at = atomicAdd(&s_cnt[bin], __popc(peers));
+      at = __shfl_sync(0xffffffffu, at, leader);
+      rec[j] = r;
+      rb[j] = bin >= 0 ? ((at + __popc(peers & lower)) << 13) | static_cast<unsigned>(bin) : ~0u;
+    }
+    __syncthreads();
+    unsigned tile_n;
+    unsigned r0 = 0;
+    for (int b = b0; b < b1; ++b) r0 += s_cnt[b];
+    r0 = scan::block_exclusive_scan(r0, &tile_n);
+    for (int b = b0; b < b1; ++b) {
+      const unsigned c = s_cnt[b];
+      s_off[b] = s_cur[b] - r0;
+      s_cur[b] += c;
+      s_cnt[b] = r0;
+      r0 += c;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (rb[j] == ~0u) continue;
+      const unsigned bin = rb[j] & ((1u << 13) - 1u);
+      const unsigned at = s_cnt[bin] + (rb[j] >> 13);
+      s_stage[at] = rec[j];
+      s_bin[at] = static_cast<unsigned short>(bin);
+    }
+    __syncthreads();
+    for (unsigned i = threadIdx.x; i < tile_n; i += PART_BLOCK)
+      records[s_off[s_bin[i]] + i] = s_stage[i];
+    __syncthreads();
+  }
+}
+
+// Pieces a bin of t records takes beyond its first.
+__device__ __forceinline__ unsigned extra_pieces(unsigned t) {
+  return t > CAP ? static_cast<unsigned>((t + CAP - 1) / CAP) - 1u : 0u;
+}
+
+// Launch 4: block b < nb counts bin b's records (its first CAP), block nb
+// + e the e-th extra piece of the split bins in bin order; a block with no
+// piece returns. Dynamic shared memory: W uint32 counters.
+__global__ void __launch_bounds__(COUNT_BLOCK)
+    bin_count(const unsigned* __restrict__ records, const unsigned* __restrict__ tot,
+              const unsigned* __restrict__ start, int nb, long long lo, long long len,
+              unsigned* __restrict__ table, int first_piece) {
+  extern __shared__ unsigned s_hist[];
+  __shared__ int s_bin, s_piece;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int bin = static_cast<int>(blockIdx.x), piece = 0;
+  if (bin >= nb) {
+    const unsigned e = blockIdx.x - nb;
+    const int per = (nb + COUNT_BLOCK - 1) / COUNT_BLOCK;
+    const int b0 = threadIdx.x * per;
+    const int b1 = b0 + per < nb ? b0 + per : nb;
+    unsigned sum = 0;
+    for (int b = b0; b < b1; ++b) sum += extra_pieces(tot[b]);
+    if (threadIdx.x == 0) s_bin = -1;
+    unsigned all;
+    unsigned run = scan::block_exclusive_scan(sum, &all);
+    for (int b = b0; b < b1; ++b) {
+      const unsigned x = extra_pieces(tot[b]);
+      if (e >= run && e < run + x) {
+        s_bin = b;
+        s_piece = static_cast<int>(e - run) + 1;
+      }
+      run += x;
+    }
+    __syncthreads();
+    bin = s_bin;
+    piece = s_piece;
+    if (bin < 0) return;
+  }
+  const unsigned t = tot[bin];
+  const long long first = start[bin] + static_cast<long long>(piece) * CAP;
+  const long long end = static_cast<long long>(start[bin]) + t;
+  const long long last = first + CAP < end ? first + CAP : end;
+  const int entries = static_cast<int>(len - bin * W < W ? len - bin * W : W);
+  for (int o = threadIdx.x; o < entries; o += COUNT_BLOCK) s_hist[o] = 0u;
+  __syncthreads();
+  for (long long i0 = first + warp * 32 * UNROLL; i0 < last; i0 += COUNT_BLOCK * UNROLL) {
+    unsigned r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = i0 + u * 32 + lane;
+      r[u] = i < last ? records[i] : 0u;   // weight 0: no record
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const bool ok = (r[u] & ((1u << WEIGHT_BITS) - 1u)) != 0u;
+      const unsigned off = r[u] >> WEIGHT_BITS;
+      unsigned w;
+      const unsigned peers = group_of(ok, off, r[u] & ((1u << WEIGHT_BITS) - 1u), &w);
+      if (ok && lane == __ffs(peers) - 1) atomicAdd(&s_hist[off], w);
+    }
+  }
+  __syncthreads();
+  unsigned* slice = table + lo + bin * W;
+  if (t > CAP) {
+    for (int o = threadIdx.x; o < entries; o += COUNT_BLOCK)
+      if (s_hist[o] != 0u) atomicAdd(slice + o, s_hist[o]);
+  } else if (entries % 4 == 0 && reinterpret_cast<uintptr_t>(slice) % 16 == 0) {
+    auto* v = reinterpret_cast<uint4*>(slice);
+    const auto* h = reinterpret_cast<const uint4*>(s_hist);
+    for (int o = threadIdx.x; o < entries / 4; o += COUNT_BLOCK) {
+      uint4 x = h[o];
+      if (!first_piece) {
+        const uint4 y = v[o];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      v[o] = x;
+    }
+  } else {
+    for (int o = threadIdx.x; o < entries; o += COUNT_BLOCK)
+      slice[o] = first_piece ? s_hist[o] : slice[o] + s_hist[o];
+  }
+}
+
+// Spaces of at most W entries: each block counts its codes into a shared
+// histogram of the whole table (dynamic shared memory) and adds the
+// nonzero entries into the zeroed table.
+__global__ void __launch_bounds__(COUNT_BLOCK)
+    small_count(const int* __restrict__ codes, const unsigned char* __restrict__ valid,
+                long long n, long long space, unsigned* __restrict__ table) {
+  extern __shared__ unsigned s_hist[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int o = threadIdx.x; o < space; o += COUNT_BLOCK) s_hist[o] = 0u;
+  __syncthreads();
+  const long long step = static_cast<long long>(gridDim.x) * COUNT_BLOCK * UNROLL;
+  for (long long i0 = (static_cast<long long>(blockIdx.x) * COUNT_BLOCK + warp * 32) * UNROLL;
+       i0 < n; i0 += step) {
+    int code[UNROLL];
+    unsigned w[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = i0 + u * 32 + lane;
+      code[u] = i < n ? codes[i] : 0;
+      w[u] = i < n ? valid[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      unsigned rec = 0;
+      const bool ok = bin_of(code[u], w[u], space, 0, space, &rec) >= 0;
+      const unsigned off = rec >> WEIGHT_BITS;
+      unsigned sum;
+      const unsigned peers = group_of(ok, off, w[u], &sum);
+      if (ok && lane == __ffs(peers) - 1) atomicAdd(&s_hist[off], sum);
+    }
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < space; o += COUNT_BLOCK)
+    if (s_hist[o] != 0u) atomicAdd(table + o, s_hist[o]);
+}
+
+}  // namespace bins
+
 }  // namespace
 
 DNA13_EXPORT_ERROR_STRING
@@ -105,18 +513,63 @@ extern "C" int count13_packed(void* counts, const void* packed, const void* vbit
   return static_cast<int>(cudaGetLastError());
 }
 
-// counts: uint32[space], zeroed by the caller, 1 <= space < 2^31. codes:
-// int32[n] (uint32 bit patterns). valid: bool or uint8[n], each adding its
-// value. Returns cudaGetLastError() after the launch.
+// counts: uint32[space], 1 <= space < 2^31, every entry written (no
+// memset needed). codes: int32[n] (uint32 bit patterns). valid: bool or
+// uint8[n], each adding its value. scratch: scatter_scratch_bytes(n, space)
+// bytes (none for space <= 2^15). Returns the first CUDA error of the
+// memsets and launches, or 0.
 extern "C" int scatter_count(void* counts, const void* codes, const void* valid, long long n,
-                             long long space, void* stream) {
+                             long long space, void* scratch, void* stream) {
+  using namespace bins;
   if (space < 1 || space >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return cudaSuccess;
-  scatter_count_kernel<<<dna13::grid_for(n), dna13::BLOCK, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(counts), static_cast<const int*>(codes),
-      static_cast<const unsigned char*>(valid), n, space);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* table = static_cast<unsigned*>(counts);
+  const auto* c = static_cast<const int*>(codes);
+  const auto* v = static_cast<const unsigned char*>(valid);
+  if (n <= 0 || space <= W) {
+    if (cudaError_t e = cudaMemsetAsync(table, 0, static_cast<size_t>(space) * 4, s))
+      return static_cast<int>(e);
+    if (n <= 0) return cudaSuccess;
+    const int smem = static_cast<int>(space * 4);
+    if (cudaError_t e = cudaFuncSetAttribute(
+            small_count, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+      return static_cast<int>(e);
+    const long long grid = cdiv(n, COUNT_BLOCK * UNROLL);
+    small_count<<<static_cast<unsigned>(grid < SMALL_GRID ? grid : SMALL_GRID), COUNT_BLOCK,
+                  smem, s>>>(c, v, n, space, table);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const Scratch sc = carve(scratch, n, space);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          bin_count, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(W * 4)))
+    return static_cast<int>(e);
+  const long long nb_max = cdiv(space, W) < MAX_BINS ? cdiv(space, W) : MAX_BINS;
+  if (cudaError_t e = cudaFuncSetAttribute(bin_scatter,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           scatter_smem(static_cast<int>(nb_max))))
+    return static_cast<int>(e);
+  for (long long lo = 0; lo < space; lo += ROUND) {
+    const long long len = space - lo < ROUND ? space - lo : ROUND;
+    const int nb = static_cast<int>(cdiv(len, W));
+    for (long long first = 0; first < n; first += PIECE) {
+      const long long pn = n - first < PIECE ? n - first : PIECE;
+      const long long n_ranges = ranges(pn);
+      bin_hist<<<static_cast<unsigned>(n_ranges), HIST_BLOCK, 0, s>>>(
+          c + first, v + first, pn, space, lo, len, nb, range_len(pn), sc.pre);
+      KERNEL_CHECK();
+      bin_prefix<<<static_cast<unsigned>(cdiv(nb, 256)), 256, 0, s>>>(sc.pre, n_ranges, nb,
+                                                                      sc.tot);
+      KERNEL_CHECK();
+      bin_scatter<<<static_cast<unsigned>(n_ranges), PART_BLOCK, scatter_smem(nb), s>>>(
+          c + first, v + first, pn, space, lo, len, nb, range_len(pn), sc.pre, sc.tot,
+          sc.start, sc.records, table, first == 0);
+      KERNEL_CHECK();
+      bin_count<<<static_cast<unsigned>(nb + pn / CAP), COUNT_BLOCK, W * 4, s>>>(
+          sc.records, sc.tot, sc.start, nb, lo, len, table, first == 0);
+      KERNEL_CHECK();
+    }
+  }
+  return 0;
 }
 
 // counts: uint32[space], updated in place, 1 <= space < 2^31. ascii:

@@ -3,7 +3,10 @@
 // Faster Least Significant Digit Radix Sort for GPUs", 2022), and the two
 // steps around it that share its decoupled look-back: a stream compaction
 // that also counts the sort's digit histograms, and a run-length reduce of
-// the sorted keys. Used by spectrum23 (K5) and spectrummerge (K13).
+// the sorted keys. Used by spectrum23 (K5) and spectrummerge (K13); the
+// positional fills (fill.cuh: K9, the K10/K11 fills) sort with it, and K8
+// (csr.cu), K14 (posbucket.cu) and K15 (count13.cu) take its tiles and
+// look-back.
 //
 // A sort of n keys on bits [lo, hi) takes 8-bit digits, passes = ceil((hi -
 // lo) / 8) of them, and reduce() runs it as 2 + passes launches on one

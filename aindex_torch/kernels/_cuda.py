@@ -126,8 +126,8 @@ KERNELS: dict[str, Kernel] = {
         # counts, packed, vbits, n_words, stream
         Kernel("count13_packed", "count13.cu", [_P, _P, _P, _LL, _P],
                "aindex_tpu/kernels/count.py:69"),
-        # counts, codes, valid, n, space, stream
-        Kernel("scatter_count", "count13.cu", [_P, _P, _P, _LL, _LL, _P],
+        # counts, codes, valid, n, space, scratch, stream
+        Kernel("scatter_count", "count13.cu", [_P, _P, _P, _LL, _LL, _P, _P],
                "aindex_tpu/kernels/count.py:31"),
         # counts, ascii, rows, len, k, space, stream
         Kernel("count13_rows", "count13.cu", [_P, _P, _LL, _LL, _I, _LL, _P],
@@ -184,9 +184,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("spectrummerge", "merge23.cu", [_P, _P, _I, _LL, _ULL, _ULL, _I, _P, _P, _P, _P, _P],
                "aindex_tpu/kernels/spectrum.py:149"),
         # engine, p, u, rule, packed, vbits, n_words, k, n_slots, m, n_dest, cap, slots,
-        # buckets, counters, dest, hist, sums, stream
+        # buckets, counters, stream
         Kernel("posbucket", "posbucket.cu",
-               [_I, _P, _P, _I, _P, _P, _LL, _I, _LL, _LL, _I, _LL, _P, _P, _P, _P, _P, _P, _P],
+               [_I, _P, _P, _I, _P, _P, _LL, _I, _LL, _LL, _I, _LL, _P, _P, _P, _P],
                "aindex_tpu/parallel/positional.py:133"),
         # rec, n_src, cols, packed, roff, lo, n_slots, slot_bits, idx_bits, offsets, cursor,
         # positions, total, scratch, stream

@@ -1,14 +1,18 @@
 """The dense count kernels and the device zero fill.
 
 Counterparts of aindex_tpu/kernels/count.py, each adding into a uint32
-count table with one atomic add per valid window or code:
+count table:
 
 * ``count13_packed`` (K1, ``csrc/count13.cu``) replaces
-  ``count_batch_13_packed`` (:69): one packed ingest chunk's 13-mers;
+  ``count_batch_13_packed`` (:69): one packed ingest chunk's 13-mers, one
+  atomic add per valid window;
 * ``scatter_count`` (K15, same source) replaces ``scatter_count`` (:31):
-  given codes under a valid mask, into a fresh table;
+  given codes under a valid mask, into a fresh table: the codes are
+  partitioned into bins of 2^15 table entries, and each bin is counted in
+  shared memory and written once (the source's notes);
 * ``count_batch_13`` (K16 ``count13_rows``, same source) replaces
-  ``count_batch_13`` (:54): the forward k-mers (k <= 16) of ASCII rows;
+  ``count_batch_13`` (:54): the forward k-mers (k <= 16) of ASCII rows,
+  one atomic add per valid window;
 * ``zeros_dev`` (:23) is a device memset (``torch.zeros`` on the device),
   as XLA lowers ``jnp.zeros`` under jit: no kernel of its own.
 
@@ -37,6 +41,13 @@ KERNEL_ROWS = _cuda.KERNELS["count13_rows"]
 
 #: the kernels index tables with int32
 _SPACE_LIMIT = 1 << 31
+#: K15's partition (csrc/count13.cu, namespace bins): table entries a bin,
+#: bins a round, codes a piece, and the ranges of a piece (at most
+#: MAX_RANGES, of at least MIN_RANGE codes)
+BIN_W = 1 << 15
+MAX_BINS = 1 << 13
+PIECE = 1 << 27
+MAX_RANGES, MIN_RANGE = 128, 1 << 14
 
 #: the signed dtype of each unsigned one (PyTorch's bare unsigned dtypes
 #: take views and copies, not fills)
@@ -116,6 +127,19 @@ def scatter_count_plain(codes: torch.Tensor, valid: torch.Tensor,
     return counts.view(torch.uint32)
 
 
+def scatter_scratch_bytes(n: int, space: int) -> int:
+    """Bytes of K15's scratch for ``n`` codes into ``space`` entries
+    (csrc/count13.cu ``bins::carve``): none without a partition (space <=
+    BIN_W); else, for a piece of min(n, PIECE) codes in ranges and a round
+    of nb bins, a 4-byte record a code, a count (then prefix) per (range,
+    bin), and each bin's total and start, all uint32."""
+    if n <= 0 or space <= BIN_W:
+        return 0
+    piece = min(n, PIECE)
+    nb = min(MAX_BINS, -(-space // BIN_W))
+    return 4 * (piece + min(MAX_RANGES, -(-piece // MIN_RANGE)) * nb + 2 * nb + 1)
+
+
 def scatter_count(codes: torch.Tensor, valid: torch.Tensor,
                   space: int = SPACE_13) -> torch.Tensor:
     """Dense histogram of codes (aindex_tpu/kernels/count.py:31): a fresh
@@ -134,11 +158,15 @@ def scatter_count(codes: torch.Tensor, valid: torch.Tensor,
     _check_space(space)
     if not _cuda.on_cuda(codes, valid):
         return scatter_count_plain(codes, valid, space)
-    counts = zeros_dev(space, torch.int32, device=codes.device)
-    if codes.numel():
-        with torch.cuda.device(codes.device):
-            KERNEL_SCATTER.launch(counts.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-                                  codes.numel(), space, _cuda.stream(codes.device))
+    dev = codes.device
+    n = codes.numel()
+    if not n:
+        return zeros_dev(space, torch.uint32, device=dev)
+    counts = torch.empty(space, dtype=torch.int32, device=dev)   # K15 writes every entry
+    scratch = torch.empty(max(8, scatter_scratch_bytes(n, space)), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL_SCATTER.launch(counts.data_ptr(), codes.data_ptr(), valid.data_ptr(), n, space,
+                              scratch.data_ptr(), _cuda.stream(dev))
     return counts.view(torch.uint32)
 
 

@@ -51,8 +51,8 @@ DELTA_BITS = 24
 _ENGINE = {"posfill": 1, "cuckoofill64": 1, "mphffill": 2}
 #: K8 scans at most this many items a launch (csrc/csr.cu PIECE)
 CSR_PIECE = 1 << 30
-#: K14's radix histogram tile and scan tile (csrc/radix.cuh, csrc/scan.cuh)
-RADIX, WARP_TILE, SCAN_TILE = 256, 1024, 2048
+#: windows a tile of K14's pass (csrc/posbucket.cu: 256 threads, eight each)
+BUCKET_TILE = 2048
 
 
 # -- K8 -----------------------------------------------------------------------
@@ -252,28 +252,25 @@ def posbucket_plain(packed, vbits, k: int, tables=None, rule: int = CANON, n_slo
     return slot, buckets, overflow
 
 
-def _bucket_sizes(n_win: int) -> tuple[int, int]:
-    """int32 lengths (hist, sums) of K14's radix histogram of the
-    destination digit and of its scan's tile sums, for ``n_win`` windows."""
-    n_hist = RADIX * -(-n_win // WARP_TILE)
-    return n_hist, -(-n_hist // SCAN_TILE)
+def bucket_status_words(n_win: int, n_dest: int) -> int:
+    """int64 words K14 takes behind the buckets for a chunk of ``n_win``
+    windows: its tile counter, then a look-back status word per (tile of
+    ``BUCKET_TILE`` windows, destination). One memset zeroes them with the
+    buckets (csrc/posbucket.cu)."""
+    return 1 + n_dest * -(-n_win // BUCKET_TILE)
 
 
-def bucket_scratch(n_win: int, device) -> tuple[torch.Tensor, ...]:
-    """K14's scratch for chunks of up to ``n_win`` windows: (counters
-    int32[2], dest int64[n_win], hist, sums). A build allocates it once and
-    passes it to every ``posbucket`` call."""
-    n_hist, n_sums = _bucket_sizes(n_win)
-
-    def ints(n):
-        return torch.empty(n, dtype=torch.int32, device=device)
-
-    return ints(2), torch.empty(n_win, dtype=torch.int64, device=device), ints(n_hist), ints(n_sums)
+def bucket_scratch(device) -> torch.Tensor:
+    """K14's scratch: the counters int32[2] it writes (n_win, overflow). A
+    build allocates it once and passes it to every ``posbucket`` call; the
+    overflow ``posbucket`` returns is a view of it. (The look-back status
+    words ride behind each call's buckets, ``bucket_status_words``.)"""
+    return torch.empty(2, dtype=torch.int32, device=device)
 
 
 def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
               rule: int = CANON, n_slots: int = 0, m: int = 1, n_dest: int = 0, cap: int = 0,
-              scratch: tuple[torch.Tensor, ...] | None = None):
+              scratch: torch.Tensor | None = None):
     """The send side of the positional exchange for one packed chunk.
 
     Every window's slot (the forward code of a k <= 16 window when
@@ -287,7 +284,9 @@ def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
     Returns (slots int64[n_win], buckets int64[n_dest, cap] or None,
     overflow int32 scalar tensor). ``scratch`` (``bucket_scratch``) is
     allocated per call when not given. A CPU tensor runs the plain
-    version; a CUDA tensor launches K14."""
+    version; a CUDA tensor launches K14: one pass that probes, ranks each
+    destination's windows by a look-back over the chunk's tiles and writes
+    the records, after one memset of the buckets."""
     check_packed(packed, vbits)
     n_win = 16 * packed.numel() - k + 1
     if not 0 < n_win < INT32_LIMIT:
@@ -312,21 +311,22 @@ def posbucket(packed: torch.Tensor, vbits: torch.Tensor, k: int, tables=None,
     if not _cuda.on_cuda(packed, vbits, *extra):
         return posbucket_plain(packed, vbits, k, tables, rule, n_slots, m, n_dest, cap)
     dev = packed.device
-    if scratch is None:
-        scratch = bucket_scratch(n_win, dev)
-    counters, dest, hist, sums = scratch
-    n_hist, n_sums = _bucket_sizes(n_win)
-    if dest.numel() < n_win or hist.numel() < n_hist or sums.numel() < n_sums:
-        raise ValueError(f"scratch too small for {n_win} windows")
+    counters = bucket_scratch(dev) if scratch is None else scratch
+    if counters.dtype != torch.int32 or counters.numel() < 2 or counters.device != dev:
+        raise ValueError("scratch must be bucket_scratch's int32[2] counters on the chunk's device")
     slots = torch.empty(n_win, dtype=torch.int64, device=dev)
-    buckets = torch.empty((n_dest, cap), dtype=torch.int64, device=dev) if n_dest else None
+    words = buckets = None
+    if n_dest:
+        # the buckets, then the pass's tile counter and status words: one memset
+        words = torch.empty(n_dest * cap + bucket_status_words(n_win, n_dest), dtype=torch.int64,
+                            device=dev)
+        buckets = words[:n_dest * cap].view(n_dest, cap)
     p, u = (None, None) if tables is None else probe.c_engine(tables)
     with torch.cuda.device(dev):
         KERNEL_BUCKET.launch(
             0 if tables is None else _ENGINE[tables.FILL], p, u, rule, packed.data_ptr(),
             vbits.data_ptr(), packed.numel(), k, n_slots, m, n_dest, cap, slots.data_ptr(),
-            None if buckets is None else buckets.data_ptr(), counters.data_ptr(),
-            dest.data_ptr(), hist.data_ptr(), sums.data_ptr(), _cuda.stream(dev))
+            None if words is None else words.data_ptr(), counters.data_ptr(), _cuda.stream(dev))
     return slots, buckets, counters[1]
 
 

@@ -142,7 +142,7 @@ def build_positional_sharded(blob: np.ndarray, n_slots: int, tf, tables, mesh, k
                     return shard, None
                 cap = bucket_cap(stride, n_data)
                 if dev.type == "cuda":
-                    scratch = bucket_scratch(16 * packed.numel() - k + 1, dev)
+                    scratch = bucket_scratch(dev)
             # every source's first window: its row's place in the chunk grid
             roff = (b * n_data + torch.arange(n_data, device=dev)) * stride
             if step_mode == "alltoall":

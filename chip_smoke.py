@@ -74,7 +74,10 @@ layout that checkout uploads, in steps 7 and 13.
    ``torch.take`` and ``torch.unique`` where one call computes the same,
    and again on edge codes over the whole uint32 range, small tables,
    k = 16 codes that wrap, and a chunk with N runs, lowercase and every
-   byte value.
+   byte value; K15 also on the corpus codes skewed (90% of them 0 at
+   weight 255, timed) and on codes at every bin edge of spaces 2^15 - 1,
+   2^15, 2^15 + 1, 2^18 + 1, 4^13 and 2^26 + 1; with ``parent=DIR``, that
+   checkout's K15 on the corpus codes, equal, each timed twice in turns.
 10. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
    and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
    positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
@@ -125,14 +128,16 @@ layout that checkout uploads, in steps 7 and 13.
    collectives stood in for by sums and concatenations): K12 on 4 x 2^24
    codes, summed over the shards, also against K11's single-device walk; K13 on the concatenated K5 spectra of
    8 corpus chunks, per key range, also against ``merge_spectra``; K14 per
-   source on corpus chunks (with a forced small cap that overflows, and the
-   dense k = 13 windows) and the pairs-in fill per destination, at one
-   shard also against K9's fill of the same chunk. Each is timed at the
-   world-of-one path's shape.
+   source on corpus chunks (with a forced small cap that overflows, the
+   dense k = 13 windows, chunks of one tile of its pass +- 1 windows and
+   255 destinations, and the MPHF walk under FWD_RC) and the pairs-in fill
+   per destination, at one shard also against K9's fill of the same chunk.
+   Each is timed at the world-of-one path's shape; with ``parent=DIR``,
+   that checkout's K14 beside this tree's in turns.
 17. Prints K3's three entries, K11's three, the rows built on
    csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
-   K10 fill), K14, K6, K7's two entries, K10's query and coverage, and K12
-   beside their earlier times, with their launches a
+   K10 fill), K14, K15, K6, K7's two entries, K10's query and coverage,
+   and K12 beside their earlier times, with their launches a
    call, from a torch.profiler trace of twenty calls in a fresh process
    (``chip_smoke.py --launches``); then
    the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
@@ -143,6 +148,7 @@ Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
 """
 
+import ctypes
 import functools
 import hashlib
 import itertools
@@ -372,16 +378,23 @@ def report(card, name, shape, rec):
 #: PERF.md section 6 records them from the calls before the bucketed K6 and
 #: K10: K3's and K11's three entries, the rows on the onesweep sort and the
 #: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
-#: entries, the K10 fill), K14, and the rows on the quotient and wide
-#: tables' two-row probes (K6, K7's two entries, K10's query and coverage);
-#: and K12's, the sum of its two entries (owner, verify) before the walk
+#: entries, the K10 fill), and the rows on the quotient and wide tables'
+#: two-row probes (K6, K7's two entries, K10's query and coverage); K12's,
+#: the sum of its two entries (owner, verify) before the walk; and K14's
+#: and K15's before their partition and look-back designs
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0574, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
-              "posbucket": 0.3931, "posfill_pairs": 0.5888, "quot23": 3.4678,
+              "posbucket": 0.2792, "posfill_pairs": 0.5888, "quot23": 3.4678,
               "quotcov23": 0.0516, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
-              "cuckoocov64": 0.0545, "shardwalk": 5.3189}
+              "cuckoocov64": 0.0545, "shardwalk": 5.3189, "scatter_count": 6.9395}
+
+
+#: times beside the kernels line's rows, printed with the summary: K15 and
+#: K14 in turns with the parent's, K15 on a skewed input; label -> {tree:
+#: [ms, ...]}
+SIDE_MS: dict[str, dict] = {}
 
 
 def launches_per_call(fn, calls: int = 20) -> float:
@@ -561,11 +574,36 @@ def lookup_calls(dev) -> dict:
     }
 
 
+def count_bucket_calls(dev) -> dict:
+    """K15 on 2^24 random 13-mer codes (90% valid) into the 4^13 table, and
+    K14 at one shard on the coverage-1 chunk's k = 23 windows over an index
+    built from the chunk: name -> (kernel call, plain call)."""
+    import torch
+    from aindex_torch import Sparse23Index
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.count import scatter_count, scatter_count_plain
+    from aindex_torch.kernels.positional import bucket_scratch, posbucket, posbucket_plain
+    from aindex_torch.parallel.positional import bucket_cap
+    gen = torch.Generator(device=dev).manual_seed(73)
+    codes = torch.randint(0, SPACE, (1 << 24,), dtype=torch.int32, device=dev, generator=gen)
+    valid = torch.rand(codes.numel(), device=dev, generator=gen) < 0.9
+    chunk = coverage1_chunk()
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(chunk))
+    index = Sparse23Index.build_from_blob(chunk, k=K23, device=dev)
+    n_win = 16 * packed.numel() - K23 + 1
+    args = (packed, vbits, K23, index.tables, index.rule, index.n, index.n, 1,
+            bucket_cap(n_win, 1))
+    scratch = bucket_scratch(dev)
+    return {"scatter_count": (lambda: (scatter_count(codes, valid),),
+                              lambda: (scatter_count_plain(codes, valid),)),
+            "posbucket": (lambda: posbucket(*args, scratch), lambda: posbucket_plain(*args))}
+
+
 LAUNCHES_FLAG = "--launches"
 #: the rows whose launches a call the fresh process counts
 LAUNCH_ROWS = ("gather13", "gather13_table", "gather13_total", "mphfwalk", "mphfcov",
                "shardwalk", "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
-               "posfill_pairs", "cuckoofill64", "mphffill")
+               "posfill_pairs", "cuckoofill64", "mphffill", "scatter_count", "posbucket")
 
 
 def fresh_launches() -> dict[str, float]:
@@ -584,7 +622,7 @@ def fresh_launches_main() -> int:
     dev = torch.device("cuda", 0)
     launches = {}
     for name, (fn, plain) in {**lookup_calls(dev), **onesweep_calls(dev),
-                              **fill_calls(dev)}.items():
+                              **fill_calls(dev), **count_bucket_calls(dev)}.items():
         max(max_abs_err(a, b) for a, b in zip(fn(), plain()))
         launches[name] = launches_per_call(fn)
     check(set(launches) == set(LAUNCH_ROWS), f"launch rows {sorted(launches)}")
@@ -853,19 +891,29 @@ def engine_edges_vs_plain(dev, card: str, index) -> None:
           + f"; empty-row key answer {t.empty} ({card})")
 
 
+#: the C signatures of the parent's entries that this tree changed: K15
+#: without scratch (counts, codes, valid, n, space, stream), K14 with its
+#: dest, hist and sums scratch arrays
+PARENT_ARGTYPES = {
+    "scatter_count": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+    "posbucket": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 7}
+
+
 @functools.lru_cache(maxsize=2)
 def parent_engines(parent: str) -> dict:
-    """The K6, K7 and K10 query and coverage entries of the checkout at
-    ``parent`` (its ``quot23.cu``, ``quotcov23.cu`` and ``cuckoo64.cu``,
-    one nvcc each, all started together), by name."""
-    import ctypes
-
+    """The K6, K7 and K10 query and coverage entries, K15 and K14 of the
+    checkout at ``parent`` (its ``quot23.cu``, ``quotcov23.cu``,
+    ``cuckoo64.cu``, ``count13.cu`` and ``posbucket.cu``, one nvcc each,
+    all started together), by name."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent, "aindex_torch", "csrc")
     sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23",),
-               "cuckoo64": ("cuckoo64", "cuckoocov64")}
+               "cuckoo64": ("cuckoo64", "cuckoocov64"), "count13": ("scatter_count",),
+               "posbucket": ("posbucket",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc, f"{src}.cu")],
@@ -876,7 +924,7 @@ def parent_engines(parent: str) -> dict:
         check(proc.returncode == 0, f"{parent}'s {src}.cu builds:\n{log.decode(errors='replace')}")
         for name in sources[src]:
             fn = getattr(ctypes.CDLL(lib), name)
-            fn.argtypes = _cuda.KERNELS[name].argtypes
+            fn.argtypes = PARENT_ARGTYPES.get(name, _cuda.KERNELS[name].argtypes)
             fn.restype = ctypes.c_int
             fns[name] = fn
     return fns
@@ -886,10 +934,16 @@ def parent_tables(dev, index) -> tuple:
     """The parent's device layout of the index's table, built from the host
     table as the parent uploaded it, as (p, u, tensors) for its C entry:
     the quotient table's two halves of (fingerprint, tf) rows and two slot
-    columns, or the wide table's rows."""
+    columns, or the wide table's rows; or, for a parent whose K6 and K10
+    already read the bucketed records (it has kernels/buckets.py), this
+    tree's own tables."""
     import ctypes
 
     import torch
+    from aindex_torch.kernels import probe
+    if os.path.exists(os.path.join(PARENT, "aindex_torch", "kernels", "buckets.py")):
+        t = index.tables
+        return (*probe.c_engine(t), t.tensors())
     if index.engine == "quot":
         qc = index.quot
         fp_tf = torch.from_numpy(qc.fp_tf_host.view(np.int32)).to(dev)
@@ -909,35 +963,44 @@ def parent_tables(dev, index) -> tuple:
 
 
 def parent_vs_this(dev, card: str, label: str, fn, old, t, codes, k: int, rule: int,
-                   slot: bool, strand: bool, other: str = "parent") -> dict:
+                   slot: bool, strand: bool) -> None:
     """The parent's query entry ``fn`` on its layout ``old`` (parent_tables)
-    beside this tree's on ``t``, on the same codes: answers equal, then each
-    timed twice in turns. Returns name -> [ms, ms]."""
+    beside this tree's on ``t``, on the same codes, in turns (in_turns)."""
     import torch
     from aindex_torch.kernels import _cuda, probe
     p, u, _ = old
     n = codes.numel()
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    wanted = (True, slot, strand)
 
     def parent():
         check(fn(p, u, codes.data_ptr(), None, None, k, n, rule, outs[0].data_ptr(),
                  outs[1].data_ptr() if slot else None, outs[2].data_ptr() if strand else None,
                  _cuda.stream(dev)) == 0, "the parent's query")
-        return outs
+        return tuple(x for x, on in zip(outs, wanted) if on)
 
     def this():
-        return probe.query(t, codes, k=k, rule=rule, slot=slot, strand=strand)
-    mine = this()
-    mine = mine if isinstance(mine, tuple) else (mine,)
-    for a, b in zip(mine, parent()):
-        max_abs_err(a.view(torch.int32), b)
-    calls = {"this tree": this, other: parent}
-    times = {name: [] for name in calls}
-    for order in (list(calls), list(calls)[::-1]):
-        for name in order:
-            times[name].append(cuda_ms(calls[name], 20))
+        got = probe.query(t, codes, k=k, rule=rule, slot=slot, strand=strand)
+        return tuple(x.view(torch.int32) for x in (got if isinstance(got, tuple) else (got,)))
+    in_turns(card, label, this, parent, 20)
+
+
+def in_turns(card: str, label: str, this, parent, reps: int) -> dict:
+    """This tree's call and the parent's, whose results must be equal,
+    each timed twice in turns (this, parent, parent, this); prints and
+    returns both: name -> [ms, ms]."""
+    import torch
+    mine, old = this(), parent()
+    for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (mine, old))):
+        if a is not None:
+            max_abs_err(a, b)
+    del mine, old
+    torch.cuda.empty_cache()
+    times = {"this tree": [], "parent": []}
+    for name in ("this tree", "parent", "parent", "this tree"):
+        times[name].append(cuda_ms(this if name == "this tree" else parent, reps))
     print(f"{label}: this tree {times['this tree'][0]:.4f} / {times['this tree'][1]:.4f} ms, "
-          f"{other} {times[other][0]:.4f} / {times[other][1]:.4f} ms ({card})")
+          f"parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f} ms ({card})")
     return times
 
 
@@ -1632,7 +1695,7 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
                            with_slot, with_slot)
         del old
     else:
-        print(f"parent: not given ({PARENT_ARG}DIR times a checkout's K6 and K10 beside these)")
+        print(f"parent: not given ({PARENT_ARG}DIR times a checkout's K6, K10, K14 and K15 beside these)")
     engine_edges_vs_plain(dev, card, index)
     del codes, valid, picks, sample
 
@@ -1807,7 +1870,8 @@ def corpus_windows13(dev, reads: np.ndarray):
 
 def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, index) -> dict:
     import torch
-    from aindex_torch.kernels.count import (count_batch_13, count_batch_13_plain,
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.kernels.count import (BIN_W, count_batch_13, count_batch_13_plain,
                                             scatter_count, scatter_count_plain)
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
                                              revcomp_code13, window_codes)
@@ -1872,15 +1936,38 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
               f"max_abs_err 0 ({card})")
         del kern, plain
 
-    # K15: every window of the corpus in one call, as the path calls it;
-    # then the edge codes over the whole uint32 range into 16 entries
+    # K15: every window of the corpus in one call, as the path calls it
+    # (beside the parent's K15 in turns, given a parent); the corpus codes
+    # skewed, 90% of them 0 at weight 255 (entry 0 wraps past 2^32); then
+    # the edge codes over the whole uint32 range into 16 entries, and codes
+    # on every bin edge of the spaces around K15's bins and rounds
     codes, valid = corpus_windows13(dev, reads)
     weights = valid.to(torch.float32)
     held("scatter_count", f"{codes.numel()} corpus window codes",
          lambda: scatter_count(codes, valid), lambda: scatter_count_plain(codes, valid), 5, 2,
          5 * codes.numel() + 4 * SPACE,
          lambda: torch.bincount(codes, weights=weights, minlength=SPACE))
-    del codes, valid, weights
+    del weights
+    if PARENT is not None:
+        fn = parent_engines(PARENT)["scatter_count"]
+
+        def parent_scatter():
+            counts = torch.zeros(SPACE, dtype=torch.int32, device=dev)   # its zeros_dev
+            check(fn(counts.data_ptr(), codes.data_ptr(), valid.data_ptr(), codes.numel(), SPACE,
+                     _cuda.stream(dev)) == 0, "the parent's scatter_count")
+            return counts.view(torch.uint32)
+        SIDE_MS["scatter_count: corpus codes, in turns"] = in_turns(
+            card, "scatter_count, corpus windows", lambda: scatter_count(codes, valid),
+            parent_scatter, 5)
+    skew = torch.where(torch.rand(codes.numel(), device=dev, generator=gen) < 0.9, 0, codes)
+    w255 = torch.full_like(valid, 255, dtype=torch.uint8)
+    err = max_abs_err(scatter_count(skew, w255), scatter_count_plain(skew, w255))
+    ms = cuda_ms(lambda: scatter_count(skew, w255), 5)
+    pms = cuda_ms(lambda: scatter_count_plain(skew, w255), 2)
+    SIDE_MS["scatter_count: 90% of the corpus codes 0, weight 255"] = {"this tree": [ms]}
+    print(f"kernel scatter_count [{codes.numel()} corpus window codes, 90% set to 0, weight "
+          f"255]: max_abs_err {err}, kernel {ms:.4f} ms, plain {pms:.4f} ms ({card})")
+    del codes, valid, skew, w255
     edges = torch.tensor(np.array([0, 15, 16, 2 ** 31 + 3, 2 ** 32 - 1, 2 ** 31 - 1, 2 ** 32 - 16,
                                    2 ** 32 - 17], np.uint32).view(np.int32), device=dev)
     wild = torch.cat([edges, torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), dtype=torch.int32,
@@ -1890,6 +1977,18 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
     held("scatter_count", "edge and random uint32 codes, space 16",
          lambda: scatter_count(wild, wild_valid, 16),
          lambda: scatter_count_plain(wild, wild_valid, 16), 0, 0, 0, timed=False)
+    for space in (BIN_W - 1, BIN_W, BIN_W + 1, (1 << 18) + 1, SPACE, (1 << 26) + 1):
+        bin_edges = torch.tensor(np.array(
+            [e % 2 ** 32 for b in range(0, space + BIN_W + 1, BIN_W) for e in (b - 1, b, b + 1)]
+            + [space - 1, space, 2 ** 32 - space, 2 ** 32 - space - 1], np.uint64)
+            .astype(np.uint32).view(np.int32), device=dev)
+        spread = torch.cat([bin_edges, torch.randint(0, space, (1 << 22,), dtype=torch.int32,
+                                                     device=dev, generator=gen), wild])
+        w = torch.randint(0, 256, (spread.numel(),), dtype=torch.uint8, device=dev,
+                          generator=gen)
+        held("scatter_count", f"space {space}: every bin edge, 2^22 codes in range, the wild "
+             "codes, uint8 weights", lambda: scatter_count(spread, w, space),
+             lambda: scatter_count_plain(spread, w, space), 0, 0, 0, timed=False)
 
     # K3's table-length entries: 4 x 2^24 codes over the whole uint32 range
     # (half in range, the edges first) on the 4^13 uint32 table, and a
@@ -3099,7 +3198,8 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.kernels import probe
     from aindex_torch.kernels.encode import canonical_code64
     from aindex_torch.kernels.lookup import MphfTables, shard_walk, shard_walk_plain
-    from aindex_torch.kernels.positional import (bucket_scratch, chunk_slots_plain,
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.kernels.positional import (_ENGINE, bucket_scratch, chunk_slots_plain,
                                                  fill_scratch, posbucket, posbucket_plain,
                                                  posfill, posfill_pairs, posfill_pairs_plain)
     from aindex_torch.kernels.spectrum import (chunk_spectrum_packed, merge_spectra,
@@ -3251,11 +3351,59 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     got, ref = posbucket(*args), posbucket_plain(*args)
     err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
     print("K14 dense k=13 at 2 shards == plain")
-    # timed at the path's shape: one shard, the corpus chunk
+    # chunks of one tile of the pass +- 1 windows (dense k = 2, 1 and 16 on
+    # 256 and 257 words; k = 23 chunks of 4090 and 4106 windows) at 1, 3
+    # and 255 destinations
+    for k, n_bytes, tabs, n_slots in ((2, 4096, None, 4 ** 2), (1, 4096, None, 4),
+                                      (16, 4112, None, 4 ** 16), (K23, 4112, tables, index.n),
+                                      (K23, 4128, tables, index.n)):
+        up = upload(dev, *codec.pack_ascii_chunk(pieces[0][0][:n_bytes]))
+        n_w = 16 * up[0].numel() - k + 1
+        for n_dest in (1, 3, 255):
+            args = (*up, k, tabs, probe.CANON, n_slots, -(-n_slots // n_dest), n_dest,
+                    bucket_cap(n_w, n_dest))
+            got, ref = posbucket(*args), posbucket_plain(*args)
+            err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+    print("K14 on chunks of 4095, 4096, 4097, 4090 and 4106 windows at 1, 3 and 255 "
+          "destinations == plain")
+    # the corpus chunk at 255 destinations; the Mphf engine (the index's
+    # walk) under FWD_RC and CANON at 4
+    args = (*ups[0], K23, tables, probe.CANON, index.n, -(-index.n // 255), 255,
+            bucket_cap(n_win, 255))
+    got, ref = posbucket(*args), posbucket_plain(*args)
+    err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+    walk = MphfTables.from_host(m, index.checker_host, index.tf_host, dev)
+    for rule in (probe.FWD_RC, probe.CANON):
+        args = (*ups[0], K23, walk, rule, index.n, -(-index.n // 4), 4, bucket_cap(n_win, 4))
+        got, ref = posbucket(*args), posbucket_plain(*args)
+        err14 = max(err14, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+    del walk, got, ref
+    print("K14 on the corpus chunk at 255 destinations, and on the MPHF walk under FWD_RC "
+          "and CANON at 4, == plain")
+    # timed at the path's shape: one shard, the corpus chunk (beside the
+    # parent's K14 in turns, given a parent)
     cap = bucket_cap(n_win, 1)
-    scratch = bucket_scratch(n_win, dev)
+    scratch = bucket_scratch(dev)
     args = (*ups[0], K23, tables, probe.CANON, index.n, index.n, 1, cap)
     slots, buckets, _ = posbucket(*args, scratch)
+    if PARENT is not None:
+        fn = parent_engines(PARENT)["posbucket"]
+        p_u = probe.c_engine(tables)
+        n_hist = 256 * -(-n_win // 1024)    # its radix histogram, tiles of 1024
+        bufs = [torch.empty(n, dtype=dt, device=dev) for n, dt in (
+            (n_win, torch.int64), (cap, torch.int64), (2, torch.int32), (n_win, torch.int64),
+            (n_hist, torch.int32), (-(-n_hist // 2048), torch.int32))]
+
+        def parent_bucket():
+            check(fn(_ENGINE[tables.FILL], *p_u, probe.CANON, ups[0][0].data_ptr(),
+                     ups[0][1].data_ptr(), ups[0][0].numel(), K23, index.n, index.n, 1, cap,
+                     *(x.data_ptr() for x in bufs), _cuda.stream(dev)) == 0,
+                  "the parent's posbucket")
+            return bufs[0], bufs[1].view(1, cap), bufs[2][1]
+        SIDE_MS["posbucket: corpus chunk, 1 shard, in turns"] = in_turns(
+            card, "posbucket, corpus chunk, 1 shard", lambda: posbucket(*args, scratch),
+            parent_bucket, 20)
+        del bufs
     ms = cuda_ms(lambda: posbucket(*args, scratch), 20)
     pms = cuda_ms(lambda: posbucket_plain(*args), 3)
     dest = torch.where(slots >= 0, 0, 1)
@@ -3434,6 +3582,10 @@ def main() -> int:
         print(f"{name}: {rec['ms']:.4f} ms now, {ms:.4f} ms earlier "
               f"({rec['ms'] / ms - 1:+.1%}){calls}{lib}; bound {rec['bound_ms']:.4f} ms "
               f"({card})")
+
+    for label, times in SIDE_MS.items():
+        print(f"{label}: " + "; ".join(f"{tree} " + " / ".join(f"{t:.4f}" for t in ms)
+                                       for tree, ms in times.items()) + f" ms ({card})")
 
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda",

@@ -2,7 +2,7 @@
 """Per-launch device times of the kernels built on csrc/onesweep.cuh at the
 shape of one ingest chunk, on one CUDA card.
 
-    python3 scripts/onesweep_profile.py [--edges]
+    python3 scripts/onesweep_profile.py [--edges] [--count-bucket]
 
 Builds the kernels, takes chip_smoke.py's ``onesweep_calls`` (K5's packed
 and ASCII entries and K13 on a 2^22-byte chunk of a coverage-1 corpus of
@@ -12,14 +12,51 @@ fills on the same chunk), checks each against its plain version, and
 prints its CUDA-event time a call, its launches a call and the
 torch.profiler device time of each of its launches (memset, compaction,
 passes, runs or fill, scan). ``--edges`` first runs
-chip_smoke.py's edge-shape checks of the sort. Exits nonzero without a
-card.
+chip_smoke.py's edge-shape checks of the sort. ``--count-bucket`` profiles
+K15 and K14 instead: K15 on 106,757,904 random 13-mer codes (the corpus
+window count, 90% valid) into the 4^13 table, and on the same codes with
+90% set to 0 at weight 255; K14 at one shard on the coverage-1 chunk's k =
+23 windows over an index built from the chunk, and its slots-only call
+(the probe alone). Exits nonzero without a card.
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def count_bucket_calls(dev) -> dict:
+    """K15 on the corpus window count of random codes and skewed, K14 with
+    buckets and slots only: name -> (kernel call, plain call)."""
+    import torch
+
+    import chip_smoke as c
+    from aindex_torch import Sparse23Index
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.count import scatter_count, scatter_count_plain
+    from aindex_torch.kernels.positional import posbucket, posbucket_plain
+    from aindex_torch.parallel.positional import bucket_cap
+    gen = torch.Generator(device=dev).manual_seed(79)
+    n = 106_757_904
+    codes = torch.randint(0, c.SPACE, (n,), dtype=torch.int32, device=dev, generator=gen)
+    valid = torch.rand(n, device=dev, generator=gen) < 0.9
+    skew = torch.where(torch.rand(n, device=dev, generator=gen) < 0.9, 0, codes)
+    w255 = torch.full((n,), 255, dtype=torch.uint8, device=dev)
+    chunk = c.coverage1_chunk()
+    packed, vbits = c.upload(dev, *codec.pack_ascii_chunk(chunk))
+    index = Sparse23Index.build_from_blob(chunk, k=c.K23, device=dev)
+    n_win = 16 * packed.numel() - c.K23 + 1
+    one = (packed, vbits, c.K23, index.tables, index.rule, index.n, index.n)
+    return {
+        "scatter_count": (lambda: (scatter_count(codes, valid),),
+                          lambda: (scatter_count_plain(codes, valid),)),
+        "scatter_count, 90% zeros at weight 255": (lambda: (scatter_count(skew, w255),),
+                                                   lambda: (scatter_count_plain(skew, w255),)),
+        "posbucket, 1 shard": (lambda: posbucket(*one, 1, bucket_cap(n_win, 1)),
+                               lambda: posbucket_plain(*one, 1, bucket_cap(n_win, 1))),
+        "posbucket, slots only": (lambda: posbucket(*one)[:1], lambda: posbucket_plain(*one)[:1]),
+    }
 
 
 def main() -> int:
@@ -37,7 +74,10 @@ def main() -> int:
     print(f"kernels built in {_cuda.build_all():.1f} s")
     if "--edges" in sys.argv:
         c.sort_edges_vs_plain(dev, card)
-    calls = {**c.onesweep_calls(dev), **c.fill_calls(dev)}
+    if "--count-bucket" in sys.argv:
+        calls = count_bucket_calls(dev)
+    else:
+        calls = {**c.onesweep_calls(dev), **c.fill_calls(dev)}
     for name, (fn, plain) in calls.items():
         err = max(c.max_abs_err(a, b) for a, b in zip(fn(), plain()))
         ms = c.cuda_ms(fn, 50)
@@ -50,8 +90,9 @@ def main() -> int:
               f"{c.launches_per_call(fn):.2f} launches a call")
         for ev in sorted(prof.key_averages(), key=lambda e: -e.device_time_total):
             if ev.device_time_total > 0:
+                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
                 print(f"  {ev.device_time_total / 10:8.1f} us a call, {ev.count // 10} "
-                      f"launch(es): {ev.key.split('(')[0]}")
+                      f"launch(es): {name}")
     return 0
 
 

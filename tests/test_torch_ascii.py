@@ -119,9 +119,38 @@ def test_zeros_dev(shape, name):
 
 # -- scatter_count (K15) -------------------------------------------------------------
 
+#: K15's bin of table entries (aindex_torch/csrc/count13.cu)
+BIN_W = tcount.BIN_W
+#: the spaces around K15's bins and rounds: one bin less one entry, one bin,
+#: one bin and one entry, eight bins and one entry
+BIN_SPACES = {"bins_w_minus_1": BIN_W - 1, "bins_w": BIN_W, "bins_w_plus_1": BIN_W + 1,
+              "bins_2p18_plus_1": (1 << 18) + 1}
+
+
+def _bin_edges(space: int) -> np.ndarray:
+    """Codes on the first and last entry of every bin edge of the space,
+    the space's own edges and their negative (wrapping) int32 forms."""
+    edges = [e for b in range(0, space + BIN_W + 1, BIN_W) for e in (b - 1, b, b + 1)]
+    edges += [space - 1, space, space + 1, -1, -space, -space - 1, 2 ** 31 - 1, 2 ** 31]
+    return np.array([e % 2 ** 32 for e in edges], dtype=np.uint64).astype(np.uint32)
+
+
 def _scatter_inputs(case: str):
     """(codes uint32, valid, space)."""
     rng = np.random.default_rng(len(case))
+    if case in BIN_SPACES:          # K15's bin edges, uint8 weights
+        space = BIN_SPACES[case]
+        edges = _bin_edges(space)
+        codes = np.concatenate([edges, rng.integers(0, space, size=6000).astype(np.uint32),
+                                rng.integers(0, 2 ** 32, size=2000, dtype=np.uint64)
+                                .astype(np.uint32)])
+        weights = rng.integers(0, 256, size=codes.size).astype(np.uint8)
+        weights[:edges.size] = 255
+        return codes, weights, space
+    if case == "skewed":            # most codes one value (poly-A's code 0), weights to 255
+        codes = np.where(rng.random(20000) < 0.9, 0, rng.integers(0, (1 << 18) + 1, size=20000))
+        return codes.astype(np.uint32), rng.integers(1, 256, size=20000).astype(np.uint8), \
+            (1 << 18) + 1
     if case == "wrap_and_drop":
         return (np.array([0, 15, 16, 2 ** 31 + 3, 2 ** 32 - 1], np.uint32),
                 np.ones(5, bool), 16)
@@ -143,7 +172,7 @@ def _scatter_inputs(case: str):
 
 @pytest.mark.parametrize("storage", ["uint32", "int32"])
 @pytest.mark.parametrize("case", ["wrap_and_drop", "edges", "random", "uint8_weights",
-                                  "shape_2d", "empty"])
+                                  "shape_2d", "empty", *BIN_SPACES, "skewed"])
 def test_scatter_count(case, storage):
     codes, valid, space = _scatter_inputs(case)
     tcodes = _torch(codes) if storage == "uint32" else torch.from_numpy(codes.view(np.int32))
@@ -152,6 +181,26 @@ def test_scatter_count(case, storage):
     _same(_np(got), want)
     if case == "wrap_and_drop":       # 15 counted twice (2^32 - 1 wraps), 16 and 2^31 + 3 dropped
         assert _np(got).tolist() == [1] + [0] * 14 + [2]
+
+
+@pytest.mark.parametrize("n, space", [(0, 1 << 20), (1000, BIN_W), (1, BIN_W + 1),
+                                      (106_757_904, SPACE_13), (1 << 28, (1 << 31) - 1)],
+                         ids=["no codes", "no partition", "one code", "corpus", "pieces"])
+def test_scatter_scratch_bytes(n, space):
+    """K15's scratch (csrc/count13.cu bins::carve): none without a
+    partition; else a 4-byte record a code of a piece of at most 2^27
+    codes, a count a (range, bin) for at most 128 ranges and 8192 bins a
+    round, and each bin's total and start. About 4 bytes a code at the
+    corpus shape."""
+    got = tcount.scatter_scratch_bytes(n, space)
+    if n == 0 or space <= BIN_W:
+        assert got == 0
+        return
+    piece = min(n, 1 << 27)
+    nb = min(1 << 13, -(-space // BIN_W))
+    assert got == 4 * (piece + min(128, -(-piece // (1 << 14))) * nb + 2 * nb + 1)
+    if space == SPACE_13:
+        assert 4 < got / n < 4.02
 
 
 def test_scatter_count_rejects():

@@ -22,6 +22,7 @@ from aindex_tpu.index.dense13 import Dense13Index as JDense
 from aindex_tpu.index.sparse23 import Sparse23Index as JSparse
 from aindex_tpu.index.sparse23 import count_canonical_kmers as j_count_canonical
 from aindex_tpu.kernels import lookup as jlookup
+from aindex_tpu.kernels.encode import packed_window_codes as j_packed_window_codes
 from aindex_tpu.kernels import spectrum as jspectrum
 from aindex_tpu.parallel import count13 as jcount13
 from aindex_tpu.parallel import positional as jppos
@@ -497,6 +498,94 @@ def test_posbucket_overflow_counts(blob):
         assert rec.numel() == min(8, int(per[d]))
         assert bool((window[1:] > window[:-1]).all())
         assert bool((((rec >> 24) - 1) == slots[window]).all())
+
+
+#: the tile of K14's pass (csrc/posbucket.cu: onesweep's 4096 windows)
+TILE = 4096
+
+
+@pytest.fixture(scope="module")
+def tile_blob():
+    """80 reads of 150 bp from a 3 kbp random genome (either strand, a few
+    N), so a chunk spans K14's tiles and its windows repeat."""
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, size=3000)
+    rows = []
+    for _ in range(80):
+        s = int(rng.integers(0, genome.size - 150))
+        r = genome[s:s + 150] if rng.random() < 0.5 else (3 - genome[s:s + 150])[::-1]
+        seq = np.frombuffer(b"ACGT", np.uint8)[r].copy()
+        seq[rng.random(150) < 0.003] = ord("N")
+        rows.append(bytes(seq).decode())
+    return ReadsStore.from_sequences(rows).blob
+
+
+@pytest.fixture(scope="module")
+def tile_index(tile_blob, jax_native):
+    jindex = JSparse.build_from_blob(tile_blob)
+    return jindex, TSparse.from_numpy(vars(jindex.mphf), jindex.checker_host, jindex.tf_host,
+                                      device="cpu")
+
+
+def _j_local_buckets(packed, vbits, k, resolve, n_dest, m, cap):
+    """aindex_tpu's local_alltoall up to the exchange
+    (aindex_tpu/parallel/positional.py:121-152), its cap given: (slots,
+    buckets[:n_dest] as int64, overflow)."""
+    codes, valid = j_packed_window_codes(jnp.asarray(packed), jnp.asarray(vbits), k,
+                                         out_dtype=jnp.uint64)
+    slot = resolve(codes.reshape(-1), valid.reshape(-1)).astype(jnp.int64)
+    B = slot.shape[0]
+    dest = jnp.where(slot >= 0, slot // jnp.int64(m), jnp.int64(n_dest))
+    order = jnp.argsort(dest, stable=True)
+    dest_s = dest[order]
+    slot_s = slot[order]
+    start = jnp.searchsorted(dest_s, jnp.arange(n_dest + 1, dtype=jnp.int64))
+    rank = jnp.arange(B, dtype=jnp.int64) - start[dest_s]
+    keep = (rank < cap) & (dest_s < n_dest)
+    overflow = jnp.sum(((rank >= cap) & (dest_s < n_dest)).astype(jnp.int64))
+    rec = ((slot_s + 1).astype(jnp.uint64) << jnp.uint64(24)) | order.astype(jnp.uint64)
+    buckets = jnp.zeros((n_dest + 1, cap), jnp.uint64)
+    buckets = buckets.at[jnp.where(keep, dest_s, n_dest),
+                         jnp.where(keep, rank, 0).astype(jnp.int32)].set(
+        jnp.where(keep, rec, jnp.uint64(0)))
+    return (np.asarray(slot), np.asarray(buckets[:n_dest]).view(np.int64), int(overflow))
+
+
+@pytest.mark.parametrize("n_dest", [1, 3, 255])
+@pytest.mark.parametrize("k, n_bytes", [(2, 4096), (1, 4096), (16, 4112), (23, 4112), (23, 4128)],
+                         ids=["dense tile-1", "dense tile", "dense tile+1", "sparse tile-6",
+                              "sparse tile+10"])
+def test_posbucket_tile_edges(tile_blob, tile_index, k, n_bytes, n_dest):
+    """K14's send side on chunks of one tile of 4096 windows +- 1 (dense
+    k = 2, 1 and 16; a k = 23 chunk's windows are 10 mod 16, so 4090 and
+    4106), for 1, 3 and 255 destinations at the build's cap (at 255 the
+    few dense slots overflow their buckets): slots, buckets and overflow
+    equal to aindex_tpu's local_alltoall body on aindex_tpu's slots."""
+    packed, vbits = tcodec.pack_ascii_chunk(tile_blob[:n_bytes])
+    n_win = 16 * packed.size - k + 1
+    assert n_win == {2: TILE - 1, 1: TILE, 16: TILE + 1}.get(k, n_win)
+    if k == 23:
+        jindex, tindex = tile_index
+        tables, n_slots = tindex.tables, tindex.n
+
+        def resolve(codes, valid):
+            return jindex._resolve_device(codes, valid)[1]
+    else:
+        tables, n_slots = None, 4 ** k
+
+        def resolve(codes, valid):
+            return jnp.where(valid, codes.astype(jnp.int64), jnp.int64(-1))
+    m = -(-n_slots // n_dest)
+    cap = tppos.bucket_cap(n_win, n_dest)
+    slots, buckets, overflow = posbucket(_t(packed), _t(vbits), k, tables, CANON, n_slots, m,
+                                         n_dest, cap)
+    want_slot, want_buckets, want_over = _j_local_buckets(packed, vbits, k, resolve, n_dest, m,
+                                                          cap)
+    np.testing.assert_array_equal(slots.numpy(), want_slot)
+    np.testing.assert_array_equal(buckets.numpy(), want_buckets)
+    assert int(overflow) == want_over
+    if n_dest == 255 and k < 16:
+        assert want_over > 0
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "slot-ids"])

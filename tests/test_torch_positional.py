@@ -133,12 +133,15 @@ class TestPlain:
             n_slots, passes)
 
     def test_bucket_scratch_shapes(self):
-        """K14's scratch: counters, destinations, the [256, tiles of 1024]
-        histogram and its scan's tile sums of 2048."""
-        counters, dest, hist, sums = tk.bucket_scratch(5000, "cpu")
-        assert (counters.numel(), dest.numel(), hist.numel(), sums.numel()) == (
-            2, 5000, 256 * 5, 1)
-        assert dest.dtype == torch.int64 and hist.dtype == sums.dtype == torch.int32
+        """K14's scratch: the int32[2] counters it writes (n_win,
+        overflow). Its look-back words ride behind each call's buckets
+        (one memset zeroes both): the tile counter, then a status word per
+        destination and tile of 2048 windows."""
+        counters = tk.bucket_scratch("cpu")
+        assert counters.shape == (2,) and counters.dtype == torch.int32
+        assert [tk.bucket_status_words(n, 3) for n in (1, 2047, 2048, 2049, TILE)] \
+            == [4, 4, 4, 7, 7]
+        assert tk.bucket_status_words((1 << 22) - 22, 1) == 1 + 2048
 
     @pytest.mark.parametrize("name", [
         "no valid window", "one slot over 5 tiles", "every window its own slot",

@@ -1,10 +1,12 @@
 // The dense count kernels: K1 count13_packed, K15 scatter_count and K16
 // count13_rows, each adding into a uint32 count table.
 //
-// K1 count13_packed: fused unpack -> 13-mer windows -> scatter-add into the
-// dense uint32[4^13] count table, one packed ingest chunk per launch.
-// Replaces aindex_tpu/kernels/count.py:69 count_batch_13_packed (with
-// scatter_count_into, :45), which JAX lowers to a masked scatter-add.
+// K1 count13_packed: packed ingest chunks -> 13-mer windows -> the dense
+// uint32[4^13] count table, in place. Replaces
+// aindex_tpu/kernels/count.py:69 count_batch_13_packed (with
+// scatter_count_into, :45), which JAX lowers to a masked scatter-add. A
+// build's chunks are gathered into one buffer (aindex_torch/kernels/count.py
+// PackedCounter) and counted at once, on K15's partition below.
 //
 // K15 scatter_count: given codes and a weight (valid) per code -> a fresh
 // table. Replaces aindex_tpu/kernels/count.py:31 scatter_count.
@@ -14,24 +16,24 @@
 // aindex_tpu/kernels/count.py:54 count_batch_13 (jitted with donation as
 // index/dense13.py:29 _count_step).
 //
-// K1 and K16, bound: the atomics. A 2^22-base chunk reads 1.5 MB of packed
-// input (4 MB as ASCII rows), but its 4M windows each do one 4-byte
-// atomicAdd at a random address of a 256 MB table, far beyond the 50 MB
-// L2. Design: K1 takes one thread per window position, rebuilt from at
-// most two packed words and three validity bytes (neighbouring threads
-// share them through L1); K16 one thread per segment of SEG windows of a
-// row, which rolls the code one byte at a time and counts the run of valid
-// bases, so a window is counted once the run reaches k and no [B, L]
-// window tensor exists. Invalid windows issue no atomic at all. The sum
-// does not depend on the order of the atomics, so the result is exact;
-// uint32 wraps as JAX's add does.
+// K16, bound: the atomics. Its 4M windows a call each do one 4-byte
+// atomicAdd at a random address of a 256 MB table, far beyond the 50 MB L2.
+// Design: one thread per segment of SEG windows of a row, which rolls the
+// code one byte at a time and counts the run of valid bases, so a window is
+// counted once the run reaches k and no [B, L] window tensor exists. Invalid
+// windows issue no atomic at all. The sum does not depend on the order of
+// the atomics, so the result is exact; uint32 wraps as JAX's add does.
 //
-// K15, bound: bytes. Its codes are many (every window of a read set:
-// 107M at E. coli scale) and the table is written whole, so one random
-// atomic per code in device memory (15 G a second at 5 bytes a code) costs
-// 29x what the bytes do. Design: partition, then count in shared memory.
-// The table is cut into bins of W = 2^15 consecutive entries (128 KB of
-// counters); codes of weight 0 or outside the table drop out. Four
+// K15 and K1, bound: bytes. Their codes are many (every window of a read
+// set: 107M at E. coli scale) and the table is written whole, so one random
+// atomic per code in device memory (18 G a second: a random sector read and
+// written back) costs many times what the bytes do. Design: partition, then
+// count in shared memory. The table is cut into bins of W = 2^15
+// consecutive entries (128 KB of counters); codes of weight 0 or outside the
+// table drop out. The codes come from a source (bins::CodeSource: K15's
+// codes and weights; bins::PackedSource: K1's windows, each rebuilt from at
+// most two packed words and two 16-bit validity words, a thread the 16
+// windows of one word, weight 1 where all 13 bases are valid, else 0). Four
 // launches, per round of up to 2^28 entries and piece of up to 2^27 codes:
 //   bin_hist     the codes cut into at most 128 contiguous ranges, one
 //                block each: each counts its range's codes by bin in
@@ -52,19 +54,29 @@
 //                bin's records are summed into shared uint32 counters
 //                (equal offsets of a warp row combined first, then one
 //                shared atomic each), and the bin's slice of the table is
-//                written once, zeros included, with coalesced plain stores.
-//                A bin of more than CAP records (a skewed input: poly-A
-//                reads make code 0 common) is split over ceil(n / CAP)
-//                blocks, whose partial slices are added with atomics into
-//                the slice bin_scatter zeroed.
-// So no code does an atomic in device memory, the table needs no memset,
-// and a code costs 5 + 5 bytes read and a 4-byte record written and read,
-// the table 4 bytes an entry. Equal keys of a warp row are combined by two
+//                written once with coalesced stores: K15's first piece
+//                stores the counts, zeros included; every later piece, and
+//                every piece of K1 (which adds into the table it is given),
+//                reads the slice and adds to it; a bin of fewer than
+//                SPARSE records (W / 8: a lone chunk's bins) adds its nonzero
+//                counters with atomics instead, and a bin with none is left
+//                as it is. A bin of more than CAP records (a skewed input:
+//                poly-A reads make code 0 common) is split over ceil(n /
+//                CAP) blocks, whose partial slices are added with atomics
+//                into the slice (which bin_scatter zeroes on K15's first
+//                piece, and leaves as it is when adding).
+// So no code does an atomic of its own in device memory (a split or sparse
+// bin adds each nonzero counter with one), K15's table needs no memset,
+// and a code costs what its source reads (5 bytes for K15, 0.375 for K1)
+// twice, a 4-byte record written and read, and the table 4 bytes an entry
+// (8 when added to). Equal keys of a warp row are combined by two
 // rounds of one ballot each (group_of), which catch a skewed row's common
 // key; a full multi-split (a ballot a key bit) measured slower. Spaces of
 // at most W entries take no partition: each block counts into a shared
 // histogram of the whole table and adds its nonzero entries to the zeroed
-// table.
+// table. K1 pays the sweep of the table once a count, so a whole build's
+// chunks are counted at once; a lone chunk's bins (~2,000 records each)
+// fall below SPARSE and touch only their sectors.
 //
 // K15 and K16 index as JAX's scatter with mode="drop" does
 // (dna13::scatter_index): a code is cast to int32, a negative index gains
@@ -76,19 +88,6 @@ namespace {
 
 // windows of one row a K16 thread counts
 constexpr int SEG = 64;
-
-__global__ void count13_packed_kernel(unsigned* __restrict__ counts,
-                                      const unsigned* __restrict__ packed,
-                                      const unsigned char* __restrict__ vbits,
-                                      long long n_words) {
-  const long long n_win = 16 * n_words - (dna13::K - 1);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       p < n_win; p += stride) {
-    unsigned code;
-    if (dna13::packed_window(packed, vbits, n_words, p, &code)) atomicAdd(counts + code, 1u);
-  }
-}
 
 __global__ void count13_rows_kernel(unsigned* __restrict__ counts,
                                     const unsigned char* __restrict__ ascii, long long rows,
@@ -126,10 +125,13 @@ constexpr int MAX_BINS = 1 << 13;            // bins a round
 constexpr long long ROUND = W * MAX_BINS;    // table entries a round
 constexpr long long PIECE = 1LL << 27;       // codes a round partitions at once
 constexpr long long CAP = 1LL << 18;         // records a bin_count block takes
+// records below which an adding bin_count block adds its nonzero counters
+// with atomics, touching only their sectors, and does not sweep the slice
+constexpr unsigned SPARSE = W / 8;
 constexpr int WEIGHT_BITS = 8;
 constexpr int HIST_BLOCK = 1024;             // threads of bin_hist
 constexpr int PART_BLOCK = 1024;             // threads of bin_scatter
-constexpr int UNROLL = 16;                   // warp rows a thread loads at once
+constexpr int UNROLL = 16;                   // codes a bin_hist thread loads at once
 // codes a bin_scatter thread stages a tile: a bin's run in a tile grows
 // with the tile, and shorter runs (8 a thread, even at two blocks an SM)
 // measured slower
@@ -153,7 +155,8 @@ inline long long ranges(long long n) { return cdiv(n, range_len(n)); }
 // bin_scatter's dynamic shared memory for nb bins
 inline int scatter_smem(int nb) { return 12 * nb + 6 * STILE; }
 
-// The scratch of scatter_count(n, space > W), carved from one buffer
+// The scratch of scatter_count(n, space > W) and of count13_packed (n
+// windows), carved from one buffer
 // (aindex_torch/kernels/count.py scatter_scratch_bytes computes its size):
 // the records of a piece, the counts of each (range, bin), turned in place
 // into each range's prefix, the bins' totals and their starts.
@@ -174,6 +177,78 @@ inline Scratch carve(void* base, long long n, long long space) {
   sc.start = sc.tot + nb;
   return sc;
 }
+
+// Where the codes of a count come from. A thread takes N codes at once
+// (items): those of [first, first + N * lanes) that are its own, t of
+// lanes threads, each with its weight; codes at or past last weigh 0.
+// K15: given codes (uint32 bit patterns) and a weight each; a thread's
+// code j is first + j * lanes + t, so neighbouring threads read
+// neighbouring codes.
+struct CodeSource {
+  const int* codes;
+  const unsigned char* valid;
+  template <int N>
+  __device__ __forceinline__ void items(long long first, int t, int lanes, long long last,
+                                        int* code, unsigned* w) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const long long i = first + static_cast<long long>(j) * lanes + t;
+      code[j] = i < last ? __ldg(codes + i) : 0;
+      w[j] = i < last ? __ldg(valid + i) : 0u;
+    }
+  }
+  CodeSource at(long long first) const { return {codes + first, valid + first}; }
+};
+
+// A packed word's 16 bases in code order (the first base in the top
+// field): its 2-bit fields reversed. __brev reverses the bits, which swaps
+// the two bits of each field too; the mask swaps them back.
+__device__ __forceinline__ unsigned fields_reversed(unsigned x) {
+  x = __brev(x);
+  return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// K1: the 13-mer window starting at each base of a packed buffer, weight 1
+// where all its bases are valid, else 0 (dna13::packed_window's result).
+// A thread takes the 16 windows that start in one word, first + 16 t + j
+// (first, and every piece's base, a multiple of 16): two words put in code
+// order once, each window cut out with one shift, and the validity bits
+// read as two 16-bit words; neighbouring threads read neighbouring words.
+// Chunks in one buffer are kept apart by a word whose validity bits are
+// all 0 (PackedCounter). vbits is 2-byte aligned.
+struct PackedSource {
+  const unsigned* packed;
+  const unsigned short* vbits;
+  long long n_words;
+  long long base;   // the piece's first window
+  template <int N>
+  __device__ __forceinline__ void items(long long first, int t, int, long long last, int* code,
+                                        unsigned* w) const {
+    static_assert(N == 16, "a thread takes one word's windows");
+    const long long i = first + 16LL * t;
+    const long long at = (base + i) >> 4;
+    const long long left = last - i;   // of the word's windows, those in range
+    unsigned lo = 0u, hi = 0u, v = 0u;
+    if (left > 0) {
+      lo = __ldg(packed + at);
+      v = __ldg(vbits + at);
+      if (at + 1 < n_words) {
+        hi = __ldg(packed + at + 1);
+        v |= static_cast<unsigned>(__ldg(vbits + at + 1)) << 16;
+      }
+    }
+    const unsigned long long r =
+        (static_cast<unsigned long long>(fields_reversed(lo)) << 32) | fields_reversed(hi);
+    constexpr unsigned ALL = (1u << dna13::K) - 1u;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      code[j] = static_cast<int>(static_cast<unsigned>(r >> (38 - 2 * j)) &
+                                 ((1u << (2 * dna13::K)) - 1u));
+      w[j] = j < left && ((v >> j) & ALL) == ALL ? 1u : 0u;
+    }
+  }
+  PackedSource at(long long first) const { return {packed, vbits, n_words, base + first}; }
+};
 
 // A code's bin in the round [lo, lo + len) of the table and its record
 // (offset in the bin << 8 | weight); -1 when it drops out: weight 0, the
@@ -216,12 +291,12 @@ __device__ __forceinline__ unsigned group_of(bool ok, unsigned key, unsigned v, 
   return mine;
 }
 
-// Launch 1: each range's codes counted by bin into cnt[range, bin],
-// UNROLL warp rows loaded at once. Grid: the ranges.
+// Launch 1: each range's codes counted by bin into cnt[range, bin], a
+// warp's 32 x UNROLL codes loaded at once. Grid: the ranges.
+template <class Src>
 __global__ void __launch_bounds__(HIST_BLOCK)
-    bin_hist(const int* __restrict__ codes, const unsigned char* __restrict__ valid, long long n,
-             long long space, long long lo, long long len, int nb, long long range,
-             unsigned* __restrict__ cnt) {
+    bin_hist(Src src, long long n, long long space, long long lo, long long len, int nb,
+             long long range, unsigned* __restrict__ cnt) {
   __shared__ unsigned s_cnt[MAX_BINS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -232,12 +307,7 @@ __global__ void __launch_bounds__(HIST_BLOCK)
   for (long long i0 = first + warp * 32 * UNROLL; i0 < last; i0 += HIST_BLOCK * UNROLL) {
     int code[UNROLL];
     unsigned w[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long i = i0 + u * 32 + lane;
-      code[u] = i < last ? codes[i] : 0;
-      w[u] = i < last ? valid[i] : 0u;
-    }
+    src.template items<UNROLL>(i0, lane, 32, last, code, w);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       unsigned rec, c;
@@ -278,14 +348,16 @@ __global__ void bin_prefix(unsigned* __restrict__ pre, long long n_ranges, int n
 // codes at a time: the tile's codes ranked by bin in shared memory, staged
 // in bin order, and each bin's run written to the bin's next positions in
 // the range's share, so the writes are runs and not one sector a code.
-// Block 0 writes the bins' starts (start[nb] = the records); on the
-// round's first piece the slices of bins bin_count splits are zeroed here.
-// Grid: the ranges. Dynamic shared memory: scatter_smem(nb) bytes.
+// Block 0 writes the bins' starts (start[nb] = the records); on a fresh
+// table's first piece (fresh) the slices of bins bin_count splits are
+// zeroed here. Grid: the ranges. Dynamic shared memory: scatter_smem(nb)
+// bytes.
+template <class Src>
 __global__ void __launch_bounds__(PART_BLOCK)
-    bin_scatter(const int* __restrict__ codes, const unsigned char* __restrict__ valid,
-                long long n, long long space, long long lo, long long len, int nb, long long range, const unsigned* __restrict__ pre,
+    bin_scatter(Src src, long long n, long long space, long long lo, long long len, int nb,
+                long long range, const unsigned* __restrict__ pre,
                 const unsigned* __restrict__ tot, unsigned* __restrict__ start,
-                unsigned* __restrict__ records, unsigned* __restrict__ table, int first_piece) {
+                unsigned* __restrict__ records, unsigned* __restrict__ table, int fresh) {
   extern __shared__ unsigned s_dyn[];
   unsigned* s_cur = s_dyn;          // each bin's next record position of the range
   unsigned* s_cnt = s_cur + nb;     // the tile's count of each bin, then its run's start
@@ -308,7 +380,7 @@ __global__ void __launch_bounds__(PART_BLOCK)
     run += tot[b];
   }
   if (tile == 0 && threadIdx.x == 0) start[nb] = all;
-  if (first_piece)
+  if (fresh)
     for (int b = blockIdx.x; b < nb; b += gridDim.x) {
       if (tot[b] <= CAP) continue;
       const long long end = len - b * W < W ? len - b * W : W;
@@ -323,11 +395,11 @@ __global__ void __launch_bounds__(PART_BLOCK)
     // per code: its record, then (rank in the tile's codes of its bin << 13)
     // | bin, or ~0 for none
     unsigned rec[ITEMS], rb[ITEMS];
+    {
+      int c[ITEMS];
+      src.template items<ITEMS>(t0, threadIdx.x, PART_BLOCK, last, c, rb);
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      const long long i = t0 + j * PART_BLOCK + threadIdx.x;
-      rec[j] = i < last ? static_cast<unsigned>(codes[i]) : 0u;
-      rb[j] = i < last ? valid[i] : 0u;
+      for (int j = 0; j < ITEMS; ++j) rec[j] = static_cast<unsigned>(c[j]);
     }
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
@@ -376,11 +448,13 @@ __device__ __forceinline__ unsigned extra_pieces(unsigned t) {
 
 // Launch 4: block b < nb counts bin b's records (its first CAP), block nb
 // + e the e-th extra piece of the split bins in bin order; a block with no
-// piece returns. Dynamic shared memory: W uint32 counters.
+// piece returns. fresh: the slice is stored (a fresh table's first piece),
+// else added to, and a bin with no records is left as it is. Dynamic
+// shared memory: W uint32 counters.
 __global__ void __launch_bounds__(COUNT_BLOCK)
     bin_count(const unsigned* __restrict__ records, const unsigned* __restrict__ tot,
               const unsigned* __restrict__ start, int nb, long long lo, long long len,
-              unsigned* __restrict__ table, int first_piece) {
+              unsigned* __restrict__ table, int fresh) {
   extern __shared__ unsigned s_hist[];
   __shared__ int s_bin, s_piece;
   const int lane = threadIdx.x & 31;
@@ -410,6 +484,7 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
     if (bin < 0) return;
   }
   const unsigned t = tot[bin];
+  if (t == 0u && !fresh) return;
   const long long first = start[bin] + static_cast<long long>(piece) * CAP;
   const long long end = static_cast<long long>(start[bin]) + t;
   const long long last = first + CAP < end ? first + CAP : end;
@@ -434,7 +509,7 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
   }
   __syncthreads();
   unsigned* slice = table + lo + bin * W;
-  if (t > CAP) {
+  if (t > CAP || (!fresh && t < SPARSE)) {
     for (int o = threadIdx.x; o < entries; o += COUNT_BLOCK)
       if (s_hist[o] != 0u) atomicAdd(slice + o, s_hist[o]);
   } else if (entries % 4 == 0 && reinterpret_cast<uintptr_t>(slice) % 16 == 0) {
@@ -442,7 +517,7 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
     const auto* h = reinterpret_cast<const uint4*>(s_hist);
     for (int o = threadIdx.x; o < entries / 4; o += COUNT_BLOCK) {
       uint4 x = h[o];
-      if (!first_piece) {
+      if (!fresh) {
         const uint4 y = v[o];
         x.x += y.x;
         x.y += y.y;
@@ -453,7 +528,7 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
     }
   } else {
     for (int o = threadIdx.x; o < entries; o += COUNT_BLOCK)
-      slice[o] = first_piece ? s_hist[o] : slice[o] + s_hist[o];
+      slice[o] = fresh ? s_hist[o] : slice[o] + s_hist[o];
   }
 }
 
@@ -494,23 +569,67 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
     if (s_hist[o] != 0u) atomicAdd(table + o, s_hist[o]);
 }
 
+// The four launches over every round of the table and piece of the n
+// codes of src. fresh: the table holds nothing yet (its every entry is
+// written on the first piece); else every piece adds into it.
+template <class Src>
+int partition_count(Src src, long long n, long long space, void* scratch, bool fresh,
+                    unsigned* table, cudaStream_t s) {
+  const Scratch sc = carve(scratch, n, space);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          bin_count, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(W * 4)))
+    return static_cast<int>(e);
+  const long long nb_max = cdiv(space, W) < MAX_BINS ? cdiv(space, W) : MAX_BINS;
+  if (cudaError_t e = cudaFuncSetAttribute(bin_scatter<Src>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           scatter_smem(static_cast<int>(nb_max))))
+    return static_cast<int>(e);
+  for (long long lo = 0; lo < space; lo += ROUND) {
+    const long long len = space - lo < ROUND ? space - lo : ROUND;
+    const int nb = static_cast<int>(cdiv(len, W));
+    for (long long first = 0; first < n; first += PIECE) {
+      const long long pn = n - first < PIECE ? n - first : PIECE;
+      const long long n_ranges = ranges(pn);
+      const int store = fresh && first == 0;
+      bin_hist<<<static_cast<unsigned>(n_ranges), HIST_BLOCK, 0, s>>>(
+          src.at(first), pn, space, lo, len, nb, range_len(pn), sc.pre);
+      KERNEL_CHECK();
+      bin_prefix<<<static_cast<unsigned>(cdiv(nb, 256)), 256, 0, s>>>(sc.pre, n_ranges, nb,
+                                                                      sc.tot);
+      KERNEL_CHECK();
+      bin_scatter<<<static_cast<unsigned>(n_ranges), PART_BLOCK, scatter_smem(nb), s>>>(
+          src.at(first), pn, space, lo, len, nb, range_len(pn), sc.pre, sc.tot, sc.start,
+          sc.records, table, store);
+      KERNEL_CHECK();
+      bin_count<<<static_cast<unsigned>(nb + pn / CAP), COUNT_BLOCK, W * 4, s>>>(
+          sc.records, sc.tot, sc.start, nb, lo, len, table, store);
+      KERNEL_CHECK();
+    }
+  }
+  return 0;
+}
+
 }  // namespace bins
 
 }  // namespace
 
 DNA13_EXPORT_ERROR_STRING
 
-// counts: uint32[4^13], updated in place. packed: uint32[n_words].
-// vbits: uint8[2 * n_words]. Returns cudaGetLastError() after the launch.
+// counts: uint32[4^13], updated in place: every valid 13-mer window of the
+// packed buffer adds 1. packed: uint32[n_words]; vbits: uint8[2 * n_words],
+// 2-byte aligned
+// (a window never crosses a word whose validity bits are all 0, so chunks
+// apart by one such word count as if counted one by one). scratch:
+// scatter_scratch_bytes(16 * n_words - 12, 4^13) bytes. Returns the first
+// CUDA error of the launches, or 0.
 extern "C" int count13_packed(void* counts, const void* packed, const void* vbits,
-                              long long n_words, void* stream) {
+                              long long n_words, void* scratch, void* stream) {
   const long long n_win = 16 * n_words - (dna13::K - 1);
   if (n_win <= 0) return cudaSuccess;
-  count13_packed_kernel<<<dna13::grid_for(n_win), dna13::BLOCK, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(counts), static_cast<const unsigned*>(packed),
-      static_cast<const unsigned char*>(vbits), n_words);
-  return static_cast<int>(cudaGetLastError());
+  const bins::PackedSource src{static_cast<const unsigned*>(packed),
+                               static_cast<const unsigned short*>(vbits), n_words, 0};
+  return bins::partition_count(src, n_win, dna13::SPACE, scratch, false,
+                               static_cast<unsigned*>(counts), static_cast<cudaStream_t>(stream));
 }
 
 // counts: uint32[space], 1 <= space < 2^31, every entry written (no
@@ -539,37 +658,7 @@ extern "C" int scatter_count(void* counts, const void* codes, const void* valid,
                   smem, s>>>(c, v, n, space, table);
     return static_cast<int>(cudaGetLastError());
   }
-  const Scratch sc = carve(scratch, n, space);
-  if (cudaError_t e = cudaFuncSetAttribute(
-          bin_count, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(W * 4)))
-    return static_cast<int>(e);
-  const long long nb_max = cdiv(space, W) < MAX_BINS ? cdiv(space, W) : MAX_BINS;
-  if (cudaError_t e = cudaFuncSetAttribute(bin_scatter,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           scatter_smem(static_cast<int>(nb_max))))
-    return static_cast<int>(e);
-  for (long long lo = 0; lo < space; lo += ROUND) {
-    const long long len = space - lo < ROUND ? space - lo : ROUND;
-    const int nb = static_cast<int>(cdiv(len, W));
-    for (long long first = 0; first < n; first += PIECE) {
-      const long long pn = n - first < PIECE ? n - first : PIECE;
-      const long long n_ranges = ranges(pn);
-      bin_hist<<<static_cast<unsigned>(n_ranges), HIST_BLOCK, 0, s>>>(
-          c + first, v + first, pn, space, lo, len, nb, range_len(pn), sc.pre);
-      KERNEL_CHECK();
-      bin_prefix<<<static_cast<unsigned>(cdiv(nb, 256)), 256, 0, s>>>(sc.pre, n_ranges, nb,
-                                                                      sc.tot);
-      KERNEL_CHECK();
-      bin_scatter<<<static_cast<unsigned>(n_ranges), PART_BLOCK, scatter_smem(nb), s>>>(
-          c + first, v + first, pn, space, lo, len, nb, range_len(pn), sc.pre, sc.tot,
-          sc.start, sc.records, table, first == 0);
-      KERNEL_CHECK();
-      bin_count<<<static_cast<unsigned>(nb + pn / CAP), COUNT_BLOCK, W * 4, s>>>(
-          sc.records, sc.tot, sc.start, nb, lo, len, table, first == 0);
-      KERNEL_CHECK();
-    }
-  }
-  return 0;
+  return partition_count(CodeSource{c, v}, n, space, scratch, true, table, s);
 }
 
 // counts: uint32[space], updated in place, 1 <= space < 2^31. ascii:

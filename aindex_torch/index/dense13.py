@@ -2,11 +2,11 @@
 
 Counterpart of aindex_tpu/index/dense13.py ``Dense13Index``. The k-mer's
 own 2-bit code is the slot: the table is a dense uint32[67,108,864] tensor
-(256 MB), counting is a scatter-add of every valid forward window (K1,
-kernels/count.py), the fused forward + reverse-complement table is one
-permutation pass (K2, ``total13`` below), and every query family is one
-or two gathers (K3, kernels/lookup.py) or the fused coverage pass (K4,
-kernels/coverage.py).
+(256 MB), counting adds every valid forward window of a build's chunks
+at once (K1, ``kernels/count.py`` ``PackedCounter``), the fused forward +
+reverse-complement table is one pass of paired tiles (K2, ``total13``
+below), and every query family is one or two gathers (K3,
+kernels/lookup.py) or the fused coverage pass (K4, kernels/coverage.py).
 
 Counting is forward-strand only, as reference count_kmers13 does; fwd and
 rc are combined at query time.
@@ -31,7 +31,7 @@ from aindex_torch.core.reads import blob_chunks, stream_blob_chunks
 from aindex_torch.index.common import host_u32, packed_chunks, resolve_device
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels import coverage as cov_kernels
-from aindex_torch.kernels.count import count13_packed, count_batch_13, zeros_dev
+from aindex_torch.kernels.count import PackedCounter, count_batch_13, zeros_dev
 from aindex_torch.kernels.encode import revcomp_code13
 from aindex_torch.kernels.lookup import gather13
 
@@ -90,22 +90,25 @@ def _count_step(counts: torch.Tensor, ascii: torch.Tensor) -> torch.Tensor:
 
 
 def _count(counts: torch.Tensor, chunk_iter, on_progress) -> None:
-    """K1 over every packed chunk (double-buffered on CUDA, see
-    ``common.packed_chunks``)."""
+    """Every packed chunk (double-buffered on CUDA, see
+    ``common.packed_chunks``) into a ``PackedCounter`` of ``counts``, then
+    one count of them all (K1)."""
+    counter = PackedCounter(counts)
     for packed, vbits, done in packed_chunks(chunk_iter, counts.device):
-        count13_packed(counts, packed, vbits)
+        counter.add(packed, vbits)
         if on_progress is not None:
             on_progress(done)
+    counter.finish()
     if counts.device.type == "cuda":
         torch.cuda.synchronize(counts.device)
 
 
 def _count_blob_sharded(blob: np.ndarray, mesh, chunk: int, on_progress=None) -> torch.Tensor:
     """Mesh-streamed dense count (aindex_tpu/index/dense13.py:39): this
-    rank's row of every [n_data, chunk] batch through K1 (double-buffered,
-    ``_count``), then one all_reduce over ``data``. Summing each rank's
-    whole table once after the last batch gives the bits of a sum per
-    batch: uint32 addition wraps associatively."""
+    rank's row of every [n_data, chunk] batch counted at once (K1,
+    double-buffered, ``_count``), then one all_reduce over ``data``.
+    Summing each rank's whole table once after the last batch gives the
+    bits of a sum per batch: uint32 addition wraps associatively."""
     from aindex_torch.parallel.count13 import merge_counts
     from aindex_torch.parallel.distributed import local_row_chunks
     from aindex_torch.parallel.mesh import mesh_device

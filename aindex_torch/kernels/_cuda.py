@@ -123,8 +123,8 @@ def _probe_kernels(query: str, coverage: str, fill: str, source: str,
 
 KERNELS: dict[str, Kernel] = {
     k.name: k for k in (
-        # counts, packed, vbits, n_words, stream
-        Kernel("count13_packed", "count13.cu", [_P, _P, _P, _LL, _P],
+        # counts, packed, vbits, n_words, scratch, stream
+        Kernel("count13_packed", "count13.cu", [_P, _P, _P, _LL, _P, _P],
                "aindex_tpu/kernels/count.py:69"),
         # counts, codes, valid, n, space, scratch, stream
         Kernel("scatter_count", "count13.cu", [_P, _P, _P, _LL, _LL, _P, _P],

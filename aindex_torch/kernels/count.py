@@ -4,8 +4,10 @@ Counterparts of aindex_tpu/kernels/count.py, each adding into a uint32
 count table:
 
 * ``count13_packed`` (K1, ``csrc/count13.cu``) replaces
-  ``count_batch_13_packed`` (:69): one packed ingest chunk's 13-mers, one
-  atomic add per valid window;
+  ``count_batch_13_packed`` (:69): packed ingest chunks' 13-mers added into
+  a table, on K15's partition; ``PackedCounter`` gathers a build's chunks
+  into one buffer and counts them at once, so the table is swept once a
+  build and not once a chunk;
 * ``scatter_count`` (K15, same source) replaces ``scatter_count`` (:31):
   given codes under a valid mask, into a fresh table: the codes are
   partitioned into bins of 2^15 table entries, and each bin is counted in
@@ -49,17 +51,20 @@ MAX_BINS = 1 << 13
 PIECE = 1 << 27
 MAX_RANGES, MIN_RANGE = 128, 1 << 14
 
+#: windows a plain count takes at once: a CPU ``PackedCounter`` counts
+#: when more would come (bounds the plain version's int64 temporaries)
+PLAIN_PIECE = 1 << 22
+
 #: the signed dtype of each unsigned one (PyTorch's bare unsigned dtypes
 #: take views and copies, not fills)
 _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
 
 
-def _check(counts: torch.Tensor, packed: torch.Tensor, vbits: torch.Tensor) -> None:
+def _check_table(counts: torch.Tensor) -> None:
     if counts.dtype not in (torch.int32, torch.uint32) or counts.shape != (SPACE_13,) \
             or not counts.is_contiguous():
         raise ValueError(f"counts must be a contiguous int32/uint32[{SPACE_13}] "
                          f"table, got {counts.dtype}{tuple(counts.shape)}")
-    check_packed(packed, vbits)
 
 
 def count13_packed_plain(counts: torch.Tensor, packed: torch.Tensor,
@@ -73,22 +78,98 @@ def count13_packed_plain(counts: torch.Tensor, packed: torch.Tensor,
     return counts
 
 
+def _windows(n_words: int) -> int:
+    """Window positions of ``n_words`` packed words (the kernel's n)."""
+    return 16 * n_words - (K13 - 1)
+
+
+def _count_buffer(counts: torch.Tensor, packed: torch.Tensor, vbits: torch.Tensor) -> None:
+    """Add every valid window of one packed buffer into ``counts``: the
+    plain version on the CPU, K1 on the card."""
+    if not _cuda.on_cuda(counts, packed, vbits):
+        count13_packed_plain(counts, packed, vbits)
+        return
+    dev = counts.device
+    if vbits.data_ptr() % 2:     # K1 reads the validity bits 16 at a time
+        vbits = vbits.clone()
+    scratch = torch.empty(max(8, scatter_scratch_bytes(_windows(packed.numel()), SPACE_13)),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL.launch(counts.data_ptr(), packed.data_ptr(), vbits.data_ptr(), packed.numel(),
+                      scratch.data_ptr(), _cuda.stream(dev))
+
+
+class PackedCounter:
+    """Counts the 13-mer windows of a build's packed chunks into one table.
+
+    ``add`` copies a chunk's words and validity bytes (0.375 bytes a base)
+    into a buffer on the table's device, after one word whose validity bits
+    are all 0, so no window crosses from one chunk into the next. The
+    buffer holds one piece: ``PIECE`` (K15's 2^27) window positions on the
+    card, ``PLAIN_PIECE`` on the CPU, read when the counter is made, and is
+    allocated at the first ``add``. ``finish`` counts the buffer into
+    ``counts`` in one K1 call (its plain version on the CPU) and empties it;
+    ``add`` also counts first when the chunk would take the buffer past the
+    piece, and counts a chunk larger than a piece by itself, without the
+    copy. The table holds the sum of the chunks' counts, wrapping modulo
+    2^32, after ``finish`` only."""
+
+    def __init__(self, counts: torch.Tensor):
+        _check_table(counts)
+        self.counts = counts
+        self.piece = PIECE if _cuda.on_cuda(counts) else PLAIN_PIECE
+        self._packed = self._vbits = None
+        self._words = 0
+
+    def add(self, packed: torch.Tensor, vbits: torch.Tensor) -> None:
+        """Take one packed chunk (``codec.pack_ascii_chunk``): int32/uint32[W]
+        words and uint8[2W] validity bits on the table's device. On the card
+        the copy is queued on the current stream: the caller may write the
+        chunk's tensors again only in that stream's order after this call
+        (or after an event recorded on it)."""
+        check_packed(packed, vbits)
+        _cuda.on_cuda(self.counts, packed, vbits)
+        n = packed.numel()
+        if not n:
+            return
+        if self._words and _windows(self._words + 1 + n) > self.piece:
+            self.finish()
+        if _windows(n) > self.piece:
+            _count_buffer(self.counts, packed, vbits)
+            return
+        if self._packed is None:
+            words = (self.piece + K13 - 1) // 16
+            self._packed = torch.empty(words, dtype=torch.int32, device=self.counts.device)
+            self._vbits = torch.empty(2 * words, dtype=torch.uint8, device=self.counts.device)
+        at = self._words + (1 if self._words else 0)
+        self._packed[self._words:at] = 0               # the separator word
+        self._vbits[2 * self._words:2 * at] = 0
+        self._packed[at:at + n] = packed.view(torch.int32)
+        self._vbits[2 * at:2 * (at + n)] = vbits
+        self._words = at + n
+
+    def finish(self) -> torch.Tensor:
+        """Count the buffered chunks into the table; returns the table."""
+        if self._words:
+            _count_buffer(self.counts, self._packed[:self._words],
+                          self._vbits[:2 * self._words])
+            self._words = 0
+        return self.counts
+
+
 def count13_packed(counts: torch.Tensor, packed: torch.Tensor,
                    vbits: torch.Tensor) -> torch.Tensor:
     """Add every valid 13-mer window of a packed chunk (uint32[W] words,
     uint8[2W] validity bits, ``codec.pack_ascii_chunk``) into ``counts``
-    (uint32 or int32 storage of uint32[4^13]); returns ``counts``.
+    (uint32 or int32 storage of uint32[4^13]); returns ``counts``: a
+    ``PackedCounter`` of one chunk, counted without the copy.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K1."""
-    _check(counts, packed, vbits)
-    cuda = _cuda.on_cuda(counts, packed, vbits)
-    if packed.numel() == 0:
-        return counts
-    if not cuda:
-        return count13_packed_plain(counts, packed, vbits)
-    with torch.cuda.device(counts.device):
-        KERNEL.launch(counts.data_ptr(), packed.data_ptr(), vbits.data_ptr(),
-                      packed.numel(), _cuda.stream(counts.device))
+    _check_table(counts)
+    check_packed(packed, vbits)
+    _cuda.on_cuda(counts, packed, vbits)
+    if packed.numel():
+        _count_buffer(counts, packed, vbits)
     return counts
 
 

@@ -19,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 from aindex_torch.constants import SPACE_13
-from aindex_torch.kernels.count import count13_packed
+from aindex_torch.kernels.count import PackedCounter
 from aindex_torch.parallel.mesh import DATA_AXIS, axis_group
 
 
@@ -27,13 +27,15 @@ def count13_local(packed: torch.Tensor, vbits: torch.Tensor,
                   counts: torch.Tensor | None = None) -> torch.Tensor:
     """Add the forward 13-mers of every row of a packed [rows, W] + [rows,
     2W] batch (``codec.pack_ascii_chunk``) into ``counts`` (a new int32
-    storage of uint32[4^13] table when None; windows never cross rows): K1
-    once a row. Returns the table."""
+    storage of uint32[4^13] table when None; windows never cross rows):
+    the rows through one ``PackedCounter``, counted at once (K1). Returns
+    the table."""
     if counts is None:
         counts = torch.zeros(SPACE_13, dtype=torch.int32, device=packed.device)
+    counter = PackedCounter(counts)
     for r in range(packed.shape[0]):
-        count13_packed(counts, packed[r], vbits[r])
-    return counts
+        counter.add(packed[r], vbits[r])
+    return counter.finish()
 
 
 def merge_counts(counts: torch.Tensor, mesh) -> torch.Tensor:

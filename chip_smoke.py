@@ -10,9 +10,10 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [parent=DIR]
 
 ``parent=DIR`` names a checkout of an earlier commit (``git archive`` of it
-unpacked into ``dist/parent``): its K6 and K10 (``quot23.cu``,
-``cuckoo64.cu``) are then built and timed beside this tree's, on the
-layout that checkout uploads, in steps 7 and 13.
+unpacked into ``dist/parent``): its K1, K2, K15, K6 and K10 (``count13.cu``,
+``total13.cu``, ``quot23.cu``, ``cuckoo64.cu``) are then built and timed
+beside this tree's (K6 and K10 on the layout that checkout uploads) in
+steps 2, 4, 7, 9 and 13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
    builds the sixteen CUDA kernels (K1-K16, twenty-six C entries) from
@@ -22,7 +23,11 @@ layout that checkout uploads, in steps 7 and 13.
    width.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
-   (all outputs are integers), and times both with CUDA events; K3 also on
+   (all outputs are integers), and times both with CUDA events: K1 alone
+   on one 2^22-byte chunk, and on chunks of 1, 15, 16 and 17 words, an
+   empty one and a skewed one (90% poly-A: bin 0 split) alone and through
+   one PackedCounter, from a table near 2^32; K2 on a random table whose
+   adds wrap; with ``parent=DIR``, the parent's K1 and K2 in turns; K3 also on
    4 x 2^24 codes all in range (the dense path's own traffic) beside
    ``torch.take``, and all three K3 entries at edge shapes (0-9 and
    2^20 + 3 codes, offsets 0-3, masks at another offset, every width,
@@ -33,7 +38,12 @@ layout that checkout uploads, in steps 7 and 13.
 4. Drives the dense path at E. coli scale, as ``aindex-tpu count -k 13``
    does (iter_sequence_bytes -> build_from_stream -> save -> stats), then
    loads the table back and makes the query and coverage calls that AIndex
-   makes for k = 13, each checked against a numpy oracle.
+   makes for k = 13, each checked against a numpy oracle. Then holds K1 at
+   the build's shape (the corpus's 28 packed chunks through one
+   PackedCounter, and with a sixth of its windows a piece, several counts
+   a build) to the plain version's sum over the same chunks, timed by CUDA
+   events and by device busy time, with ``parent=DIR`` beside the parent's
+   28 launches in turns; and K2 on the corpus table.
 5. Holds K5 (the chunk spectrum) against its plain version on a 2^22-byte
    chunk of the corpus and on a chunk with N runs and newlines, beside
    ``torch.unique``; then K5's keys mode and K13 against theirs at the
@@ -132,12 +142,11 @@ layout that checkout uploads, in steps 7 and 13.
    dense k = 13 windows, chunks of one tile of its pass +- 1 windows and
    255 destinations, and the MPHF walk under FWD_RC) and the pairs-in fill
    per destination, at one shard also against K9's fill of the same chunk.
-   Each is timed at the world-of-one path's shape; with ``parent=DIR``,
-   that checkout's K14 beside this tree's in turns.
+   Each is timed at the world-of-one path's shape.
 17. Prints K3's three entries, K11's three, the rows built on
    csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
    K10 fill), K14, K15, K6, K7's two entries, K10's query and coverage,
-   and K12 beside their earlier times, with their launches a
+   K12, K1 (a build) and K2 beside their earlier times, with their launches a
    call, from a torch.profiler trace of twenty calls in a fresh process
    (``chip_smoke.py --launches``); then
    the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
@@ -380,15 +389,18 @@ def report(card, name, shape, rec):
 #: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
 #: entries, the K10 fill), and the rows on the quotient and wide tables'
 #: two-row probes (K6, K7's two entries, K10's query and coverage); K12's,
-#: the sum of its two entries (owner, verify) before the walk; and K14's
-#: and K15's before their partition and look-back designs
+#: the sum of its two entries (owner, verify) before the walk; K14's
+#: and K15's before their partition and look-back designs; K1's, a build's
+#: 28 corpus chunks at one launch a chunk (28 x 0.2284), and K2's, before
+#: the count of a build's chunks and the tile pairs
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0574, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
               "posbucket": 0.2792, "posfill_pairs": 0.5888, "quot23": 3.4678,
               "quotcov23": 0.0516, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
-              "cuckoocov64": 0.0545, "shardwalk": 5.3189, "scatter_count": 6.9395}
+              "cuckoocov64": 0.0545, "shardwalk": 5.3189, "scatter_count": 6.9395,
+              "count13_packed": 6.3952, "total13": 2.2774}
 
 
 #: times beside the kernels line's rows, printed with the summary: K15 and
@@ -574,6 +586,25 @@ def lookup_calls(dev) -> dict:
     }
 
 
+def dense_calls(dev) -> dict:
+    """K1 alone on the coverage-1 chunk (into a table it adds to: the
+    first calls from zeros) and K2 on a random table: name -> (kernel call,
+    plain call)."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.index.dense13 import total13, total13_plain
+    from aindex_torch.kernels.count import count13_packed, count13_packed_plain
+    packed, vbits = upload(dev, *codec.pack_ascii_chunk(coverage1_chunk()))
+    mine, ref = (torch.zeros(SPACE, dtype=torch.int32, device=dev) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(71)
+    tf = torch.randint(-2 ** 31, 2 ** 31, (SPACE,), dtype=torch.int32, device=dev,
+                       generator=gen).view(torch.uint32)
+    return {"count13_packed": (lambda: (count13_packed(mine, packed, vbits).view(torch.uint32),),
+                               lambda: (count13_packed_plain(ref, packed, vbits)
+                                        .view(torch.uint32),)),
+            "total13": (lambda: (total13(tf),), lambda: (total13_plain(tf),))}
+
+
 def count_bucket_calls(dev) -> dict:
     """K15 on 2^24 random 13-mer codes (90% valid) into the 4^13 table, and
     K14 at one shard on the coverage-1 chunk's k = 23 windows over an index
@@ -603,7 +634,8 @@ LAUNCHES_FLAG = "--launches"
 #: the rows whose launches a call the fresh process counts
 LAUNCH_ROWS = ("gather13", "gather13_table", "gather13_total", "mphfwalk", "mphfcov",
                "shardwalk", "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
-               "posfill_pairs", "cuckoofill64", "mphffill", "scatter_count", "posbucket")
+               "posfill_pairs", "cuckoofill64", "mphffill", "scatter_count", "posbucket",
+               "count13_packed", "total13")
 
 
 def fresh_launches() -> dict[str, float]:
@@ -622,7 +654,8 @@ def fresh_launches_main() -> int:
     dev = torch.device("cuda", 0)
     launches = {}
     for name, (fn, plain) in {**lookup_calls(dev), **onesweep_calls(dev),
-                              **fill_calls(dev), **count_bucket_calls(dev)}.items():
+                              **fill_calls(dev), **count_bucket_calls(dev),
+                              **dense_calls(dev)}.items():
         max(max_abs_err(a, b) for a, b in zip(fn(), plain()))
         launches[name] = launches_per_call(fn)
     check(set(launches) == set(LAUNCH_ROWS), f"launch rows {sorted(launches)}")
@@ -891,29 +924,25 @@ def engine_edges_vs_plain(dev, card: str, index) -> None:
           + f"; empty-row key answer {t.empty} ({card})")
 
 
-#: the C signatures of the parent's entries that this tree changed: K15
-#: without scratch (counts, codes, valid, n, space, stream), K14 with its
-#: dest, hist and sums scratch arrays
+#: the C signatures of the parent's entries that this tree changed: K1
+#: without scratch (counts, packed, vbits, n_words, stream)
 PARENT_ARGTYPES = {
-    "scatter_count": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
-    "posbucket": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                  ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 7}
+    "count13_packed": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=2)
 def parent_engines(parent: str) -> dict:
-    """The K6, K7 and K10 query and coverage entries, K15 and K14 of the
+    """The K6, K7 and K10 query and coverage entries, K1, K15 and K2 of the
     checkout at ``parent`` (its ``quot23.cu``, ``quotcov23.cu``,
-    ``cuckoo64.cu``, ``count13.cu`` and ``posbucket.cu``, one nvcc each,
+    ``cuckoo64.cu``, ``count13.cu`` and ``total13.cu``, one nvcc each,
     all started together), by name."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent, "aindex_torch", "csrc")
     sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23",),
-               "cuckoo64": ("cuckoo64", "cuckoocov64"), "count13": ("scatter_count",),
-               "posbucket": ("posbucket",)}
+               "cuckoo64": ("cuckoo64", "cuckoocov64"),
+               "count13": ("scatter_count", "count13_packed"), "total13": ("total13",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc, f"{src}.cu")],
@@ -1012,9 +1041,59 @@ def upload(dev, packed, vbits):
 
 # -- phase 2: dense kernels against plain versions -----------------------------
 
+def k1_edges_vs_plain(dev, card: str, rng) -> None:
+    """K1 exactly against its plain version where its buffer and partition
+    could break, from a table that holds values near 2^32 (entry 0 among
+    them, so the adds wrap): chunks of 1, 15, 16 and 17 words and an empty
+    chunk, each alone and all through one PackedCounter (bins below SPARSE
+    records: their counters added with atomics); a skewed chunk (90%
+    poly-A) whose bin 0 holds more than CAP records, so bin_count splits it
+    and adds its partial slices with atomics. The corpus build
+    (count_build_vs_plain) takes the swept bins."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.kernels.count import PackedCounter, count13_packed, count13_packed_plain
+    start = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    hot = torch.from_numpy(np.concatenate([[0, 1, SPACE - 1],
+                                           rng.integers(0, SPACE, size=1 << 16)])).to(dev)
+    start[hot] = -torch.randint(1, 4, (hot.numel(),), dtype=torch.int32, device=dev)
+    sizes = (16, 240, 256, 272, 0, 1 << 20, 37)
+    chunks = []
+    for n in sizes:
+        c = random_ascii(rng, n, b"ACGTN\n", [0.245, 0.245, 0.245, 0.245, 0.01, 0.01])
+        c[:min(n, 30)] = ord("A")
+        chunks.append(upload(dev, *codec.pack_ascii_chunk(c)))
+    want = start.clone()
+    for p, v in chunks:
+        if p.numel():
+            count13_packed_plain(want, p, v)
+    got = start.clone()
+    for p, v in chunks:
+        count13_packed(got, p, v)
+    max_abs_err(got.view(torch.uint32), want.view(torch.uint32))
+    got = start.clone()
+    counter = PackedCounter(got)
+    for p, v in chunks:
+        counter.add(p, v)
+    max_abs_err(counter.finish().view(torch.uint32), want.view(torch.uint32))
+    skew = random_ascii(rng, 1 << 22, b"ACGTA\n", [0.025, 0.025, 0.025, 0.025, 0.9, 0.007])
+    sp, sv = upload(dev, *codec.pack_ascii_chunk(skew))
+    ref = want.clone()
+    count13_packed_plain(ref, sp, sv)
+    bin0 = int((ref[:1 << 15].to(torch.int64) - want[:1 << 15].to(torch.int64))
+               .remainder(1 << 32).sum())
+    check(bin0 > 1 << 18, f"the skewed chunk's bin 0 holds {bin0} records, more than CAP")
+    count13_packed(got, sp, sv)
+    max_abs_err(got.view(torch.uint32), ref.view(torch.uint32))
+    print(f"kernel count13_packed: chunks of {[-(-n // 16) for n in sizes]} words alone and "
+          f"through one counter, and a skewed chunk ({bin0} records in bin 0, split), from a "
+          f"table near 2^32: max_abs_err 0 ({card})")
+
+
 def dense_kernels_vs_plain(dev, card: str) -> dict:
     import torch
     from aindex_torch.core import codec
+    from aindex_torch.kernels import _cuda
     from aindex_torch.index.dense13 import total13, total13_plain
     from aindex_torch.kernels.count import count13_packed, count13_packed_plain
     from aindex_torch.kernels.coverage import coverage13_packed, coverage13_packed_plain
@@ -1029,7 +1108,10 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     def touched(codes, valid):
         return int(torch.unique(codes[valid]).numel())
 
-    # K1: one 2^22-byte chunk, reads of 150 bases with N, lowercase and '~'
+    # K1 alone on one 2^22-byte chunk (count13_packed: one count of its
+    # 4.19M windows, ~2,000 records a bin), reads of 150 bases with N,
+    # lowercase and '~'; the path's figure is a whole build's
+    # (count_build_vs_plain)
     chunk = random_ascii(rng, CHUNK_BYTES, b"ACGTacgtN~",
                          [0.24, 0.24, 0.24, 0.24, 0.005, 0.005, 0.005, 0.005, 0.005, 0.005])
     chunk[150::151] = ord("\n")
@@ -1038,15 +1120,29 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     plain = torch.zeros(SPACE, dtype=torch.int32, device=dev)
     count13_packed(kern, packed, vbits)
     count13_packed_plain(plain, packed, vbits)
-    err = max_abs_err(kern.view(torch.uint32), plain.view(torch.uint32))
+    max_abs_err(kern.view(torch.uint32), plain.view(torch.uint32))
     scratch = torch.zeros(SPACE, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: count13_packed(scratch, packed, vbits), 50)
     pms = cuda_ms(lambda: count13_packed_plain(scratch, packed, vbits), 5)
-    # the chunk in, and each table entry its windows touch read and written once
-    n_bytes = packed.numel() * 4 + vbits.numel() + 8 * touched(*packed_window_codes(packed, vbits, K))
-    res["count13_packed"] = record(err, ms, pms, n_bytes)
-    report(card, "count13_packed", "chunk 2^22 B", res["count13_packed"])
+    SIDE_MS["count13_packed: one 2^22-byte chunk alone (earlier 0.2284, one launch)"] = {
+        "this tree": [ms]}
+    print(f"kernel count13_packed [one 2^22-byte chunk alone]: max_abs_err 0, kernel {ms:.4f} "
+          f"ms, plain {pms:.4f} ms ({card})")
+    if PARENT is not None:
+        fn = parent_engines(PARENT)["count13_packed"]
+        mine = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+        theirs = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+
+        def parent_chunk():
+            check(fn(theirs.data_ptr(), packed.data_ptr(), vbits.data_ptr(), packed.numel(),
+                     _cuda.stream(dev)) == 0, "the parent's count13_packed")
+            return theirs.view(torch.uint32)
+        SIDE_MS["count13_packed: one 2^22-byte chunk alone, in turns"] = in_turns(
+            card, "count13_packed, one chunk alone",
+            lambda: count13_packed(mine, packed, vbits).view(torch.uint32), parent_chunk, 50)
+        del mine, theirs
     del kern, plain, scratch
+    k1_edges_vs_plain(dev, card, rng)
 
     # K2: a random full table, wrapping adds included
     tf = torch.randint(-2 ** 31, 2 ** 31, (SPACE,), dtype=torch.int32, device=dev,
@@ -1056,6 +1152,17 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     pms = cuda_ms(lambda: total13_plain(tf), 3)
     res["total13"] = record(err, ms, pms, 2 * 4 * SPACE)
     report(card, "total13", "4^13 table", res["total13"])
+    if PARENT is not None:
+        fn = parent_engines(PARENT)["total13"]
+        theirs = torch.empty(SPACE, dtype=torch.int32, device=dev)
+
+        def parent_total():
+            check(fn(tf.data_ptr(), theirs.data_ptr(), _cuda.stream(dev)) == 0,
+                  "the parent's total13")
+            return theirs.view(torch.uint32)
+        SIDE_MS["total13: random 4^13 table, in turns"] = in_turns(
+            card, "total13, random 4^13 table", lambda: total13(tf), parent_total, 20)
+        del theirs
     del tf
 
     # K3: every mode on u8/u16/u32 tables; 4 x 2^24 codes over the whole
@@ -1304,6 +1411,137 @@ def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
     gcode, gok = oracle_codes(seq[None, :])
     check(np.array_equal(cov, np.where(gok, table[gcode], 0)[0]), "sequence_coverage")
     check(index.sequence_coverage("ACGT").size == 0, "short sequence coverage")
+
+
+# -- phase 4b: K1 as the dense build runs it, K2 on the corpus table ----------
+
+def busy_ms(fn, reps: int) -> float:
+    """Device time of ``fn``: the union of its device intervals (kernels,
+    copies, fills) in a torch.profiler trace of ``reps`` calls, over
+    ``reps``. Host time between them, when the card waits, is left out."""
+    import torch
+    from torch import profiler
+    fn()
+    torch.cuda.synchronize()
+    with profiler.profile(activities=[profiler.ProfilerActivity.CPU,
+                                      profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof)[0] / reps
+
+
+def count_build_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray) -> dict:
+    """K1 at the dense build's shape: the corpus's packed chunks (the
+    2^22-byte chunks of its sequence bytes, as the build cuts them) through
+    one PackedCounter, from the first add to finish, exactly against the
+    sum of the plain version over the same chunks (itself held to the
+    oracle table), and again with a sixth of the windows a piece (several
+    counts a build); timed by CUDA events and by the device's busy time, with the
+    plain sum and, given a parent, the parent's one launch a chunk in
+    turns. Then K2 exactly on the corpus table."""
+    import torch
+    from aindex_torch.core import codec
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.index.dense13 import total13, total13_plain
+    from aindex_torch.kernels import _cuda
+    from aindex_torch.kernels import count
+    from aindex_torch.kernels.count import KERNEL, PackedCounter, count13_packed_plain
+
+    chunks = [upload(dev, *codec.pack_ascii_chunk(piece))
+              for piece, _ in blob_chunks(corpus_blob(reads), K, CHUNK_BYTES)]
+
+    def build(counts, piece=None):
+        """One counter over the chunks; a piece of ``piece`` windows in
+        place of ``count.PIECE`` if given."""
+        full = count.PIECE
+        count.PIECE = piece or full
+        try:
+            counter = PackedCounter(counts)
+        finally:
+            count.PIECE = full
+        for p, v in chunks:
+            counter.add(p, v)
+        return counter.finish()
+
+    def plain_build(counts):
+        for p, v in chunks:
+            count13_packed_plain(counts, p, v)
+        return counts
+
+    plain = plain_build(torch.zeros(SPACE, dtype=torch.int32, device=dev))
+    check(np.array_equal(plain.cpu().numpy().view(np.uint32), table),
+          "the plain count of the corpus chunks == the oracle table")
+    before = KERNEL.launches
+    err = max_abs_err(build(torch.zeros(SPACE, dtype=torch.int32, device=dev))
+                      .view(torch.uint32), plain.view(torch.uint32))
+    check(KERNEL.launches - before == 1, "the corpus chunks counted at once")
+    n_words = sum(p.numel() for p, _ in chunks)
+    piece = 16 * n_words // 6
+    before = KERNEL.launches
+    err = max(err, max_abs_err(build(torch.zeros(SPACE, dtype=torch.int32, device=dev), piece)
+                               .view(torch.uint32), plain.view(torch.uint32)))
+    n_counts = KERNEL.launches - before
+    check(n_counts > 1, f"a piece of {piece} windows counts the corpus {n_counts} times")
+    del plain
+    torch.cuda.empty_cache()
+    print(f"kernel count13_packed [the corpus's {len(chunks)} chunks, {n_words} words, through "
+          f"one counter; and a piece of {piece} windows: {n_counts} counts]: max_abs_err {err} "
+          f"({card})")
+
+    t = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    build(t)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated(dev) - base
+    ms = cuda_ms(lambda: build(t), 10)
+    busy = busy_ms(lambda: build(t), 5)
+    pms = cuda_ms(lambda: plain_build(t), 2)
+    # the chunks in, and each table entry their windows touch read and written once
+    rec = record(err, ms, pms, sum(4 * p.numel() + v.numel() for p, v in chunks)
+                 + 8 * int(np.count_nonzero(table)))
+    rec["timing"] = f"CUDA events, a build of {len(chunks)} chunks"
+    report(card, "count13_packed", f"a build: the corpus's {len(chunks)} chunks, CUDA events",
+           rec)
+    print(f"count13_packed, a build: {ms:.4f} ms by CUDA events (host enqueue of the "
+          f"{len(chunks)} adds included), {busy:.4f} ms device busy; the counter's buffer and "
+          f"scratch at their peak {held} bytes ({card})")
+    SIDE_MS["count13_packed: a build's count by CUDA events, device busy"] = {
+        "this tree": [ms, busy]}
+    if PARENT is not None:
+        fn = parent_engines(PARENT)["count13_packed"]
+        mine = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+        theirs = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+
+        def parent_build():
+            for p, v in chunks:
+                check(fn(theirs.data_ptr(), p.data_ptr(), v.data_ptr(), p.numel(),
+                         _cuda.stream(dev)) == 0, "the parent's count13_packed")
+            return theirs.view(torch.uint32)
+
+        def this_build():
+            return build(mine).view(torch.uint32)
+        SIDE_MS["count13_packed: a build's chunks, in turns (CUDA events)"] = in_turns(
+            card, f"count13_packed, the corpus's {len(chunks)} chunks", this_build,
+            parent_build, 10)
+        busy_turns = {"this tree": [], "parent": []}
+        for name in ("this tree", "parent", "parent", "this tree"):
+            busy_turns[name].append(busy_ms(this_build if name == "this tree" else parent_build,
+                                            5))
+        SIDE_MS["count13_packed: a build's chunks, in turns (device busy)"] = busy_turns
+        print("count13_packed, the corpus chunks, device busy: " + "; ".join(
+            f"{k} " + " / ".join(f"{x:.4f}" for x in v) for k, v in busy_turns.items())
+              + f" ms ({card})")
+        del mine, theirs
+    del t, chunks
+    torch.cuda.empty_cache()
+
+    tf = torch.from_numpy(table.view(np.int32)).to(dev).view(torch.uint32)
+    err = max_abs_err(total13(tf), total13_plain(tf))
+    print(f"kernel total13 [the corpus table]: max_abs_err {err} ({card})")
+    return {"count13_packed": rec}
 
 
 # -- phase 5: K5 against its plain version -------------------------------------
@@ -1872,7 +2110,8 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
     import torch
     from aindex_torch.kernels import _cuda
     from aindex_torch.kernels.count import (BIN_W, count_batch_13, count_batch_13_plain,
-                                            scatter_count, scatter_count_plain)
+                                            scatter_count, scatter_count_plain,
+                                            scatter_scratch_bytes)
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
                                              revcomp_code13, window_codes)
     from aindex_torch.kernels.lookup import (gather_tf, gather_tf_plain, gather_tf_total_13,
@@ -1950,15 +2189,19 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
     del weights
     if PARENT is not None:
         fn = parent_engines(PARENT)["scatter_count"]
+        held_scratch = torch.empty(scatter_scratch_bytes(codes.numel(), SPACE),
+                                   dtype=torch.uint8, device=dev)
 
         def parent_scatter():
-            counts = torch.zeros(SPACE, dtype=torch.int32, device=dev)   # its zeros_dev
+            counts = torch.empty(SPACE, dtype=torch.int32, device=dev)
             check(fn(counts.data_ptr(), codes.data_ptr(), valid.data_ptr(), codes.numel(), SPACE,
-                     _cuda.stream(dev)) == 0, "the parent's scatter_count")
+                     held_scratch.data_ptr(), _cuda.stream(dev)) == 0,
+                  "the parent's scatter_count")
             return counts.view(torch.uint32)
         SIDE_MS["scatter_count: corpus codes, in turns"] = in_turns(
             card, "scatter_count, corpus windows", lambda: scatter_count(codes, valid),
             parent_scatter, 5)
+        del held_scratch
     skew = torch.where(torch.rand(codes.numel(), device=dev, generator=gen) < 0.9, 0, codes)
     w255 = torch.full_like(valid, 255, dtype=torch.uint8)
     err = max_abs_err(scatter_count(skew, w255), scatter_count_plain(skew, w255))
@@ -3198,8 +3441,7 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     from aindex_torch.kernels import probe
     from aindex_torch.kernels.encode import canonical_code64
     from aindex_torch.kernels.lookup import MphfTables, shard_walk, shard_walk_plain
-    from aindex_torch.kernels import _cuda
-    from aindex_torch.kernels.positional import (_ENGINE, bucket_scratch, chunk_slots_plain,
+    from aindex_torch.kernels.positional import (bucket_scratch, chunk_slots_plain,
                                                  fill_scratch, posbucket, posbucket_plain,
                                                  posfill, posfill_pairs, posfill_pairs_plain)
     from aindex_torch.kernels.spectrum import (chunk_spectrum_packed, merge_spectra,
@@ -3380,30 +3622,11 @@ def mesh_kernels_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
     del walk, got, ref
     print("K14 on the corpus chunk at 255 destinations, and on the MPHF walk under FWD_RC "
           "and CANON at 4, == plain")
-    # timed at the path's shape: one shard, the corpus chunk (beside the
-    # parent's K14 in turns, given a parent)
+    # timed at the path's shape: one shard, the corpus chunk
     cap = bucket_cap(n_win, 1)
     scratch = bucket_scratch(dev)
     args = (*ups[0], K23, tables, probe.CANON, index.n, index.n, 1, cap)
     slots, buckets, _ = posbucket(*args, scratch)
-    if PARENT is not None:
-        fn = parent_engines(PARENT)["posbucket"]
-        p_u = probe.c_engine(tables)
-        n_hist = 256 * -(-n_win // 1024)    # its radix histogram, tiles of 1024
-        bufs = [torch.empty(n, dtype=dt, device=dev) for n, dt in (
-            (n_win, torch.int64), (cap, torch.int64), (2, torch.int32), (n_win, torch.int64),
-            (n_hist, torch.int32), (-(-n_hist // 2048), torch.int32))]
-
-        def parent_bucket():
-            check(fn(_ENGINE[tables.FILL], *p_u, probe.CANON, ups[0][0].data_ptr(),
-                     ups[0][1].data_ptr(), ups[0][0].numel(), K23, index.n, index.n, 1, cap,
-                     *(x.data_ptr() for x in bufs), _cuda.stream(dev)) == 0,
-                  "the parent's posbucket")
-            return bufs[0], bufs[1].view(1, cap), bufs[2][1]
-        SIDE_MS["posbucket: corpus chunk, 1 shard, in turns"] = in_turns(
-            card, "posbucket, corpus chunk, 1 shard", lambda: posbucket(*args, scratch),
-            parent_bucket, 20)
-        del bufs
     ms = cuda_ms(lambda: posbucket(*args, scratch), 20)
     pms = cuda_ms(lambda: posbucket_plain(*args), 3)
     dest = torch.where(slots >= 0, 0, 1)
@@ -3490,6 +3713,11 @@ def main() -> int:
         dense_counts = _cuda.launches()
         print(f"phase dense path: {time.perf_counter() - t0:.1f} s")
         counts.update({name: dense_counts[name] for name in DENSE_KERNELS})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        measured.update(count_build_vs_plain(dev, card, reads, table))
+        print(f"phase dense build count and total table vs plain: "
+              f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()

@@ -18,6 +18,7 @@ from aindex_tpu.core.reads import ReadsStore
 from aindex_tpu.index import dense13 as jd
 from aindex_tpu.io.fastq import iter_sequence_bytes as j_iter_bytes
 from aindex_torch.index import dense13 as td
+from aindex_torch.kernels import count as tcount
 from aindex_torch.io.fastq import iter_sequence_bytes as t_iter_bytes
 
 import oracle
@@ -75,6 +76,15 @@ class TestBuild:
         np.testing.assert_array_equal(t.tf_host, j.tf_host)
         assert t.stats() == j.stats()
 
+    @pytest.mark.parametrize("piece", [1 << 9, 1 << 12])
+    def test_build_counts_several_pieces(self, random_reads, built, monkeypatch, piece):
+        """A piece smaller than the build makes its counter count several
+        times (short chunks batched, the last one short): the same table."""
+        monkeypatch.setattr(tcount, "PLAIN_PIECE", piece)
+        blob = ReadsStore.from_sequences(random_reads).blob
+        t = td.Dense13Index.build_from_blob(blob, chunk=256, device="cpu")
+        np.testing.assert_array_equal(t.tf_host, built[1].tf_host)
+
     def test_progress_callback(self, random_reads):
         blob = ReadsStore.from_sequences(random_reads).blob
         seen_t, seen_j = [], []
@@ -98,6 +108,50 @@ class TestTables:
         rng = np.random.default_rng(4)
         tf = rng.integers(0, 2 ** 32, size=SPACE_13, dtype=np.uint64).astype(np.uint32)
         want = np.asarray(jd._build_total_table(jnp.asarray(tf)))
+        np.testing.assert_array_equal(td.total13(torch.from_numpy(tf)).numpy(), want)
+
+    @pytest.mark.parametrize("seed", [4, 5])
+    def test_total13_tile_pairs_model(self, seed):
+        """A numpy model of K2's schedule (csrc/total13.cu): each leading
+        tile T(Hl, M < 2, Lh) of 64 rows Hh by 64 columns Ll and its partner
+        T(rc3(Lh), 3 - M, rc3(Hl)), each row r stored at row rc3(r) of its
+        shared tile, out_X[r][c] = sX[rc3(r)][c] + sY[c][rc3(r)] written to
+        both, gives aindex_tpu's _build_total_table on a random table whose
+        adds wrap; the partner of a partner is the tile itself, and the pairs
+        cover every code once."""
+        tf = np.random.default_rng(seed).integers(0, 2 ** 32, size=SPACE_13,
+                                                  dtype=np.uint64).astype(np.uint32)
+
+        def rc3(x):
+            return (((x & 3) << 4) | (x & 12) | (x >> 4)) ^ 63
+
+        idx = np.arange(64)
+        assert np.array_equal(rc3(rc3(idx)), idx)
+        rows, cols = idx[:, None], idx[None, :]
+        out = np.zeros(SPACE_13, dtype=np.uint32)
+        written = np.zeros(SPACE_13, dtype=np.int8)
+        lh = idx[:, None, None]
+        for hl in range(64):
+            for m in (0, 1):
+                lead = (hl, m, lh)
+                partner = (rc3(lh), 3 - m, rc3(hl))
+                back = (rc3(partner[2]), 3 - partner[1], rc3(partner[0]))
+                assert back[0] == hl and back[1] == m and np.array_equal(back[2], lh)
+                assert partner[1] > 1        # a partner never leads
+                tiles = [(rows << 20) | (a << 14) | (b << 12) | (c << 6) | cols
+                         for a, b, c in (lead, partner)]      # [Lh, row, column] codes
+                shared = []
+                for codes in tiles:
+                    s = np.empty_like(tf[codes])
+                    s[:, rc3(idx), :] = tf[codes]
+                    shared.append(s)
+                r = rc3(idx)[:, None]
+                for x, codes in enumerate(tiles):
+                    out[codes] = shared[x][:, r, cols] + shared[1 - x][:, cols, r]
+                    np.add.at(written, codes.reshape(-1), 1)
+        assert (written == 1).all()
+        want = np.asarray(jd._build_total_table(jnp.asarray(tf)))
+        np.testing.assert_array_equal(out, want)
         np.testing.assert_array_equal(td.total13(torch.from_numpy(tf)).numpy(), want)
 
     @pytest.mark.parametrize("top", [0, 255, 256, 65535, 65536, 2 ** 31, 2 ** 32 - 1])

@@ -8,7 +8,9 @@
 //                      (encode.py:46,63,98); dna13::packed_window for k <= 31
 //   ascii_window64  <- ascii_to_base_codes + window_codes, uint64 out
 //                      (encode.py:25,63), one window of ASCII bytes
-// The plain PyTorch versions live in aindex_torch/kernels/encode.py.
+// The plain PyTorch versions live in aindex_torch/kernels/encode.py. The
+// tiled coverage front end below (tile_run, Window, store_run) serves the
+// engines' packed coverage entries (probe.cuh coverage_kernel).
 //
 // All codes are uint64_t: shifts are logical and multiplies wrap modulo
 // 2^64, as JAX's uint64 arithmetic does.
@@ -18,17 +20,18 @@
 
 namespace dna23 {
 
+// The 32 2-bit fields of x in mirrored order (field j to field 31 - j): the
+// bits reversed, then the two bits of each field swapped back.
+__device__ __forceinline__ uint64_t mirror64(uint64_t x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+}
+
 // Reverse complement of a k-mer code held in 64 bits: complement every
 // 2-bit field, mirror the 32 fields, shift down to the low 2k bits. Only the
 // low 2k bits of x reach the result.
 __device__ __forceinline__ uint64_t revcomp64(uint64_t x, int k) {
-  x = ~x;
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) | ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  return x >> (64 - 2 * k);
+  return mirror64(~x) >> (64 - 2 * k);
 }
 
 __device__ __forceinline__ uint64_t canonical64(uint64_t x, int k) {
@@ -93,6 +96,224 @@ __device__ __forceinline__ bool ascii_window64(const unsigned char* __restrict__
   }
   *code = c;
   return ok;
+}
+
+// -- the tiled coverage front end ---------------------------------------
+//
+// A packed coverage launch (probe.cuh coverage_kernel: K7, K10's and K11's
+// coverage entries) writes out[rows, stride - k]: the window at base
+// r * stride + c for each column c < stride - k of row r. Each warp takes a
+// tile of 32 * RUN consecutive outputs of the flat index, RUN to a thread
+// (a block its warps' tiles in turn): it finds the tile's first and last
+// (row, column) (row_col: a multiply by the host's reciprocal of the row
+// width, no division), stages the packed words and validity bits the tile
+// spans in its own slice of shared memory with 16-byte loads (zeros past
+// n_words) and no block barrier, and each thread rolls its run of windows
+// along the stage: the first window built whole (a 64-bit cut of three
+// words, its 2-bit fields mirrored for the forward code and complemented
+// for the reverse complement), each next one by one base shifted in, or
+// k + 1 bases on where the run crosses into the next row, whose k skipped
+// positions it rolls through and writes nothing for. A window is valid
+// when its last k bases are (a count of the valid bases since the last
+// invalid one). The kernel then issues its run's probes together and
+// stores the run (store_run).
+
+// Outputs a block takes.
+template <int RUN>
+constexpr long long tile_outputs() {
+  return static_cast<long long>(dna13::BLOCK) * RUN;
+}
+
+// 32-bit words of packed bases a warp's stage takes for rows of `stride`
+// bases and k-mers (1 <= k < stride): from an 8-word aligned start (up to
+// 127 bases before the tile's first window) to 4 words past the last
+// window's last base, rounded to 8. A tile's outputs cross at most
+// (32 RUN - 1) / width + 1 row ends, each skipping k bases.
+template <int RUN>
+inline long long stage_words(long long stride, int k) {
+  const long long width = stride - k;
+  const long long span = 32 * RUN + static_cast<long long>(k) * ((32 * RUN - 1) / width + 2);
+  return ((span + 127 + 15) / 16 + 4 + 7) / 8 * 8;
+}
+
+// Shared-memory bytes of a block: each warp's words and half as many
+// words of validity bits.
+inline size_t stage_bytes(long long words) {
+  return static_cast<size_t>(words) * 6 * (dna13::BLOCK / 32);
+}
+
+// The reciprocal row_col divides by: floor((2^64 - 1) / width).
+inline unsigned long long reciprocal(long long width) {
+  return ~0ull / static_cast<unsigned long long>(width);
+}
+
+// One thread's run: outputs [first, first + count) of the flat index, and
+// their windows' forward codes, reverse-complement codes and validity.
+template <int RUN>
+struct Run {
+  long long first;
+  int count;
+  uint64_t fwd[RUN];
+  uint64_t rc[RUN];
+  bool ok[RUN];
+};
+
+// A k-mer window rolled along the stage: words holds 16 bases a word,
+// valid a validity bit a base, from the stage's first base.
+struct Window {
+  uint64_t fwd, rc;
+  int run;  // valid bases since the last invalid one, up to the window's last base
+
+  // The window of the k bases from stage base q, built whole.
+  __device__ __forceinline__ Window(const unsigned* words, const unsigned* valid, int q, int k) {
+    const int w = q >> 4, s = 2 * (q & 15);
+    const uint64_t lo = words[w] | (static_cast<uint64_t>(words[w + 1]) << 32);
+    const uint64_t bases = s ? (lo >> s) | (static_cast<uint64_t>(words[w + 2]) << (64 - s)) : lo;
+    fwd = mirror64(bases) >> (64 - 2 * k);
+    rc = ~bases & ((1ull << (2 * k)) - 1ull);
+    const int v = q >> 5;
+    const uint64_t bits =
+        (valid[v] | (static_cast<uint64_t>(valid[v + 1]) << 32)) >> (q & 31);
+    const uint64_t bad = ~bits & ((1ull << k) - 1ull);
+    run = bad ? k - 1 - (63 - __clzll(bad)) : k;
+  }
+
+  // One base on: stage base p becomes the window's last.
+  __device__ __forceinline__ void roll(const unsigned* words, const unsigned* valid, int p, int k) {
+    const uint64_t b = (words[p >> 4] >> (2 * (p & 15))) & 3u;
+    fwd = ((fwd << 2) | b) & ((1ull << (2 * k)) - 1ull);
+    rc = (rc >> 2) | ((b ^ 3ull) << (2 * k - 2));
+    run = ((valid[p >> 5] >> (p & 31)) & 1u) ? run + 1 : 0;
+  }
+};
+
+// (row, column) of output i < 2^63 of the flat [rows, width] index:
+// mulhi(i, recip) with recip = reciprocal(width) is i / width or one less,
+// so one correction makes it exact.
+__device__ __forceinline__ void row_col(long long i, long long width, unsigned long long recip,
+                                        long long* r, long long* c) {
+  long long q = static_cast<long long>(__umul64hi(static_cast<unsigned long long>(i), recip));
+  long long m = i - q * width;
+  if (m >= width) {
+    ++q;
+    m -= width;
+  }
+  *r = q;
+  *c = m;
+}
+
+// Stages the warp's tile in its slice of `stage` (n_stage =
+// stage_words<RUN>(stride, k) words of packed bases, then n_stage / 2
+// words of validity bits, a slice a warp) and fills this thread's run.
+// Every lane of the warp calls it (one warp barrier).
+template <int RUN>
+__device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage,
+                                         const unsigned* __restrict__ packed,
+                                         const unsigned char* __restrict__ vbits,
+                                         long long n_words, long long rows, long long stride,
+                                         int k, unsigned long long recip, Run<RUN>* out) {
+  const long long width = stride - k;
+  const long long n = rows * width;
+  const int lane = threadIdx.x & 31;
+  const long long t0 =
+      (static_cast<long long>(blockIdx.x) * dna13::BLOCK + (threadIdx.x & ~31)) * RUN;
+  out->count = 0;
+  if (t0 >= n) return;
+  unsigned* words_s = stage + (threadIdx.x >> 5) * (n_stage + n_stage / 2);
+  unsigned* valid = words_s + n_stage;
+  // the tile's first and last outputs' (row, column), its first staged
+  // word (8-word aligned) and its words
+  long long r0, c0, r1, c1;
+  row_col(t0, width, recip, &r0, &c0);
+  row_col((t0 + 32 * RUN < n ? t0 + 32 * RUN : n) - 1, width, recip, &r1, &c1);
+  const long long w0 = ((r0 * stride + c0) >> 4) & ~7LL;
+  const long long end = r1 * stride + c1 + k - 16 * w0;
+  const int words = static_cast<int>(((end + 15) / 16 + 4 + 7) / 8 * 8);
+  const bool whole_p = (reinterpret_cast<uintptr_t>(packed) & 15) == 0;
+  for (int j = lane; j < words / 4; j += 32) {
+    const long long w = w0 + 4 * j;
+    uint4 v;
+    if (whole_p && w + 4 <= n_words) {
+      v = *reinterpret_cast<const uint4*>(packed + w);
+    } else {
+      v.x = w < n_words ? packed[w] : 0u;
+      v.y = w + 1 < n_words ? packed[w + 1] : 0u;
+      v.z = w + 2 < n_words ? packed[w + 2] : 0u;
+      v.w = w + 3 < n_words ? packed[w + 3] : 0u;
+    }
+    reinterpret_cast<uint4*>(words_s)[j] = v;
+  }
+  const long long n_bytes = 2 * n_words;
+  const bool whole_v = (reinterpret_cast<uintptr_t>(vbits) & 15) == 0;
+  for (int j = lane; j < words / 8; j += 32) {
+    const long long b = 2 * w0 + 16 * j;
+    uint4 v;
+    if (whole_v && b + 16 <= n_bytes) {
+      v = *reinterpret_cast<const uint4*>(vbits + b);
+    } else {
+      uint64_t lo = 0, hi = 0;
+      for (int i = 0; i < 16 && b + i < n_bytes; ++i) {
+        const uint64_t byte = vbits[b + i];
+        if (i < 8)
+          lo |= byte << (8 * i);
+        else
+          hi |= byte << (8 * (i - 8));
+      }
+      v = make_uint4(static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
+                     static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32));
+    }
+    reinterpret_cast<uint4*>(valid)[j] = v;
+  }
+  __syncwarp();
+
+  out->first = t0 + static_cast<long long>(lane) * RUN;
+  const long long left = n - out->first;
+  out->count = left <= 0 ? 0 : (left < RUN ? static_cast<int>(left) : RUN);
+  if (!out->count) return;
+  long long r = r0, c = c0 + static_cast<long long>(lane) * RUN;
+  if (c >= width) {  // c < width + 32 RUN: one row on, or a 32-bit division
+    if (width > 32 * RUN) {
+      r += 1;
+      c -= width;
+    } else {
+      const unsigned d = static_cast<unsigned>(c) / static_cast<unsigned>(width);
+      r += d;
+      c -= static_cast<long long>(d) * width;
+    }
+  }
+  int q = static_cast<int>(r * stride + c - 16 * w0);
+  Window win(words_s, valid, q, k);
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    if (j > 0 && j < out->count) {
+      int steps = 1;
+      if (++c == width) {
+        c = 0;
+        steps = k + 1;
+      }
+      for (int s = 0; s < steps; ++s, ++q) win.roll(words_s, valid, q + k, k);
+    }
+    out->fwd[j] = win.fwd;
+    out->rc[j] = win.rc;
+    out->ok[j] = j < out->count && win.run >= k;
+  }
+}
+
+// Stores a run's values: 8-byte stores when it is whole and RUN even
+// (first is a multiple of RUN), else one 4-byte store an output; streamed
+// past L2.
+template <int RUN>
+__device__ __forceinline__ void store_run(unsigned* __restrict__ out, long long first, int count,
+                                          const unsigned (&v)[RUN]) {
+  if (RUN % 2 == 0 && count == RUN && (reinterpret_cast<uintptr_t>(out) & 7) == 0) {
+    uint2* o = reinterpret_cast<uint2*>(out + first);
+#pragma unroll
+    for (int j = 0; j < RUN / 2; ++j) __stcs(o + j, make_uint2(v[2 * j], v[2 * j + 1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j)
+      if (j < count) __stcs(out + first + j, v[j]);
+  }
 }
 
 }  // namespace dna23

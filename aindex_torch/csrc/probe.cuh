@@ -42,10 +42,13 @@
 // bucket overflowed (about 1% at E. coli scale), present or absent; the
 // walk reads three g-words (a g-vector of a few MB, which L2 holds) and
 // then one 16-byte node record. The tables of the E. coli-scale index
-// (200-520 MB) are far beyond the 50 MB L2. Design: one thread per query
-// or window; invalid inputs read nothing; the record carries the slot; the
-// 64-bit arithmetic (revcomp, mix64 and the walk's 64-bit remainders)
-// hides under the memory latency.
+// (200-520 MB) are far beyond the 50 MB L2. Design: one thread per query;
+// a run of E::RUN windows a thread for the packed coverage, rolled along
+// a tile staged in shared memory (dna23::tile_run), with its probes issued
+// together (each engine's issue() and finish()); invalid inputs
+// read nothing; the record carries the slot; the 64-bit arithmetic
+// (revcomp, mix64 and the walk's 64-bit remainders) hides under the
+// memory latency.
 #pragma once
 
 #include "dna23.cuh"
@@ -87,6 +90,11 @@ constexpr uint64_t LEVEL_SALT = 0x2545F4914F6CDD1Dull;
 constexpr uint64_t EMPTY_KEY = 0xFFFFFFFF00000000ull;
 
 struct Buckets {
+  // windows a thread of the packed coverage kernel takes, their buckets in
+  // flight together (PERF.md section 6, PR 15: 1, 2, 4 and 8 measured; 2
+  // within 2% of 1, 4 and 8 slower)
+  static constexpr int RUN = 2;
+
   const uint4* records;
   uint64_t mask;
   uint64_t seed;
@@ -112,9 +120,47 @@ struct Buckets {
     return 0;
   }
 
-  // ref: the record's slot. One aligned 64-byte bucket a level, the next
-  // level only when the bucket is marked.
-  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf, long long* ref) const {
+  // A probe in two steps, so that a thread can have several in flight:
+  // issue() loads the key's level-0 bucket (nothing for a masked key at or
+  // above 2^62), finish() answers from it, and reads the next levels only
+  // when the bucket is marked. ref: the record's slot.
+  struct Pending {
+    uint4 r[BUCKET];
+  };
+
+  __device__ __forceinline__ void issue(uint64_t key, Pending* p) const {
+    key &= mask;
+    if (key >> 62) return;
+    const uint4* b =
+        records + (first[0] + static_cast<long long>((mix64(key ^ seed) >> 1) >> shift[0])) * BUCKET;
+#pragma unroll
+    for (int j = 0; j < BUCKET; ++j) p->r[j] = b[j];
+  }
+
+  // Whether a bucket's records hold the key, and its tf and slot: selects
+  // over the four records (a bucket's keys are distinct), so the bucket
+  // stays in registers; a loop that returned at the first match made the
+  // compiler read the match back by index from a copy in local memory.
+  __device__ static __forceinline__ bool match(const uint4 (&r)[BUCKET], unsigned lo, unsigned hi,
+                                               unsigned* tf, long long* ref) {
+    bool hit = false;
+    unsigned t = 0u, s = 0u;
+#pragma unroll
+    for (int j = BUCKET - 1; j >= 0; --j) {
+      const bool m = r[j].x == lo && (r[j].y & ~MARK) == hi;
+      t = m ? r[j].z : t;
+      s = m ? r[j].w : s;
+      hit |= m;
+    }
+    if (hit) {
+      *tf = t;
+      *ref = static_cast<int>(s);
+    }
+    return hit;
+  }
+
+  __device__ __forceinline__ bool finish(uint64_t key, const Pending& p, unsigned* tf,
+                                         long long* ref) const {
     key &= mask;
     if (key >> 62) {
       if (key != EMPTY_KEY || !empty_hit) return false;
@@ -124,26 +170,29 @@ struct Buckets {
     }
     const unsigned lo = static_cast<unsigned>(key);
     const unsigned hi = static_cast<unsigned>(key >> 32);
+    if (match(p.r, lo, hi, tf, ref)) return true;
+    if (!(p.r[0].y & MARK)) return false;
     uint64_t h = mix64(key ^ seed);
 #pragma unroll
-    for (int l = 0; l < MAX_LEVELS; ++l) {
+    for (int l = 1; l < MAX_LEVELS; ++l) {  // unrolled: first[] and shift[] stay in registers
       if (l == levels) break;
+      h = mix64(h ^ LEVEL_SALT);
       const uint4* b = records + (first[l] + static_cast<long long>((h >> 1) >> shift[l])) * BUCKET;
       uint4 r[BUCKET];
 #pragma unroll
       for (int j = 0; j < BUCKET; ++j) r[j] = b[j];
-#pragma unroll
-      for (int j = 0; j < BUCKET; ++j) {
-        if (r[j].x == lo && (r[j].y & ~MARK) == hi) {
-          *tf = r[j].z;
-          *ref = static_cast<int>(r[j].w);
-          return true;
-        }
-      }
+      if (match(r, lo, hi, tf, ref)) return true;
       if (!(r[0].y & MARK)) return false;
-      h = mix64(h ^ LEVEL_SALT);
     }
     return false;
+  }
+
+  // One aligned 64-byte bucket a level, the next level only when the
+  // bucket is marked.
+  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf, long long* ref) const {
+    Pending p;
+    issue(key, &p);
+    return finish(key, p, tf, ref);
   }
 
   __device__ __forceinline__ long long slot(long long ref) const { return ref; }
@@ -156,6 +205,11 @@ struct Buckets {
 // the node -> slot table JAX walks reads 0 there). Node ids stay 64-bit.
 // p = {g_packed, records}; u = {n, domain, seed}.
 struct Mphf {
+  // windows a thread of the packed coverage kernel takes: one, since each
+  // window's three 64-bit remainders, not its one record read, bound the
+  // walk (PERF.md section 6, PR 15: 2, 4 and 8 a thread measured slower)
+  static constexpr int RUN = 1;
+
   const unsigned* g;
   const uint4* records;
   uint64_t n;
@@ -190,15 +244,30 @@ struct Mphf {
     return r.x == static_cast<unsigned>(key) && r.y == static_cast<unsigned>(key >> 32);
   }
 
+  // The probe in two steps, as Buckets': issue() walks to the owner node
+  // and loads its record (nothing when n = 0), finish() answers from it.
   // ref: the slot. One random 16-byte read a key, after the g-words it
   // depends on.
-  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
-    if (n == 0) return false;
-    const uint4 r = records[owner(key)];
-    if (!holds(r, key)) return false;
-    *tf_out = r.z;
-    *ref = static_cast<int>(r.w);
+  struct Pending {
+    uint4 r;
+  };
+
+  __device__ __forceinline__ void issue(uint64_t key, Pending* p) const {
+    if (n != 0) p->r = records[owner(key)];
+  }
+
+  __device__ __forceinline__ bool finish(uint64_t key, const Pending& p, unsigned* tf_out,
+                                         long long* ref) const {
+    if (n == 0 || !holds(p.r, key)) return false;
+    *tf_out = p.r.z;
+    *ref = static_cast<int>(p.r.w);
     return true;
+  }
+
+  __device__ __forceinline__ bool find(uint64_t key, unsigned* tf_out, long long* ref) const {
+    Pending p;
+    issue(key, &p);
+    return finish(key, p, tf_out, ref);
   }
 
   __device__ __forceinline__ long long slot(long long ref) const { return ref; }
@@ -323,37 +392,59 @@ int query(const void* const* p, const unsigned long long* u, const void* codes,
   return query_rule<E, false, false>(e, codes, valid, ascii, k, n, rule, tf, slot, strand, s);
 }
 
-// Per-position coverage of many rows of packed ingest at once: one thread
-// per (row, window) unpacks the window (dna23::packed_window64), applies
-// the rule's probes and the cutoff. Row r holds its sequence from base
-// r * stride, padded with invalid bases to stride, so the stride - k
-// windows written per row never cross into the next row.
+// Per-position coverage of many rows of packed ingest at once, a warp a
+// tile of 32 * E::RUN outputs (dna23::tile_run: the tile's packed words
+// staged in shared memory, a run of E::RUN windows rolled a thread). Row r
+// holds its sequence from base r * stride, padded with invalid bases to
+// stride; its stride - k windows are written. Each thread issues its
+// valid windows' probes under the rule together (FWD_RC: the forward
+// codes, then the reverse complements of the misses, again together),
+// then applies the cutoff and stores its run.
 template <class E, int RULE>
-__global__ void coverage_kernel(E e, const unsigned* __restrict__ packed,
-                                const unsigned char* __restrict__ vbits, long long n_words,
-                                long long rows, long long stride, int k, unsigned cutoff,
-                                unsigned* __restrict__ out) {
-  const long long width = stride - k;
-  const long long n = rows * width;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const long long r = i / width;
-    const long long pos = r * stride + (i - r * width);
-    uint64_t code;
-    unsigned tf = 0u;
-    if (dna23::packed_window64(packed, vbits, n_words, pos, k, &code)) {
-      long long ref;
-      int strand;
-      if (!resolve<E, RULE>(e, code, k, &tf, &ref, &strand)) tf = 0u;
-    }
-    out[i] = tf >= cutoff ? tf : 0u;
+__global__ void __launch_bounds__(dna13::BLOCK)
+    coverage_kernel(E e, const unsigned* __restrict__ packed,
+                    const unsigned char* __restrict__ vbits, long long n_words, long long rows,
+                    long long stride, int k, long long n_stage, unsigned long long recip,
+                    unsigned cutoff, unsigned* __restrict__ out) {
+  constexpr int RUN = E::RUN;
+  extern __shared__ uint4 stage[];
+  dna23::Run<RUN> w;
+  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, packed, vbits, n_words, rows,
+                  stride, k, recip, &w);
+  if (!w.count) return;
+  uint64_t key[RUN];
+  typename E::Pending pend[RUN];
+  unsigned tf[RUN];
+  bool hit[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    key[j] = RULE == CANON && w.rc[j] < w.fwd[j] ? w.rc[j] : w.fwd[j];
+    if (w.ok[j]) e.issue(key[j], &pend[j]);
   }
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) {
+    long long ref;
+    tf[j] = 0u;
+    hit[j] = w.ok[j] && e.finish(key[j], pend[j], &tf[j], &ref);
+  }
+  if (RULE == FWD_RC) {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j)
+      if (w.ok[j] && !hit[j]) e.issue(w.rc[j], &pend[j]);
+#pragma unroll
+    for (int j = 0; j < RUN; ++j) {
+      long long ref;
+      if (w.ok[j] && !hit[j]) hit[j] = e.finish(w.rc[j], pend[j], &tf[j], &ref);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) tf[j] = hit[j] && tf[j] >= cutoff ? tf[j] : 0u;
+  dna23::store_run(out, w.first, w.count, tf);
 }
 
 // The coverage entry of an engine: packed uint32[n_words] and vbits
-// uint8[2 * n_words] hold rows * stride bases; rule CANON or FWD_RC; out
-// uint32[rows, stride - k].
+// uint8[2 * n_words] hold rows * stride bases (below 2^52); rule CANON or
+// FWD_RC; out uint32[rows, stride - k].
 template <class E>
 int coverage(const void* const* p, const unsigned long long* u, const void* packed,
              const void* vbits, long long n_words, long long rows, long long stride, int k,
@@ -362,17 +453,23 @@ int coverage(const void* const* p, const unsigned long long* u, const void* pack
   E e;
   if (k < 1 || k > 31 || (rule != CANON && rule != FWD_RC) || E::make(p, u, &e) != 0)
     return BAD;
-  const long long n = rows * (stride - k);
+  constexpr long long TILE = dna23::tile_outputs<E::RUN>();
+  const long long tiles = (rows * (stride - k) + TILE - 1) / TILE;
+  if (tiles > 0x7FFFFFFFLL || rows * stride >= (1LL << 52)) return BAD;
+  const long long n_stage = dna23::stage_words<E::RUN>(stride, k);
+  const size_t smem = dna23::stage_bytes(n_stage);
+  const unsigned long long recip = dna23::reciprocal(stride - k);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* pk = static_cast<const unsigned*>(packed);
   const auto* vb = static_cast<const unsigned char*>(vbits);
   auto* o = static_cast<unsigned*>(out);
+  const unsigned grid = static_cast<unsigned>(tiles);
   if (rule == CANON)
-    coverage_kernel<E, CANON><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(
-        e, pk, vb, n_words, rows, stride, k, cutoff, o);
+    coverage_kernel<E, CANON><<<grid, dna13::BLOCK, smem, s>>>(e, pk, vb, n_words, rows, stride,
+                                                                 k, n_stage, recip, cutoff, o);
   else
-    coverage_kernel<E, FWD_RC><<<dna13::grid_for(n), dna13::BLOCK, 0, s>>>(
-        e, pk, vb, n_words, rows, stride, k, cutoff, o);
+    coverage_kernel<E, FWD_RC><<<grid, dna13::BLOCK, smem, s>>>(e, pk, vb, n_words, rows, stride,
+                                                                  k, n_stage, recip, cutoff, o);
   return static_cast<int>(cudaGetLastError());
 }
 

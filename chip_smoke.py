@@ -10,10 +10,12 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [parent=DIR]
 
 ``parent=DIR`` names a checkout of an earlier commit (``git archive`` of it
-unpacked into ``dist/parent``): its K1, K2, K15, K6 and K10 (``count13.cu``,
-``total13.cu``, ``quot23.cu``, ``cuckoo64.cu``) are then built and timed
-beside this tree's (K6 and K10 on the layout that checkout uploads) in
-steps 2, 4, 7, 9 and 13.
+unpacked into ``dist/parent``): its K1, K2, K4, K15, K6, K7, K10 and K11's
+coverage (``count13.cu``, ``total13.cu``, ``coverage13.cu``, ``quot23.cu``,
+``quotcov23.cu``, ``cuckoo64.cu``, ``mphfwalk.cu``) are then built and
+timed beside this tree's (K6 and K10 on the layout that checkout uploads;
+each coverage entry through this tree's wrapper) in steps 2, 4, 7, 9 and
+13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
    builds the sixteen CUDA kernels (K1-K16, twenty-six C entries) from
@@ -31,7 +33,14 @@ steps 2, 4, 7, 9 and 13.
    4 x 2^24 codes all in range (the dense path's own traffic) beside
    ``torch.take``, and all three K3 entries at edge shapes (0-9 and
    2^20 + 3 codes, offsets 0-3, masks at another offset, every width,
-   tables of 1 entry to 4^13).
+   tables of 1 entry to 4^13); K4 at u8, u16 and u32 on 10,000 x 151
+   random rows timed four ways (``clocks``: warm and cold CUDA events,
+   the cold ones over 8 distinct batches, torch.profiler device time a
+   launch, the host clock a call) beside the parent's and its random-read
+   floor, and exactly at the edge shapes of the tiled coverage kernels
+   (``coverage_edges``: a 2^20-base row, one window a row, windows ending
+   mid-tile, rows wider than a tile, all N, packed filled to its last
+   word, unaligned buffers) at cutoffs 0, 10 and 2^32 - 1.
 3. Generates the corpus once: scripts/make_scale_corpus.py's (seed 1, 25x:
    773,608 reads of 150 bp over a 4.64 Mbp genome, 0.3% substitutions), as
    a FASTA file and a read matrix that the numpy oracles read.
@@ -43,7 +52,9 @@ steps 2, 4, 7, 9 and 13.
    PackedCounter, and with a sixth of its windows a piece, several counts
    a build) to the plain version's sum over the same chunks, timed by CUDA
    events and by device busy time, with ``parent=DIR`` beside the parent's
-   28 launches in turns; and K2 on the corpus table.
+   28 launches in turns; and K2 on the corpus table. Splits one dense
+   coverage call of 10,000 corpus reads into its host and device stages
+   (``coverage_stages``), with this tree's and the parent's K4.
 5. Holds K5 (the chunk spectrum) against its plain version on a 2^22-byte
    chunk of the corpus and on a chunk with N runs and newlines, beside
    ``torch.unique``; then K5's keys mode and K13 against theirs at the
@@ -67,7 +78,11 @@ steps 2, 4, 7, 9 and 13.
    keys in a present key's bucket, codes above 2k bits, 0xFFFFFFFF_00000000,
    0, 2^62 - 1, 2^64 - 1) to its plain version and to the host table's own
    probe under every rule; with ``parent=DIR``, that checkout's K6 on its
-   own layout, equal answers, each timed twice in turns.
+   own layout, equal answers, each timed twice in turns; K7 timed four
+   ways (``clocks``, 8 batches of 10,000 corpus reads) beside the
+   parent's, held exactly at the edge shapes under both rules (with the
+   probes that read a second bucket level counted), and one quotient
+   coverage call split into its stages.
 8. Drives the unpacked (ASCII-in and codes-in) functions on the corpus at
    full size: ``count_batch_13`` (and ``dense13._count_step``) over the read
    matrix in 28 row batches of ~2^22 bytes, equal to the oracle table;
@@ -116,7 +131,8 @@ steps 2, 4, 7, 9 and 13.
    no K6, K7 or K9 launch.
 13. Holds the configuration's engine kernels (K11 after k = 31, K10 after
    k = 29: query, coverage and fill) against their plain versions at the
-   path's shapes, and the fill at step 10's edge shapes; K11's query also
+   path's shapes, and the fill at step 10's edge shapes; the coverage
+   entry also as step 7 holds and times K7; K11's query also
    on keys whose walk ends at an unassigned node, the key in slot 0, 0 and
    2^62 - 1, under the KEYS and CANON rules; K10 as step 7 holds K6 (the
    mix, the device bytes, the edge keys, the parent's K10).
@@ -157,6 +173,7 @@ Exits nonzero, with no result line, when CUDA is not available or any
 check fails. Imports nothing of JAX or aindex_tpu.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -167,6 +184,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -388,18 +406,21 @@ def report(card, name, shape, rec):
 #: K10: K3's and K11's three entries, the rows on the onesweep sort and the
 #: positional build's fill and scan (K5, its ASCII entry, K13, K8, K9's two
 #: entries, the K10 fill), and the rows on the quotient and wide tables'
-#: two-row probes (K6, K7's two entries, K10's query and coverage); K12's,
+#: two-row probes (K6, K7's ASCII-rows entry, K10's query); K12's,
 #: the sum of its two entries (owner, verify) before the walk; K14's
 #: and K15's before their partition and look-back designs; K1's, a build's
 #: 28 corpus chunks at one launch a chunk (28 x 0.2284), and K2's, before
-#: the count of a build's chunks and the tile pairs
+#: the count of a build's chunks and the tile pairs; the four packed
+#: coverage entries' (K4, K7, K10's and K11's) from PR 14's final call
+#: (K11's from PR 11's), before the bucket match kept in registers and the
+#: tiled front end
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
-              "mphfwalk": 2.5804, "mphfcov": 0.0574, "mphffill": 0.5682,
+              "mphfwalk": 2.5804, "mphfcov": 0.0531, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
               "posbucket": 0.2792, "posfill_pairs": 0.5888, "quot23": 3.4678,
-              "quotcov23": 0.0516, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
-              "cuckoocov64": 0.0545, "shardwalk": 5.3189, "scatter_count": 6.9395,
+              "quotcov23": 0.0751, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
+              "cuckoocov64": 0.0724, "coverage13_packed": 0.0310, "shardwalk": 5.3189, "scatter_count": 6.9395,
               "count13_packed": 6.3952, "total13": 2.2774}
 
 
@@ -721,6 +742,7 @@ def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -
             times[w].append(cuda_ms(call(w), 20))
     torch.cuda.synchronize()
     res = {w: sum(t) / 2 for w, t in times.items()}
+    READ_RATE.update({w: n_reads / ms * 1e3 for w, ms in res.items()})
     for w in WIDTHS:
         ms = res[w]
         sectors = n_reads * max(1, w // 32)
@@ -924,24 +946,20 @@ def engine_edges_vs_plain(dev, card: str, index) -> None:
           + f"; empty-row key answer {t.empty} ({card})")
 
 
-#: the C signatures of the parent's entries that this tree changed: K1
-#: without scratch (counts, packed, vbits, n_words, stream)
-PARENT_ARGTYPES = {
-    "count13_packed": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]}
-
-
 @functools.lru_cache(maxsize=2)
 def parent_engines(parent: str) -> dict:
-    """The K6, K7 and K10 query and coverage entries, K1, K15 and K2 of the
-    checkout at ``parent`` (its ``quot23.cu``, ``quotcov23.cu``,
-    ``cuckoo64.cu``, ``count13.cu`` and ``total13.cu``, one nvcc each,
-    all started together), by name."""
+    """The K6, K7 and K10 query and coverage entries, K4, K11's coverage,
+    K1, K15 and K2 of the checkout at ``parent`` (its ``quot23.cu``,
+    ``quotcov23.cu``, ``cuckoo64.cu``, ``coverage13.cu``, ``mphfwalk.cu``,
+    ``count13.cu`` and ``total13.cu``, one nvcc each, all started
+    together), by name."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent, "aindex_torch", "csrc")
     sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23",),
                "cuckoo64": ("cuckoo64", "cuckoocov64"),
+               "coverage13": ("coverage13_packed",), "mphfwalk": ("mphfcov",),
                "count13": ("scatter_count", "count13_packed"), "total13": ("total13",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
@@ -953,7 +971,7 @@ def parent_engines(parent: str) -> dict:
         check(proc.returncode == 0, f"{parent}'s {src}.cu builds:\n{log.decode(errors='replace')}")
         for name in sources[src]:
             fn = getattr(ctypes.CDLL(lib), name)
-            fn.argtypes = PARENT_ARGTYPES.get(name, _cuda.KERNELS[name].argtypes)
+            fn.argtypes = _cuda.KERNELS[name].argtypes
             fn.restype = ctypes.c_int
             fns[name] = fn
     return fns
@@ -1037,6 +1055,397 @@ def upload(dev, packed, vbits):
     import torch
     return (torch.from_numpy(packed.reshape(-1).view(np.int32)).to(dev),
             torch.from_numpy(vbits.reshape(-1)).to(dev))
+
+
+# -- the packed coverage entries' four clocks ---------------------------------
+
+#: distinct batches that a cold timing of a coverage entry rotates over
+N_COLD = 8
+#: random reads a second by width in bytes, from this run's width_test: the
+#: coverage entries' random-read floors
+READ_RATE: dict[int, float] = {}
+
+
+@contextlib.contextmanager
+def parent_kernel(name: str):
+    """This tree's wrapper launching the parent's C entry ``name``
+    (``parent_engines``) in place of its own, within the block."""
+    from aindex_torch.kernels import _cuda
+    kern = _cuda.KERNELS[name]
+    own = kern._lib
+    kern._lib = types.SimpleNamespace(**{name: parent_engines(PARENT)[name],
+                                         "dna13_error_string": own.dna13_error_string})
+    try:
+        yield
+    finally:
+        kern._lib = own
+
+
+def device_ms_per_call(fn, calls, tries: int = 3) -> tuple[float, int]:
+    """(torch.profiler's mean device time of the coverage kernels that
+    ``fn(b)`` launches for b in ``calls``, the launches the trace holds).
+    A trace taken late in a long process can come back short of its
+    events, so the mean is over those it holds, and a trace holding fewer
+    than half the launches is taken again, up to ``tries`` times."""
+    import torch
+    from torch import profiler
+    best: list = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
+            for b in calls:
+                fn(b)
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "coverage" in e.name]
+        best = spans if len(spans) > len(best) else best
+        if 2 * len(best) >= len(calls):
+            break
+    return (sum(best) / 1e3 / len(best) if best else float("nan")), len(best)
+
+
+def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float,
+           footprint: int, reps: int = 48) -> dict:
+    """The coverage entry ``name`` through its wrapper, ``fn(b)`` on the
+    uploaded batch b < ``n_batches``, timed by this tree's kernel and, with
+    ``parent=DIR``, the parent's in the same wrapper (``parent_kernel``),
+    in turns (this, parent, parent, this), after both gave equal answers
+    on every batch:
+
+    * warm: CUDA events over ``reps`` calls back to back on batch 0;
+    * cold: CUDA events over ``reps`` calls rotating over the batches, whose
+      distinct table bytes (``footprint``) pass the 50 MB L2;
+    * device cold / warm: torch.profiler's device time a launch of the
+      same rotation / of batch 0 (one launch a call, checked);
+    * host: the host clock a call of the rotation, with no synchronize
+      (the wrapper's Python and the launch).
+
+    Prints them beside the random-read floor; returns tree -> clock ->
+    [ms, ...]."""
+    import torch
+    trees = {"this tree": contextlib.nullcontext}
+    if PARENT is not None:
+        trees["parent"] = lambda: parent_kernel(name)
+        for b in range(n_batches):
+            mine = fn(b)
+            with parent_kernel(name):
+                max_abs_err(mine, fn(b))
+        del mine
+    rotation = [b % n_batches for b in range(reps)]
+    out = {tree: {c: [] for c in ("warm", "cold", "device cold", "device warm", "host")}
+           for tree in trees}
+    order = list(trees) + list(trees)[::-1]
+    for tree in order:
+        with trees[tree]():
+            got = out[tree]
+            got["warm"].append(cuda_ms(lambda: fn(0), reps))
+            turn = itertools.cycle(range(n_batches))
+            got["cold"].append(cuda_ms(lambda: fn(next(turn)), reps))
+            for clock, bs in (("device cold", rotation), ("device warm", [0] * reps)):
+                ms, ops = device_ms_per_call(fn, bs)
+                check(ops <= reps, f"{name}: one device operation a call ({ops} for {reps})")
+                if ops < reps:
+                    print(f"{name} {label}, {tree}: the {clock} trace holds {ops} of {reps} "
+                          f"launches")
+                got[clock].append(ms)
+            t0 = time.perf_counter()
+            for b in rotation:
+                fn(b)
+            got["host"].append((time.perf_counter() - t0) / reps * 1e3)
+            torch.cuda.synchronize()
+    for tree, got in out.items():
+        print(f"{name} {label}, {tree}: " + ", ".join(
+            f"{c} " + " / ".join(f"{v:.4f}" for v in vals) for c, vals in got.items())
+            + f" ms; random-read floor {floor_ms:.4f} ms; cold rotation {n_batches} batches, "
+            f"{footprint / 1e6:.1f} MB of table ({card})")
+    SIDE_MS[f"{name} {label}, clocks"] = {f"{tree} {c}": vals for tree, got in out.items()
+                                          for c, vals in got.items()}
+    return out
+
+
+def table_reads(t, keys) -> tuple[int, object]:
+    """(random table reads that the probes of ``keys`` make, the ids of the
+    32-byte sectors they start at): a bucket a level on the bucketed
+    tables (bucket_reads; ids of the level-0 buckets' first sectors), one
+    16-byte node record a key on the MPHF walk (its g-words lie in L2)."""
+    import torch
+    from aindex_torch.kernels.lookup import mphf_owner_node
+    if hasattr(t, "levels"):
+        from aindex_torch.kernels.buckets import bucket_of
+        from aindex_torch.kernels.lookup import _s64, mix64
+        first, lb = t.levels[0]
+        k = keys & ((1 << t.w) - 1) if t.w < 64 else keys
+        bucket = first + bucket_of(mix64(k ^ _s64(t.seed)), lb)
+        return int(bucket_reads(t, keys).sum()), bucket * 2
+    if t.n == 0:
+        return 0, torch.zeros(0, dtype=torch.int64, device=keys.device)
+    return keys.numel(), mphf_owner_node(t.g_packed, keys, t.seed, t.domain) >> 1
+
+
+def probe_keys(t, packed, vbits, k: int, rule: int):
+    """The keys the coverage probes of the packed rows ask the engine for:
+    the canonical code of every valid window (CANON), or its forward code
+    and, where that misses, its reverse complement (FWD_RC)."""
+    import torch
+    from aindex_torch.kernels.encode import packed_window_codes, revcomp_code64, u64_le
+    from aindex_torch.kernels.probe import CANON
+    codes, valid = packed_window_codes(packed, vbits, k)
+    fwd = codes[valid]
+    rc = revcomp_code64(fwd, k)
+    if rule == CANON:
+        return torch.where(u64_le(fwd, rc), fwd, rc)
+    return torch.cat([fwd, rc[~t.probe_plain(fwd)[0]]])
+
+
+def engine_coverage_clocks(card: str, index, name: str, batches: list) -> dict:
+    """The engine's coverage entry (K7, K10's or K11's) on the N_COLD
+    packed batches of 10,000 corpus reads (coverage_batches), cutoff 0,
+    under the index's rule: clocks, beside the random-read floor of batch
+    0 (its table reads over READ_RATE: 64-byte buckets, 16-byte records)."""
+    import torch
+    from aindex_torch.kernels import probe
+    t, k, rule = index.tables, index.k, index.rule
+    n_reads, sectors = 0, []
+    for packed, vbits, _, _ in batches:
+        n, s = table_reads(t, probe_keys(t, packed, vbits, k, rule))
+        n_reads = n_reads or n
+        sectors.append(s)
+    width = 64 if hasattr(t, "levels") else 16
+    per = 2 if width == 64 else 1
+    footprint = int(torch.unique(torch.cat(sectors)).numel()) * 32 * per
+    floor = n_reads / READ_RATE[width] * 1e3
+    rows, stride = batches[0][2:]
+    return clocks(card, f"cutoff 0, {rows} x {stride}, k={k}", name,
+                  lambda b: probe.coverage(t, *batches[b], k, 0, rule), len(batches),
+                  floor, footprint)
+
+
+def coverage_batches(dev, reads: np.ndarray, k: int) -> list:
+    """N_COLD batches of N_SEQ corpus reads each (reads[i N_SEQ:(i + 1)
+    N_SEQ]), packed as ``sequence_coverage_batch`` packs them and uploaded:
+    [(packed, vbits, rows, stride)]."""
+    from aindex_torch.core import codec
+    out = []
+    for i in range(N_COLD):
+        [(members, stride, packed, vbits)] = codec.coverage_row_batches(
+            [row.tobytes() for row in reads[i * N_SEQ:(i + 1) * N_SEQ]], k)
+        out.append((*upload(dev, packed, vbits), len(members), stride))
+    return out
+
+
+def dense_coverage_batches(dev, rng) -> list:
+    """N_COLD random ASCII matrices of N_SEQ rows of 150 bases (1% N) and a
+    newline, packed and uploaded: [(packed, vbits, rows, stride)]."""
+    from aindex_torch.core import codec
+    out = []
+    for _ in range(N_COLD):
+        mat = random_ascii(rng, N_SEQ * (READ_LEN + 1), b"ACGTN",
+                           [0.2475, 0.2475, 0.2475, 0.2475, 0.01]).reshape(N_SEQ, -1)
+        mat[:, -1] = ord("\n")
+        out.append((*upload(dev, *codec.pack_ascii_chunk(mat.reshape(-1))), N_SEQ,
+                    READ_LEN + 1))
+    return out
+
+
+def coverage_stages(dev, card: str, label: str, k: int, name: str, launch, call,
+                    seqs: list, dtype=None, reps: int = 3) -> None:
+    """One coverage call of ``seqs`` (``call(seqs)``: the index's
+    ``sequence_coverage_batch``) split into its stages by the host clock,
+    each ended by a synchronize, as the call runs them: the ASCII encode,
+    ``codec.coverage_row_batches``' Python row fill and its
+    ``pack_ascii_chunk``, the upload, the kernel (``launch(packed, vbits,
+    rows, stride)``), the download, the per-row slicing, and the facade's
+    Python lists (``AIndex.get_sequence_coverage_batch``); with parent=DIR
+    also with the parent's kernel ``name``. The best of ``reps`` runs of
+    each stage, beside the best of the whole call."""
+    import torch
+    from aindex_torch.core import codec
+    trees = {"this tree": contextlib.nullcontext}
+    if PARENT is not None:
+        trees["parent"] = lambda: parent_kernel(name)
+    real_pack = codec.pack_ascii_chunk
+    pack_s = [0.0]
+
+    def timed_pack(chunk):
+        t0 = time.perf_counter()
+        out = real_pack(chunk)
+        pack_s[0] += time.perf_counter() - t0
+        return out
+    for tree, ctx in trees.items():
+        best: dict[str, float] = {}
+        with ctx():
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                marks = [time.perf_counter()]
+                raws = [s.encode("ascii") for s in seqs]
+                marks.append(time.perf_counter())
+                pack_s[0] = 0.0
+                codec.pack_ascii_chunk = timed_pack
+                try:
+                    batches = list(codec.coverage_row_batches(raws, k))
+                finally:
+                    codec.pack_ascii_chunk = real_pack
+                marks.append(time.perf_counter())
+                ins = [(members, stride, torch.from_numpy(p.view(np.int32)).to(dev),
+                        torch.from_numpy(v).to(dev)) for members, stride, p, v in batches]
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                covs = [(members, launch(p, v, len(members), stride))
+                        for members, stride, p, v in ins]
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                hosts = [(members, c.view(torch.int32).cpu().numpy().view(np.uint32))
+                         for members, c in covs]
+                marks.append(time.perf_counter())
+                out = [None] * len(seqs)
+                for members, cov in hosts:
+                    for row, i in enumerate(members):
+                        out[i] = cov[row, :len(raws[i]) - k + 1]
+                        if dtype is not None:
+                            out[i] = out[i].astype(dtype)
+                marks.append(time.perf_counter())
+                lists = [[int(v) for v in c] for c in out]
+                marks.append(time.perf_counter())
+                del lists
+                spans = np.diff(marks) * 1e3
+                stages = {"encode": spans[0], "row fill": spans[1] - pack_s[0] * 1e3,
+                          "pack": pack_s[0] * 1e3, "upload": spans[2], "kernel": spans[3],
+                          "download": spans[4], "row slices": spans[5],
+                          "facade lists": spans[6]}
+                for stage, ms in stages.items():
+                    best[stage] = min(best.get(stage, ms), ms)
+            whole = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(seqs)
+                whole.append((time.perf_counter() - t0) * 1e3)
+        print(f"coverage call stages, {label}, {len(seqs)} sequences, {tree}'s kernel: "
+              + ", ".join(f"{s} {ms:.3f}" for s, ms in best.items())
+              + f" ms; the index's call {min(whole):.3f} ms, the stages but the facade's "
+              f"lists {sum(best.values()) - best['facade lists']:.3f} ms (host clock, best "
+              f"of {reps}) ({card})")
+
+
+def dense_stages(dev, card: str, index, reads: np.ndarray) -> None:
+    """coverage_stages of the dense index's coverage call on 10,000 corpus
+    reads (K4 on its query table)."""
+    from aindex_torch.kernels.coverage import _NP_DTYPES, coverage13_packed
+    table = index.tf_query
+    coverage_stages(dev, card, f"dense table k={K} ({table.dtype})", K, "coverage13_packed",
+                    lambda p, v, rows, stride: coverage13_packed(table, p, v, rows, stride, 0),
+                    lambda seqs: index.sequence_coverage_batch(seqs),
+                    [row.tobytes().decode("ascii") for row in reads[:N_SEQ]],
+                    _NP_DTYPES[table.dtype])
+
+
+def coverage_edges(dev, rows_of, k: int) -> list:
+    """(tag, packed, vbits, rows, stride) of the shapes where the tiled
+    coverage front end (csrc/dna23.cuh tile_run) could break, uploaded,
+    with ASCII rows from ``rows_of(n, length)``: one row longer than many
+    tiles, rows of one window each, windows that end mid-tile and mid-run,
+    rows wider than a tile, rows of all N, rows that fill packed to its
+    last word (the last row's bases all valid), and a batch whose packed
+    and vbits lie 4 and 2 bytes past 16-byte alignment."""
+    import torch
+    from aindex_torch.core import codec
+
+    def nl(n):
+        return np.full((n, 1), ord("\n"), np.uint8)
+    mats = [("one row of 2^20 bases", np.hstack([rows_of(1, 1 << 20), nl(1)])),
+            (f"5000 rows of stride k + 1 = {k + 1}", np.hstack([rows_of(5000, k), nl(5000)])),
+            ("13 rows of stride 100", np.hstack([rows_of(13, 99), nl(13)])),
+            ("3 rows of stride 5000", np.hstack([rows_of(3, 4999), nl(3)])),
+            ("40 rows of 151 N", np.full((40, READ_LEN + 1), ord("N"), np.uint8)),
+            ("16 rows of 151 valid bases to packed's last word", rows_of(16, READ_LEN + 1)),
+            ("300 rows of stride 151", np.hstack([rows_of(300, READ_LEN), nl(300)]))]
+    out = []
+    for tag, mat in mats:
+        packed, vbits = codec.pack_ascii_chunk(np.ascontiguousarray(mat).reshape(-1))
+        check(packed.size * 16 == mat.size or tag != mats[5][0], "16 x 151 bases fill packed")
+        out.append((tag, *upload(dev, packed, vbits), *mat.shape))
+    tag, packed, vbits, rows, stride = out[-1]
+    pb = torch.zeros(packed.numel() + 1, dtype=packed.dtype, device=dev)
+    vb = torch.zeros(vbits.numel() + 2, dtype=vbits.dtype, device=dev)
+    pb[1:], vb[2:] = packed, vbits
+    out.append((f"{tag}, 4 and 2 bytes past alignment", pb[1:], vb[2:], rows, stride))
+    return out
+
+
+def dense_coverage_edges_vs_plain(dev, card: str, rng) -> None:
+    """K4 exactly against its plain version at coverage_edges' shapes
+    (random ASCII, 1% N), on random u8, u16 and u32 tables over their
+    whole range, at cutoffs 0, 10 and 2^32 - 1."""
+    import torch
+    from aindex_torch.kernels.coverage import coverage13_packed, coverage13_packed_plain
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tables = [torch.randint(0, 256, (SPACE,), dtype=torch.uint8, device=dev, generator=gen)]
+    for bits, dtype, view in ((16, torch.int16, torch.uint16), (32, torch.int32, torch.uint32)):
+        tables.append(torch.randint(-2 ** (bits - 1), 2 ** (bits - 1), (SPACE,), dtype=dtype,
+                                    device=dev, generator=gen).view(view))
+
+    def rows_of(n, length):
+        return random_ascii(rng, n * length, b"ACGTN", [0.2475] * 4 + [0.01]).reshape(n, length)
+    tags = []
+    for tag, packed, vbits, rows, stride in coverage_edges(dev, rows_of, K):
+        for table in tables:
+            for cutoff in (0, 10, 2 ** 32 - 1):
+                args = (table, packed, vbits, rows, stride, cutoff)
+                max_abs_err(coverage13_packed(*args), coverage13_packed_plain(*args))
+        tags.append(tag)
+    print(f"coverage13_packed edge shapes == plain, u8/u16/u32 tables, cutoffs 0, 10, "
+          f"2^32 - 1: {'; '.join(tags)} ({card})")
+
+
+def engine_coverage_edges_vs_plain(dev, card: str, index, reads: np.ndarray) -> None:
+    """The engine's coverage entry (K7, K10's or K11's) exactly against its
+    plain version at coverage_edges' shapes (rows cut from the corpus
+    reads, 0.3% N), under the CANON and FWD_RC rules, at cutoffs 0, 10 and
+    2^32 - 1; counts the probes that read a second bucket level (the
+    overflowed levels)."""
+    from aindex_torch.kernels import probe
+    t, k = index.tables, index.k
+    rng = np.random.default_rng(83)
+    flat = reads.reshape(-1)
+
+    def rows_of(n, length):
+        start = rng.integers(0, flat.size - length, n)
+        mat = flat[start[:, None] + np.arange(length)[None, :]].copy()
+        mat[rng.random(mat.shape) < 0.003] = ord("N")
+        return mat
+    tags, second = [], 0
+    for tag, packed, vbits, rows, stride in coverage_edges(dev, rows_of, k):
+        for rule in (probe.CANON, probe.FWD_RC):
+            for cutoff in (0, 10, 2 ** 32 - 1):
+                args = (t, packed, vbits, rows, stride, k, cutoff, rule)
+                max_abs_err(probe.coverage(*args), probe.coverage_plain(*args))
+        if hasattr(t, "levels"):
+            keys = probe_keys(t, packed, vbits, k, probe.CANON)
+            second += int((bucket_reads(t, keys) > 1).sum()) if keys.numel() else 0
+        tags.append(tag)
+    levels = (f"; {second} of the canonical probes read a second level of "
+              f"{len(t.levels)}, empty-row key answer {t.empty}" if hasattr(t, "levels") else "")
+    print(f"{t.COVERAGE} k={k} edge shapes == plain, rules CANON and FWD_RC, cutoffs 0, 10, "
+          f"2^32 - 1: {'; '.join(tags)}{levels} ({card})")
+
+
+def dense_coverage_clocks(card: str, table, batches: list) -> dict:
+    """K4 on the N_COLD batches (dense_coverage_batches) at cutoff 0:
+    clocks, beside the random-read floor of batch 0 (its valid windows, one
+    table read each, over READ_RATE[16])."""
+    import torch
+    from aindex_torch.kernels.coverage import coverage13_packed
+    from aindex_torch.kernels.encode import packed_window_codes
+    n_valid, sectors = 0, []
+    for packed, vbits, _, _ in batches:
+        codes, valid = packed_window_codes(packed, vbits, K)
+        n_valid = n_valid or int(valid.sum())
+        sectors.append(codes[valid] * table.element_size() // 32)
+    footprint = int(torch.unique(torch.cat(sectors)).numel()) * 32
+    bits = 8 * table.element_size()
+    return clocks(card, f"u{bits} cutoff 0, {N_SEQ} x {READ_LEN + 1}", "coverage13_packed",
+                  lambda b: coverage13_packed(table, *batches[b], 0), len(batches),
+                  n_valid / READ_RATE[16] * 1e3, footprint)
 
 
 # -- phase 2: dense kernels against plain versions -----------------------------
@@ -1129,14 +1538,12 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     print(f"kernel count13_packed [one 2^22-byte chunk alone]: max_abs_err 0, kernel {ms:.4f} "
           f"ms, plain {pms:.4f} ms ({card})")
     if PARENT is not None:
-        fn = parent_engines(PARENT)["count13_packed"]
         mine = torch.zeros(SPACE, dtype=torch.int32, device=dev)
         theirs = torch.zeros(SPACE, dtype=torch.int32, device=dev)
 
         def parent_chunk():
-            check(fn(theirs.data_ptr(), packed.data_ptr(), vbits.data_ptr(), packed.numel(),
-                     _cuda.stream(dev)) == 0, "the parent's count13_packed")
-            return theirs.view(torch.uint32)
+            with parent_kernel("count13_packed"):
+                return count13_packed(theirs, packed, vbits).view(torch.uint32)
         SIDE_MS["count13_packed: one 2^22-byte chunk alone, in turns"] = in_turns(
             card, "count13_packed, one chunk alone",
             lambda: count13_packed(mine, packed, vbits).view(torch.uint32), parent_chunk, 50)
@@ -1252,6 +1659,7 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     mat[:, -1] = ord("\n")
     packed, vbits = upload(dev, *codec.pack_ascii_chunk(mat.reshape(-1)))
     n_touched = touched(*packed_window_codes(packed, vbits, K))
+    batches = dense_coverage_batches(dev, rng)[1:]
     k4 = []
     for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
                               (32, torch.int32, torch.uint32)):
@@ -1267,7 +1675,10 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
             rec = record(err, ms, pms, n_bytes)
             report(card, "coverage13_packed", f"u{bits} cutoff {cutoff}, 10000 x 151", rec)
             k4.append(rec)
+        # warm, cold, device and host clocks on N_COLD matrices, beside the parent's
+        dense_coverage_clocks(card, table, [(packed, vbits, n_rows, stride)] + batches)
     res["coverage13_packed"] = {**k4[0], "max_abs_err": max(r["max_abs_err"] for r in k4)}
+    dense_coverage_edges_vs_plain(dev, card, rng)
     return res
 
 
@@ -1411,6 +1822,7 @@ def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
     gcode, gok = oracle_codes(seq[None, :])
     check(np.array_equal(cov, np.where(gok, table[gcode], 0)[0]), "sequence_coverage")
     check(index.sequence_coverage("ACGT").size == 0, "short sequence coverage")
+    return index
 
 
 # -- phase 4b: K1 as the dense build runs it, K2 on the corpus table ----------
@@ -1444,7 +1856,6 @@ def count_build_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray) -
     from aindex_torch.core import codec
     from aindex_torch.core.reads import blob_chunks
     from aindex_torch.index.dense13 import total13, total13_plain
-    from aindex_torch.kernels import _cuda
     from aindex_torch.kernels import count
     from aindex_torch.kernels.count import KERNEL, PackedCounter, count13_packed_plain
 
@@ -1511,15 +1922,12 @@ def count_build_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray) -
     SIDE_MS["count13_packed: a build's count by CUDA events, device busy"] = {
         "this tree": [ms, busy]}
     if PARENT is not None:
-        fn = parent_engines(PARENT)["count13_packed"]
         mine = torch.zeros(SPACE, dtype=torch.int32, device=dev)
         theirs = torch.zeros(SPACE, dtype=torch.int32, device=dev)
 
         def parent_build():
-            for p, v in chunks:
-                check(fn(theirs.data_ptr(), p.data_ptr(), v.data_ptr(), p.numel(),
-                         _cuda.stream(dev)) == 0, "the parent's count13_packed")
-            return theirs.view(torch.uint32)
+            with parent_kernel("count13_packed"):
+                return build(theirs).view(torch.uint32)
 
         def this_build():
             return build(mine).view(torch.uint32)
@@ -1957,6 +2365,13 @@ def quot_vs_plain(dev, card: str, index, reads: np.ndarray) -> dict:
         report(card, "quotcov23", f"cutoff {cutoff}, {n_rows} x {stride}", rec)
         k7.append(rec)
     res["quotcov23"] = {**k7[0], "max_abs_err": max(r["max_abs_err"] for r in k7)}
+    del wcodes, wvalid
+    engine_coverage_clocks(card, index, "quotcov23", coverage_batches(dev, reads, K23))
+    engine_coverage_edges_vs_plain(dev, card, index, reads)
+    coverage_stages(dev, card, f"quotient table k={K23}", K23, "quotcov23",
+                    lambda p, v, rows, stride: quotcov23(t, p, v, rows, stride, K23, 0),
+                    lambda seqs: index.sequence_coverage_batch(seqs),
+                    [row.tobytes().decode("ascii") for row in reads[:N_SEQ]])
     return res
 
 
@@ -2986,6 +3401,9 @@ def engines_vs_plain(dev, card: str, index, reads: np.ndarray, names) -> dict:
         report(card, c_name, f"cutoff {cutoff}, {len(members)} x {stride}, k={k}", rec)
         recs.append(rec)
     res[c_name] = {**recs[0], "max_abs_err": max(r["max_abs_err"] for r in recs)}
+    del wcodes, wvalid
+    engine_coverage_clocks(card, index, c_name, coverage_batches(dev, reads, k))
+    engine_coverage_edges_vs_plain(dev, card, index, reads)
 
     # the fill of the second corpus chunk, from a nonzero cursor (as K9's)
     piece, off = list(itertools.islice(blob_chunks(corpus_blob(reads), k, CHUNK_BYTES), 2))[1]
@@ -3709,10 +4127,12 @@ def main() -> int:
         print(f"dense oracle table {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         _cuda.reset_launches()
-        dense_path(dev, card, tmp, genome, reads, fasta, table)
+        dense = dense_path(dev, card, tmp, genome, reads, fasta, table)
         dense_counts = _cuda.launches()
         print(f"phase dense path: {time.perf_counter() - t0:.1f} s")
         counts.update({name: dense_counts[name] for name in DENSE_KERNELS})
+        dense_stages(dev, card, dense, reads)
+        del dense
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         measured.update(count_build_vs_plain(dev, card, reads, table))

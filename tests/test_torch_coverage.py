@@ -11,6 +11,7 @@ import torch
 from aindex_tpu.constants import SPACE_13
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.kernels import coverage as jcov
+from aindex_torch.core import codec as tcodec
 from aindex_torch.kernels import coverage as tcov
 from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
@@ -57,6 +58,65 @@ def test_coverage13_packed_plain_matches_jax(tables, cutoff):
     got = tcov.coverage13_packed(tt, torch.from_numpy(packed), torch.from_numpy(vbits),
                                  rows, stride, cutoff)
     assert got.dtype == torch.uint32 and got.shape == (rows, stride - 13)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+#: (rows, stride, bases) of the shapes where a tiled coverage kernel could
+#: break (csrc/dna23.cuh tile_run): one row longer than many tiles, rows of
+#: one window (stride k + 1: None), windows that end mid-tile and mid-run,
+#: rows wider than a tile, rows of all N, and rows of valid bases that fill
+#: packed to its last word; a row ends in a newline unless its bases are
+#: all valid
+EDGE_SHAPES = {"one long row": (1, (1 << 16) + 1, "ACGTN"),
+               "one window a row": (300, None, "ACGTN"),
+               "13 x 100": (13, 100, "ACGTN"),
+               "3 x 5000": (3, 5000, "ACGTN"),
+               "all N": (40, 151, "N"),
+               "to the last word": (16, 151, "ACGT")}
+
+
+def edge_matrix(shape: str, k: int, seed: int, text: bytes | None = None) -> np.ndarray:
+    """The ASCII rows of EDGE_SHAPES[shape] for k-mers: random bases (1%
+    N), or stretches of ``text`` (repeated as needed; a byte outside ACGT
+    reads A where every base must be valid)."""
+    rows, stride, bases = EDGE_SHAPES[shape]
+    stride = stride or k + 1
+    rng = np.random.default_rng(seed)
+    if bases == "N":
+        return np.full((rows, stride), ord("N"), np.uint8)
+    if text is None:
+        p = np.array([0.2475] * 4 + [0.01])
+        mat = np.frombuffer(b"ACGTN", np.uint8)[rng.choice(5, size=(rows, stride), p=p)]
+    else:
+        src = np.frombuffer(text, np.uint8)
+        src = np.tile(src, rows * stride // src.size + 2)
+        start = rng.integers(0, src.size - rows * stride)
+        mat = src[start:start + rows * stride].reshape(rows, stride).copy()
+    if "N" in bases:
+        mat[:, -1] = ord("\n")
+    else:
+        mat[~np.isin(mat, np.frombuffer(b"ACGT", np.uint8))] = ord("A")
+    return mat
+
+
+@pytest.mark.parametrize("cutoff", [0, 10, 2**32 - 1])
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+def test_coverage13_packed_edges_match_jax(tables, shape, cutoff):
+    """K4's plain version on packed buffers of exactly rows * stride bases
+    (rounded up to a word), against aindex_tpu's on the same rows with its
+    k-byte tail."""
+    jt, tt = tables
+    mat = edge_matrix(shape, 13, 5)
+    rows, stride = mat.shape
+    tail = np.full(13, ord("\n"), np.uint8)
+    packed, vbits = jcodec.pack_ascii_chunk(np.concatenate([mat.ravel(), tail]))
+    want = np.asarray(jcov._coverage_dense_packed(
+        jt, jnp.asarray(packed), jnp.asarray(vbits), jnp.uint32(cutoff), k=13,
+        rows=rows, stride=stride))
+    packed, vbits = tcodec.pack_ascii_chunk(mat.ravel())
+    got = tcov.coverage13_packed(tt, torch.from_numpy(packed.view(np.int32)),
+                                 torch.from_numpy(vbits), rows, stride, cutoff)
+    assert got.shape == (rows, stride - 13)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

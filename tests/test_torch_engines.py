@@ -23,6 +23,7 @@ from aindex_tpu.io.fastq import read_sequences
 from aindex_tpu.kernels import lookup as jlookup
 from aindex_torch import PositionalIndex as TPos, Sparse23Index as TIndex
 from aindex_torch.kernels import lookup as tlookup, probe
+from test_torch_coverage import EDGE_SHAPES, edge_matrix
 from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
 #: aindex_tpu's native library loads before anything here builds through it
@@ -184,6 +185,34 @@ def test_engine_choice_matches_aindex_tpu(random_reads):
         assert t.engine == want
         assert (j.quot is not None) == (want == "quot")
         assert (j.cuckoo is not None) == (want != "walk")
+
+
+# -- coverage at the tiled kernel's edge shapes ------------------------------------
+
+@pytest.mark.parametrize("rule", ["canon", "fwd_rc"])
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+@pytest.mark.parametrize("k", [27, 31])
+def test_coverage_edges_match_aindex_tpu(random_reads, k, shape, rule):
+    """sequence_coverage_batch on the wide table (k = 27) and the walk (k =
+    31) at the tiled coverage kernel's edge shapes, rows cut from the reads
+    the index holds, against aindex_tpu's, at cutoffs 0, 10 and 2^32 - 1;
+    under the forward-else-reverse-complement rule of reference-keyed
+    indexes too (both indexes told their keys are not canonical)."""
+    t, j, _ = _built(k, "reads", random_reads)
+    mat = edge_matrix(shape, k, 11, "".join(random_reads).encode())
+    seqs = [row[:-1].tobytes().decode() for row in mat]
+    keyed = t.canonical_keys, j.canonical_keys
+    t.canonical_keys = j.canonical_keys = rule == "canon"
+    try:
+        assert t.rule == (probe.CANON if rule == "canon" else probe.FWD_RC)
+        for cutoff in (0, 10, 2**32 - 1):
+            got = t.sequence_coverage_batch(seqs, cutoff)
+            want = j.sequence_coverage_batch(seqs, cutoff)
+            assert len(got) == len(want) == len(seqs)
+            for a, b in zip(got, want):
+                _eq(a, b)
+    finally:
+        t.canonical_keys, j.canonical_keys = keyed
 
 
 # -- the whole index on each engine ------------------------------------------------

@@ -21,11 +21,13 @@ from aindex_tpu.index.sparse23 import Sparse23Index as JIndex
 from aindex_tpu.index.sparse23 import _extract_windows
 from aindex_tpu.io import fastq as jfastq
 from aindex_torch import native as tnative
+from aindex_torch.core import codec as tcodec
 from aindex_torch.index import mphf as tmphf
 from aindex_torch.index import quotcuckoo as tq
 from aindex_torch.io import fastq as tfastq
 from aindex_torch.kernels import probe as tprobe
 from aindex_torch.kernels import quot as tquot
+from test_torch_coverage import EDGE_SHAPES, edge_matrix
 from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
 #: aindex_tpu's native library loads before anything here builds through it
@@ -272,6 +274,29 @@ def test_quotcov23_matches_jax_windows_packed(built, random_reads, cutoff):
         k=23, m=j.m, lb=j.lb, w=j.w, rows=rows, stride=L + 1))
     want = np.where(want >= cutoff, want, 0)
     assert got.shape == (rows, L + 1 - 23)
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("cutoff", [0, 2, 2**32 - 1])
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+def test_quotcov23_edges_match_jax_windows_packed(built, random_reads, shape, cutoff):
+    """K7's plain version at the tiled kernel's edge shapes (rows cut from
+    the reads the table holds), on packed buffers of exactly rows * stride
+    bases (rounded up to a word), against aindex_tpu's on the same rows
+    with its k-byte tail."""
+    t, j = built
+    mat = edge_matrix(shape, 23, 7, "".join(random_reads).encode())
+    rows, stride = mat.shape
+    flat = np.concatenate([mat.ravel(), np.full(23, ord("\n"), np.uint8)])
+    packed, vbits = jcodec.pack_ascii_chunk(flat)
+    want = np.asarray(jq.quot_tf_windows_packed(
+        *j.device, jnp.asarray(packed), jnp.asarray(vbits), *j.mults,
+        k=23, m=j.m, lb=j.lb, w=j.w, rows=rows, stride=stride))
+    want = np.where(want >= cutoff, want, 0)
+    packed, vbits = tcodec.pack_ascii_chunk(mat.ravel())
+    got = tquot.quotcov23(_tables(t), torch.from_numpy(packed.view(np.int32)),
+                          torch.from_numpy(vbits), rows, stride, 23, cutoff)
+    assert got.shape == (rows, stride - 23)
     np.testing.assert_array_equal(_u32(got), want)
 
 

@@ -28,5 +28,11 @@ from aindex_torch.index.dense13 import Dense13Index  # noqa: E402
 from aindex_torch.index.positional import PositionalIndex  # noqa: E402
 from aindex_torch.index.sparse23 import Sparse23Index  # noqa: E402
 
-__all__ = ["AIndex", "Dense13Index", "PositionalIndex", "Sparse23Index", "revcomp", "hamming_distance",
-           "__version__"]
+#: aindex_tpu's top-level names: the reference's pybind name
+#: (``from aindex_cpp import AindexWrapper``) for the facade, and
+#: ``get_revcomp`` for ``revcomp``
+AindexWrapper = AIndex
+get_revcomp = revcomp
+
+__all__ = ["AIndex", "AindexWrapper", "Dense13Index", "PositionalIndex", "Sparse23Index",
+           "get_revcomp", "revcomp", "hamming_distance", "__version__"]

@@ -119,7 +119,20 @@ each coverage entry through this tree's wrapper) in steps 2, 4, 7, 9 and
    the device's idle share of the fill), then checks the artifacts against
    the numpy oracle: offsets, every position, ``positions_by_slots`` on
    2^16 slots and ``rid_by_pos``. Fails unless K9's launches there ran at
-   the chunk shape step 10 checks.
+   the chunk shape step 10 checks. Then (``examples_path``) runs the
+   port's examples on the card: each examples/torch_*.py ``main()`` in
+   this process, its output held to the strings tests/test_examples.py
+   asserts and its own asserts, and examples/torch_pipeline_cli.sh as a
+   subprocess; and loads the two artifact sets with ``AIndex.
+   load_from_prefix(..., load_reads=True)`` for the facade families the
+   examples reach, each against the numpy oracles at the corpus's size:
+   ``iter_kmers_by_frequency`` (1,000,000 k-mers; at k = 13 in aindex_tpu's
+   order), ``get_top_kmers``, the statistics and ``set_stats``,
+   ``save_values`` (k = 23), ``get_rid2poses``, ``get_reads_by_kmer``,
+   ``iter_reads``, ``get_kmer_info_by_kid`` (k = 23) on 4096 probes,
+   ``get_tf_both_directions_13mer_batch`` on 2^20 13-mers and
+   ``get_total_tf_values_codes_13mer`` on the same codes on the card,
+   each timed by the host clock.
 12. Drives the facade path for k = 31 and then k = 29: ``python -m
    aindex_torch compute-aindex -k <k>`` on the corpus FASTA as a
    subprocess (stage seconds and MB/s from its torch.profiler trace, its
@@ -245,23 +258,52 @@ for _i, _b in enumerate(b"ACGT"):
     _LUT[_b + 32] = _i
 
 
+def oracle_rolled(mat: np.ndarray, k: int, t, want_rc: bool = True) -> list:
+    """[forward code, reverse-complement code (``want_rc``), valid] of the
+    k-mer windows of each row of an ASCII matrix, [rows, width - k + 1],
+    in the unsigned type ``t``, rolled one column at a time: a window's
+    forward code is the previous one's shifted up a base with the new base
+    in field 0 (base i of a window in field k - 1 - i), its reverse
+    complement the previous one's shifted down with the new base
+    complemented in field k - 1 (base i in field i), and it is valid when
+    no non-ACGT byte fell in its last k columns (its bases read as & 3)."""
+    b = np.ascontiguousarray(_LUT[mat].T, dtype=t)      # [width, rows]
+    width, rows = b.shape
+    n_win = width - k + 1
+    fwd = np.empty((n_win, rows), t)
+    rc = np.empty((n_win, rows), t)
+    bad = np.empty((n_win, rows), bool)
+    f = np.zeros(rows, t)
+    r = np.zeros(rows, t)
+    last_bad = np.full(rows, -1, np.int64)
+    mask, top, two, three = t((1 << (2 * k)) - 1), t(2 * (k - 1)), t(2), t(3)
+    for j in range(width):
+        base = b[j] & three
+        f = ((f << two) | base) & mask
+        if want_rc:
+            r = (r >> two) | ((three - base) << top)
+        last_bad[b[j] > three] = j
+        s = j - k + 1
+        if s >= 0:
+            fwd[s] = f
+            rc[s] = r
+            bad[s] = last_bad >= s
+    out = [fwd] + ([rc] if want_rc else []) + [~bad]
+    return [np.ascontiguousarray(a.T) for a in out]
+
+
 def oracle_codes(mat: np.ndarray):
     """(code, valid) of the 13-mer windows of each row of an ASCII matrix."""
-    b = _LUT[mat]
-    n_win = mat.shape[1] - K + 1
-    code = np.zeros((mat.shape[0], n_win), dtype=np.uint32)
-    bad = np.zeros((mat.shape[0], n_win), dtype=bool)
-    for j in range(K):
-        code = (code << np.uint32(2)) | (b[:, j:j + n_win] & np.uint32(3))
-        bad |= b[:, j:j + n_win] > 3
-    return code, ~bad
+    return tuple(oracle_rolled(mat, K, np.uint32, want_rc=False))
 
 
-def oracle_rc(code: np.ndarray) -> np.ndarray:
-    """Reverse complement of 13-mer codes, field by field."""
+def oracle_rc(code: np.ndarray, k: int = K) -> np.ndarray:
+    """Reverse complement of k-mer codes (uint32 or uint64; 13-mers unless
+    asked), field by field."""
+    t = code.dtype.type
     out = np.zeros_like(code)
-    for j in range(K):
-        out = (out << np.uint32(2)) | (np.uint32(3) - ((code >> np.uint32(2 * j)) & np.uint32(3)))
+    for j in range(k):
+        out = (out << t(2)) | (t(3) - ((code >> t(2 * j)) & t(3)))
     return out
 
 
@@ -278,20 +320,8 @@ def oracle_table(reads: np.ndarray) -> np.ndarray:
 
 def oracle_windows23(mat: np.ndarray, k: int = K23):
     """(forward code, reverse-complement code, valid) of the k-mer windows
-    (k <= 31; 23 unless asked) of each row of an ASCII matrix, uint64. The
-    reverse complement is built base by base: base j of a window lands
-    complemented in field j."""
-    b = _LUT[mat].astype(np.uint64)
-    n_win = mat.shape[1] - k + 1
-    fwd = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
-    rc = np.zeros((mat.shape[0], n_win), dtype=np.uint64)
-    bad = np.zeros((mat.shape[0], n_win), dtype=bool)
-    for j in range(k):
-        bj = b[:, j:j + n_win]
-        fwd = (fwd << np.uint64(2)) | (bj & np.uint64(3))
-        rc |= (np.uint64(3) - (bj & np.uint64(3))) << np.uint64(2 * j)
-        bad |= bj > 3
-    return fwd, rc, ~bad
+    (k <= 31; 23 unless asked) of each row of an ASCII matrix, uint64."""
+    return tuple(oracle_rolled(mat, k, np.uint64))
 
 
 def oracle_spectrum23(reads: np.ndarray, k: int = K23):
@@ -3044,7 +3074,8 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
     """build_all on the corpus FASTA for k = 13 and k = 23 under the
     profiler, each against the numpy oracle; returns the K8 and K9 launch
     counts of the two runs, and keeps each run's artifact SHA-256s in
-    ``hashes[k]`` (the mesh path's reference)."""
+    ``hashes[k]`` (the mesh path's reference). The two artifact sets stay
+    in ``tmp``: the examples path reads them, then removes them."""
     import torch
     from torch import profiler
     from aindex_torch import PositionalIndex, Sparse23Index
@@ -3183,9 +3214,6 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
                   f"{flat.size} positions, rid_by_pos resolved ({time.perf_counter() - t0:.1f} s)")
             del pos, store
             hashes[k] = artifact_hashes(prefix)
-            for sfx in ARTIFACTS:
-                if os.path.exists(prefix + sfx):
-                    os.remove(prefix + sfx)
             torch.cuda.empty_cache()
     finally:
         tpos.posfill = real_posfill
@@ -3194,6 +3222,360 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
           f"K9 ran at (words, kind) {sorted(k9_shapes)}, the chunk its check uses")
     print(f"positional path: K9 launched at (words, kind) {sorted(k9_shapes)}")
     return launched
+
+
+# -- phase 11b: the port's examples, and the facade families they reach -----
+
+#: the port's Python examples, each with the strings its run must print
+#: (what tests/test_examples.py asserts of aindex_tpu's)
+EXAMPLES = (("torch_basic_usage", ("tf(",)),
+            ("torch_comprehensive_demo", ("All API families exercised.",
+                                          "reloaded index answers identically: True")),
+            ("torch_device_and_sharded_queries", ("codes-in tf: device array",
+                                                  "coverage profile:", "sharded over 1 rank")))
+#: the artifacts torch_pipeline_cli.sh must write
+CLI_ARTIFACTS = (".reads", ".ridx", ".tf.bin", ".pf", ".kmers.bin", ".index.bin",
+                 ".indices.bin", ".dat")
+N_ITER = 1_000_000         # iter_kmers_by_frequency's cap (bench.py's)
+N_PROBES = 4096            # k-mers whose positions resolve to reads (bench.py's)
+
+
+def example_runs(card: str, tmp: str) -> None:
+    """Each Python example's main() in this process on the card, its output
+    captured and held to the strings it must print; then the CLI example
+    as a subprocess into ``tmp``."""
+    import importlib.util
+    import io
+    for name, must in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+        dt = time.perf_counter() - t0
+        out = buf.getvalue()
+        for s in must:
+            check(s in out, f"examples/{name}.py prints {s!r}")
+        print(f"examples/{name}.py on the card: {len(out.splitlines())} lines printed, "
+              f"{dt:.3f} s (host clock) ({card})")
+    prefix = os.path.join(tmp, "examples", "p23")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["sh", os.path.join(HERE, "examples", "torch_pipeline_cli.sh"), prefix],
+                          cwd=HERE, env=dict(os.environ, PYTHON=sys.executable),
+                          capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"examples/torch_pipeline_cli.sh exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check("pipeline complete" in proc.stdout and '"total_kmers"' in proc.stdout,
+          "torch_pipeline_cli.sh reports its artifacts and statistics")
+    for sfx in CLI_ARTIFACTS:
+        check(os.path.getsize(prefix + sfx) > 0, f"torch_pipeline_cli.sh wrote {sfx}")
+    print(f"examples/torch_pipeline_cli.sh on the card: {dt:.3f} s for the two subprocesses, "
+          f"{len(CLI_ARTIFACTS)} artifacts ({card})")
+
+
+def kmer_strings(mat: np.ndarray) -> list[str]:
+    """The rows of an ASCII matrix as strings."""
+    k = mat.shape[1]
+    text = mat.tobytes().decode("ascii")
+    return [text[i:i + k] for i in range(0, len(text), k)]
+
+
+def probe_windows(rng, reads: np.ndarray, k: int):
+    """N_PROBES windows of the reads, every 512th with an N: (strings, code
+    (k = 13: forward; else canonical), valid)."""
+    r = rng.integers(0, len(reads), size=N_PROBES)
+    o = rng.integers(0, READ_LEN - k + 1, size=N_PROBES)
+    mat = reads[r[:, None], o[:, None] + np.arange(k)[None, :]]
+    mat[::512, 5] = ord("N")
+    if k == K:
+        code, ok = (a[:, 0] for a in oracle_codes(mat))
+        return kmer_strings(mat), code.astype(np.uint64), ok
+    fwd, rc, ok = (a[:, 0] for a in oracle_windows23(mat, k))
+    return kmer_strings(mat), np.minimum(fwd, rc), ok
+
+
+def oracle_probe_positions(reads: np.ndarray, probe13: np.ndarray, probe23: np.ndarray
+                           ) -> tuple[list, list]:
+    """0-based blob positions of every window whose code is a probe's (the
+    forward 13-mer code for ``probe13``, the canonical 23-mer code for
+    ``probe23``), ascending, one array a probe. One pass of 13-mer window
+    codes: a 23-mer window is a candidate when its first 13 bases begin a
+    probe or a probe's reverse complement, and its whole code decides."""
+    stride = READ_LEN + 1
+    u23 = np.unique(probe23)
+    shift = np.uint64(2 * (K23 - K))
+    mark = np.zeros(SPACE, np.uint8)
+    mark[probe13.astype(np.int64)] |= 1
+    mark[(u23 >> shift).astype(np.int64)] |= 2
+    mark[(oracle_rc(u23, K23) >> shift).astype(np.int64)] |= 2
+    hits = {K: [], K23: []}
+    for i in range(0, len(reads), 1 << 16):
+        block = reads[i:i + (1 << 16)]
+        code, ok = oracle_codes(block)
+        m = np.where(ok, mark[code], 0)
+        r, c = np.nonzero(m & 1)
+        hits[K].append((code[r, c].astype(np.uint64), (i + r) * stride + c))
+        r, c = np.nonzero(m[:, :READ_LEN - K23 + 1] & 2)
+        fwd, rc, v = (a[:, 0] for a in oracle_windows23(
+            block[r[:, None], c[:, None] + np.arange(K23)[None, :]], K23))
+        canon = np.minimum(fwd, rc)
+        at = np.minimum(np.searchsorted(u23, canon), u23.size - 1)
+        keep = v & (u23[at] == canon)
+        hits[K23].append((canon[keep], (i + r[keep]) * stride + c[keep]))
+    out = []
+    for k, probe in ((K, probe13), (K23, probe23)):
+        code = np.concatenate([h[0] for h in hits[k]])
+        pos = np.concatenate([h[1] for h in hits[k]])
+        o = np.lexsort((pos, code))
+        code, pos = code[o], pos[o]
+        lo, hi = np.searchsorted(code, probe, "left"), np.searchsorted(code, probe, "right")
+        out.append([pos[a:b] for a, b in zip(lo, hi)])
+    return out[0], out[1]
+
+
+def iteration_check(card: str, ai, k: int, codes_want, tf_of) -> None:
+    """iter_kmers_by_frequency(min_tf=1, max_kmers=N_ITER) and
+    get_top_kmers(100): the tf sequence never rises and every (k-mer, tf)
+    pair is the oracle's (``tf_of``: tf of codes); with ``codes_want``,
+    the k-mers' order is that sequence exactly."""
+    t0 = time.perf_counter()
+    got = list(ai.iter_kmers_by_frequency(min_tf=1, max_kmers=N_ITER))
+    dt = time.perf_counter() - t0
+    kmers, tf = [g[0] for g in got], np.array([g[1] for g in got], np.int64)
+    mat = np.frombuffer("".join(kmers).encode("ascii"), np.uint8).reshape(-1, k)
+    if k == K:
+        code, ok = (a[:, 0] for a in oracle_codes(mat))
+        code = code.astype(np.uint64)
+    else:
+        code, _, ok = (a[:, 0] for a in oracle_windows23(mat, k))
+    check(bool(ok.all()) and bool((np.diff(tf) <= 0).all()) and bool((tf >= 1).all()),
+          f"k={k} iter_kmers_by_frequency: valid k-mers, tf never rises")
+    check(np.array_equal(tf_of(code), tf), f"k={k} iter_kmers_by_frequency (k-mer, tf) pairs")
+    check(np.unique(code).size == code.size, f"k={k} iter_kmers_by_frequency k-mers distinct")
+    if codes_want is not None:
+        check(np.array_equal(code, codes_want), f"k={k} iter_kmers_by_frequency order")
+    print(f"k={k} iter_kmers_by_frequency(min_tf=1, max_kmers={N_ITER}): {len(got)} k-mers, "
+          f"{len(got) / dt:.0f} k-mers/s, {dt:.3f} s (host clock) ({card})")
+    t0 = time.perf_counter()
+    top = ai.get_top_kmers(100)
+    dt = time.perf_counter() - t0
+    check(top == got[:100], f"k={k} get_top_kmers(100) == the iteration's first 100")
+    print(f"k={k} get_top_kmers(100): {dt:.3f} s (host clock) ({card})")
+
+
+def stats_check(card: str, ai, k: int, tf: np.ndarray) -> None:
+    """get_kmer_frequency_stats, get_{13,23}mer_statistics and
+    set_stats(coverage=25) against the oracle's tf over the index's slots
+    (``tf``: the dense table, or the spectrum's counts)."""
+    nz = tf[tf > 0].astype(np.int64)
+    total = int(nz.sum())
+    mode = "13mer" if k == K else "23mer"
+    want = {"kmer_type": mode, "total_kmers": tf.size, "non_zero_kmers": nz.size,
+            "zero_kmers": tf.size - nz.size, "max_tf": int(nz.max()), "min_tf": int(nz.min()),
+            "avg_tf": total / nz.size, "total_tf": total, "coverage": nz.size / tf.size}
+    t0 = time.perf_counter()
+    got = ai.get_kmer_frequency_stats()
+    check(got == want, f"k={k} get_kmer_frequency_stats {got} == {want}")
+    want = {"total_kmers": tf.size, "non_zero_kmers": nz.size, "max_frequency": int(nz.max()),
+            "total_count": total}
+    if k == K:
+        got = ai.get_13mer_statistics()
+        other = ai.get_23mer_statistics
+    else:
+        want["unique_kmers"] = int((nz == 1).sum())
+        got = ai.get_23mer_statistics()
+        other = ai.get_13mer_statistics
+    check(got == want, f"k={k} get_{mode}_statistics {got} == {want}")
+    try:
+        other()
+    except RuntimeError:
+        pass
+    else:
+        check(False, f"k={k}: the other mode's statistics raise RuntimeError")
+    s = ai.set_stats(coverage=25)
+    profile = np.bincount(np.minimum(tf.astype(np.int64), 36), minlength=37)
+    check({n: s[n] for n in ("zero", "unique", "distinct", "total", "max_count", "coverage")}
+          == {"zero": tf.size - nz.size, "unique": int((nz == 1).sum()), "distinct": nz.size,
+              "total": total, "max_count": int(nz.max()), "coverage": 25}
+          and np.array_equal(s["profile"], profile), f"k={k} set_stats(coverage=25)")
+    print(f"k={k} get_kmer_frequency_stats, get_{mode}_statistics, set_stats(coverage=25): "
+          f"{time.perf_counter() - t0:.3f} s (host clock) ({card})")
+
+
+def reads_check(card: str, ai, reads: np.ndarray, k: int, probe: list[str],
+                want_pos: list[np.ndarray]) -> None:
+    """get_rid2poses and get_reads_by_kmer of the probe k-mers against the
+    oracle's positions, and iter_reads against the read matrix."""
+    stride = READ_LEN + 1
+    t0 = time.perf_counter()
+    got = [ai.get_rid2poses(km) for km in probe]
+    dt = time.perf_counter() - t0
+    n_pos = sum(p.size for p in want_pos)
+    for km, g, p in zip(probe, got, want_pos):
+        rid = p // stride
+        want = {}
+        for r, q in zip(rid.tolist(), (p - rid * stride).tolist()):
+            want.setdefault(r, []).append(q)
+        check(list(g.items()) == list(want.items()), f"k={k} get_rid2poses({km})")
+    print(f"k={k} get_rid2poses: {len(probe)} k-mers -> {n_pos} positions, {n_pos / dt:.0f} "
+          f"positions/s, {dt:.3f} s (host clock) ({card})")
+    t0 = time.perf_counter()
+    got = [ai.get_reads_by_kmer(km) for km in probe]
+    dt = time.perf_counter() - t0
+    for km, g, p in zip(probe, got, want_pos):
+        rids = np.unique(p // stride)[:100]
+        check(g == [reads[r].tobytes().decode("ascii") for r in rids],
+              f"k={k} get_reads_by_kmer({km})")
+    n_reads = sum(map(len, got))
+    print(f"k={k} get_reads_by_kmer: {len(probe)} k-mers -> {n_reads} reads, "
+          f"{n_pos / dt:.0f} positions/s, {dt:.3f} s (host clock) ({card})")
+    t0 = time.perf_counter()
+    n, text = 0, []
+    for rid, read in ai.iter_reads():
+        check(rid == n, "iter_reads yields read ids in order")
+        n += 1
+        text.append(read)
+    dt = time.perf_counter() - t0
+    check(n == ai.n_reads == len(reads) and "".join(text).encode("ascii") == reads.tobytes(),
+          f"k={k} iter_reads yields every read")
+    print(f"k={k} iter_reads: {n} reads, {n / dt:.0f} reads/s, {dt:.3f} s (host clock) ({card})")
+
+
+def examples_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
+                  table: np.ndarray, oracle) -> None:
+    """The port's examples on the card, then the facade families they reach
+    at the corpus's size on the k = 13 and k = 23 artifact sets of the
+    positional path (rebuilt through compute-aindex when ``tmp`` does not
+    hold them, as when this phase runs alone), each against the numpy
+    oracles; removes the sets."""
+    import torch
+    from aindex_torch import AIndex
+
+    example_runs(card, tmp)
+    keys, counts = oracle
+    rng = np.random.default_rng(83)
+    t0 = time.perf_counter()
+    probes = {k: probe_windows(rng, reads, k) for k in (K, K23)}
+    positions = dict(zip((K, K23), oracle_probe_positions(reads, probes[K][1], probes[K23][1])))
+    print(f"oracle positions of {N_PROBES} probes at k = 13 and k = 23: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in (K, K23):
+        prefix = os.path.join(tmp, f"ecoli_25x.p{k}")
+        if not all(os.path.exists(prefix + sfx) for sfx in (".tf.bin", ".index.bin", ".reads")):
+            run_cli(["compute-aindex", "-i", fasta, "-o", prefix, "-k", str(k)])
+        t0 = time.perf_counter()
+        ai = AIndex.load_from_prefix(prefix, kmer_size=k, load_reads=True, device=dev)
+        if ai.sparse23 is not None:
+            ai.sparse23.tables      # built at the first query; not a query's cost
+        torch.cuda.synchronize()
+        print(f"k={k} load_from_prefix(load_reads=True) and the engine's tables on the card: "
+              f"{time.perf_counter() - t0:.3f} s (host clock) ({card})")
+        check(ai.n_reads == len(reads) and ai.aindex_loaded, f"k={k} reads and positions loaded")
+
+        if k == K:
+            nzc = np.flatnonzero(table >= 1)
+            order = nzc[np.argsort(table[nzc], kind="stable")[::-1]][:N_ITER]
+            iteration_check(card, ai, k, order.astype(np.uint64),
+                            lambda c: table[c.astype(np.int64)].astype(np.int64))
+            stats_check(card, ai, k, table)
+        else:
+            iteration_check(card, ai, k, None,
+                            lambda c: oracle_lookup(keys, counts, c).astype(np.int64))
+            stats_check(card, ai, k, counts)
+            path = os.path.join(tmp, "values.dat")
+            t0 = time.perf_counter()
+            tallies = ai.save_values(path)
+            dt = time.perf_counter() - t0
+            with open(path, "rb") as f:
+                lines = f.read().split(b"\n")
+            check(lines[-1] == b"" and len(lines) - 1 == keys.size
+                  and tallies == (0, int((counts == 1).sum()), int((counts > 1).sum())),
+                  f"save_values tallies {tallies} and {len(lines) - 1} lines")
+            at = rng.integers(0, keys.size, size=N_PROBES)
+            rows = [lines[i].split(b"\t") for i in at]
+            fwd, rc, ok = (a[:, 0] for a in oracle_windows23(
+                np.frombuffer(b"".join(r[0] for r in rows), np.uint8).reshape(-1, k), k))
+            check(bool(ok.all()) and np.array_equal(
+                oracle_lookup(keys, counts, np.minimum(fwd, rc)), [int(r[1]) for r in rows]),
+                  "save_values lines hold the oracle's (k-mer, tf)")
+            os.remove(path)
+            del lines, rows
+            print(f"k={k} save_values: {keys.size} lines, {keys.size / dt:.0f} lines/s, "
+                  f"{dt:.3f} s (host clock) ({card})")
+
+        probe, pcode, pok = probes[k]
+        want_pos = [p if v else p[:0] for p, v in zip(positions[k], pok)]
+        reads_check(card, ai, reads, k, probe, want_pos)
+
+        if k == K:
+            try:
+                ai.get_kmer_info_by_kid(1)
+            except RuntimeError:
+                pass
+            else:
+                check(False, "get_kmer_info_by_kid raises on a 13-mer index, as aindex_tpu's")
+            # both directions and the total of 2^20 13-mers: half windows of
+            # the reads, half random, every 64th with an N
+            rr = rng.integers(0, len(reads), size=N_ASCII)
+            oo = rng.integers(0, READ_LEN - K + 1, size=N_ASCII)
+            qmat = reads[rr[:, None], oo[:, None] + np.arange(K)[None, :]]
+            qmat[1::2] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (N_ASCII // 2, K))]
+            qmat[::64, 7] = ord("N")
+            qcode, qok = (np.ascontiguousarray(a[:, 0]) for a in oracle_codes(qmat))
+            fwd_tf = np.where(qok, table[qcode], 0).astype(np.int64)
+            rc_tf = np.where(qok, table[oracle_rc(qcode)], 0).astype(np.int64)
+            qkmers = kmer_strings(qmat)
+            t0 = time.perf_counter()
+            pairs = ai.get_tf_both_directions_13mer_batch(qkmers)
+            dt = time.perf_counter() - t0
+            check(pairs == list(zip(fwd_tf.tolist(), rc_tf.tolist())),
+                  "get_tf_both_directions_13mer_batch == oracle")
+            print(f"k={k} get_tf_both_directions_13mer_batch: {N_ASCII} k-mers, "
+                  f"{N_ASCII / dt / 1e6:.3f} M k-mers/s, {dt:.3f} s (host clock) ({card})")
+            total = (fwd_tf + rc_tf) & 0xFFFFFFFF
+            codes_dev = torch.from_numpy(qcode.view(np.int32)).to(dev).view(torch.uint32)
+            ok_dev = torch.from_numpy(qok).to(dev)
+            got = ai.get_total_tf_values_codes_13mer(codes_dev, ok_dev)
+            check(got.dtype == torch.uint32 and got.device == codes_dev.device
+                  and np.array_equal(bits64(got).cpu().numpy(), total),
+                  "get_total_tf_values_codes_13mer on device codes: torch.uint32 on the card "
+                  "== oracle")
+            got = ai.get_total_tf_values_codes_13mer(qcode, qok)
+            check(got.dtype == torch.uint32 and got.device == codes_dev.device
+                  and np.array_equal(bits64(got).cpu().numpy(), total),
+                  "get_total_tf_values_codes_13mer on numpy codes == oracle")
+            ms = cuda_ms(lambda: ai.get_total_tf_values_codes_13mer(codes_dev, ok_dev), 20)
+            print(f"k={k} get_total_tf_values_codes_13mer: {N_ASCII} device codes, "
+                  f"{N_ASCII / ms / 1e6:.3f} G queries/s ({ms:.4f} ms, CUDA events) ({card})")
+            del codes_dev, ok_dev, got
+        else:
+            t0 = time.perf_counter()
+            kids = [ai.get_kid_by_kmer(km) for km in probe]
+            info = [ai.get_kmer_info_by_kid(kid) for kid in kids]
+            dt = time.perf_counter() - t0
+            canon_str = kmer_strings(np.frombuffer(b"ACGT", np.uint8)[
+                (pcode[:, None] >> (2 * np.arange(k - 1, -1, -1, dtype=np.uint64))[None, :])
+                & np.uint64(3)])
+            want_tf = oracle_lookup(keys, counts, pcode)
+            comp = str.maketrans("ACGT", "TGCA")
+            for i in range(N_PROBES):
+                if pok[i]:
+                    check(info[i] == (canon_str[i], canon_str[i].translate(comp)[::-1],
+                                      int(want_tf[i])),
+                          f"get_kmer_info_by_kid of {probe[i]}")
+                else:
+                    check(kids[i] == 0, f"get_kid_by_kmer of {probe[i]} is 0")
+            print(f"k={k} get_kid_by_kmer + get_kmer_info_by_kid: {N_PROBES} k-mers, "
+                  f"{N_PROBES / dt:.0f} k-mers/s, {dt:.3f} s (host clock) ({card})")
+        del ai
+        for sfx in ARTIFACTS:
+            if os.path.exists(prefix + sfx):
+                os.remove(prefix + sfx)
+        torch.cuda.empty_cache()
 
 
 # -- phases 12-14: the wide engines, the facade and the CLI, the golden sets ---
@@ -4188,6 +4570,9 @@ def main() -> int:
         hashes: dict = {}
         counts.update(positional_path(dev, card, tmp, reads, fasta, table, oracle, hashes))
         print(f"phase positional path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        examples_path(dev, card, tmp, reads, fasta, table, oracle)
+        print(f"phase examples path: {time.perf_counter() - t0:.1f} s")
         del table, oracle
 
         t0 = time.perf_counter()

@@ -267,3 +267,30 @@ def test_error_cases(random_reads):
         s.sparse23.get_tf_values(["A" * 23])
     with pytest.raises(FileNotFoundError, match="auto-detect"):
         TAIndex.load_from_prefix(os.path.join(GOLD, "missing"), device="cpu")
+
+
+def test_top_level_names():
+    """Every name aindex_tpu exports at its top level resolves in
+    aindex_torch: code moved from one package to the other imports the
+    same names (``from aindex_torch import AindexWrapper, get_revcomp``)."""
+    import aindex_torch
+    import aindex_tpu
+    missing = [name for name in aindex_tpu.__all__ if not hasattr(aindex_torch, name)]
+    assert missing == []
+    assert set(aindex_tpu.__all__) <= set(aindex_torch.__all__)
+    assert aindex_torch.AindexWrapper is aindex_torch.AIndex
+
+
+def test_get_revcomp():
+    """aindex_torch.get_revcomp equals aindex_tpu.get_revcomp on seeded
+    strings over ACGT, N, lowercase and the '~' separator, empty and
+    one-character strings among them."""
+    import aindex_torch
+    import aindex_tpu
+    rng = np.random.default_rng(16)
+    alphabet = np.array(list("ACGTNacgtn~"))
+    strings = ["", "A", "N", "n", "~", "ACGT" * 8, "N" * 23, "acgtn" * 5]
+    strings += ["".join(alphabet[rng.integers(0, len(alphabet), size=n)])
+                for n in rng.integers(0, 160, size=300)]
+    assert [aindex_torch.get_revcomp(s) for s in strings] == \
+        [aindex_tpu.get_revcomp(s) for s in strings]

@@ -7,10 +7,16 @@
 //   packed_window64 <- unpack_base_codes + window_codes, uint64 out
 //                      (encode.py:46,63,98); dna13::packed_window for k <= 31
 //   ascii_window64  <- ascii_to_base_codes + window_codes, uint64 out
-//                      (encode.py:25,63), one window of ASCII bytes
+//                      (encode.py:25,63), one window of ASCII bytes (the
+//                      ASCII [n, k] query rows of probe.cuh query_kernel,
+//                      spectrum23_ascii's windows)
+//   AsciiSource     <- ascii_to_base_codes (encode.py:25) for the tiled
+//                      front end: bytes coded once a tile as they are staged
 // The plain PyTorch versions live in aindex_torch/kernels/encode.py. The
-// tiled coverage front end below (tile_run, Window, store_run) serves the
-// engines' packed coverage entries (probe.cuh coverage_kernel).
+// tiled front end below (tile_run over a PackedSource or an AsciiSource,
+// Window, store_run) serves the engines' packed coverage entries and K7's
+// ASCII-rows entry (probe.cuh coverage_kernel) and K5's canonical23_ascii
+// (spectrum23.cu canonical_kernel).
 //
 // All codes are uint64_t: shifts are logical and multiplies wrap modulo
 // 2^64, as JAX's uint64 arithmetic does.
@@ -98,25 +104,39 @@ __device__ __forceinline__ bool ascii_window64(const unsigned char* __restrict__
   return ok;
 }
 
-// -- the tiled coverage front end ---------------------------------------
+// -- the tiled front end ---------------------------------------------
 //
-// A packed coverage launch (probe.cuh coverage_kernel: K7, K10's and K11's
-// coverage entries) writes out[rows, stride - k]: the window at base
-// r * stride + c for each column c < stride - k of row r. Each warp takes a
-// tile of 32 * RUN consecutive outputs of the flat index, RUN to a thread
-// (a block its warps' tiles in turn): it finds the tile's first and last
-// (row, column) (row_col: a multiply by the host's reciprocal of the row
-// width, no division), stages the packed words and validity bits the tile
-// spans in its own slice of shared memory with 16-byte loads (zeros past
-// n_words) and no block barrier, and each thread rolls its run of windows
-// along the stage: the first window built whole (a 64-bit cut of three
-// words, its 2-bit fields mirrored for the forward code and complemented
-// for the reverse complement), each next one by one base shifted in, or
-// k + 1 bases on where the run crosses into the next row, whose k skipped
-// positions it rolls through and writes nothing for. A window is valid
-// when its last k bases are (a count of the valid bases since the last
-// invalid one). The kernel then issues its run's probes together and
-// stores the run (store_run).
+// A tiled launch writes out[rows, width]: one output a window, the window
+// at base r * stride + c for each column c < width of row r. Two sources
+// hold the bases:
+//   PackedSource: packed ingest (probe.cuh coverage_kernel: K7, K10's and
+//     K11's packed coverage), rows of stride bases padded with invalid
+//     ones, width = stride - k;
+//   AsciiSource: ASCII rows of stride = len bytes with nothing between
+//     them (K7's quotcov23_rows, K5's canonical23_ascii), width = len - k
+//     + 1.
+// Each warp takes a tile of 32 * RUN consecutive outputs of the flat index,
+// RUN to a thread (a block its warps' tiles in turn): it finds the tile's
+// first and last (row, column) (row_col: a multiply by the host's
+// reciprocal of the row width, no division), and stages the bases the tile
+// spans in its own slice of shared memory, 16 bases to a word of 2-bit
+// codes and a validity bit a base, with 16-byte loads (zeros past the end)
+// and no block barrier. The packed source copies its words and validity
+// bits from an 8-word aligned start. The ASCII source codes the bytes as it
+// stages them, from a 16-byte aligned address: each lane loads 16 bytes,
+// codes them four to a 32-bit register (ACGT/acgt to 0-3, any other byte to
+// 3 and invalid, as ascii_window64 reads it) and writes one word of codes
+// and 16 validity bits; a load that would cross the buffer's start or end
+// is made a byte at a time. After one warp barrier each thread rolls its
+// run of windows along the stage: the first window built whole (a 64-bit
+// cut of three words, its 2-bit fields mirrored for the forward code and
+// complemented for the reverse complement), each next one by one base
+// shifted in, or stride - width + 1 bases on (k + 1 packed, k ASCII) where
+// the run crosses into the next row, whose skipped positions it rolls
+// through and writes nothing for. A window is valid when its last k bases
+// are (a count of the valid bases since the last invalid one). So each
+// byte or packed word is loaded and coded once a tile, not k times. The
+// kernel then uses its run (probes, keys) and stores it (store_run).
 
 // Outputs a block takes.
 template <int RUN>
@@ -124,14 +144,13 @@ constexpr long long tile_outputs() {
   return static_cast<long long>(dna13::BLOCK) * RUN;
 }
 
-// 32-bit words of packed bases a warp's stage takes for rows of `stride`
-// bases and k-mers (1 <= k < stride): from an 8-word aligned start (up to
-// 127 bases before the tile's first window) to 4 words past the last
-// window's last base, rounded to 8. A tile's outputs cross at most
-// (32 RUN - 1) / width + 1 row ends, each skipping k bases.
+// Stage words (16 bases each) a warp's slice takes for rows of `width`
+// windows of k bases (1 <= k <= 31), stride - width <= k: from a start up
+// to 127 bases before the tile's first window to 4 words past the last
+// window's last base, rounded to 8. A tile's outputs cross at most (32 RUN
+// - 1) / width + 1 row ends, each skipping at most k bases.
 template <int RUN>
-inline long long stage_words(long long stride, int k) {
-  const long long width = stride - k;
+inline long long stage_words(long long width, int k) {
   const long long span = 32 * RUN + static_cast<long long>(k) * ((32 * RUN - 1) / width + 2);
   return ((span + 127 + 15) / 16 + 4 + 7) / 8 * 8;
 }
@@ -146,6 +165,131 @@ inline size_t stage_bytes(long long words) {
 inline unsigned long long reciprocal(long long width) {
   return ~0ull / static_cast<unsigned long long>(width);
 }
+
+// Packed ingest: packed uint32[n_words] (16 bases a word, base 16 w + i in
+// bits 2i, 2i + 1 of word w) and vbits uint8[2 n_words] (a validity bit a
+// base); rows of stride bases.
+struct PackedSource {
+  const unsigned* packed;
+  const unsigned char* vbits;
+  long long n_words;
+  long long stride;
+  int k;
+
+  __host__ __device__ long long width() const { return stride - k; }
+
+  // The stage's first base for a tile whose first window starts at base p.
+  __device__ __forceinline__ long long stage_base(long long p) const {
+    return 16 * ((p >> 4) & ~7LL);
+  }
+
+  // The `words` packed words from base `base` and their validity bits
+  // (words a multiple of 8), a warp's lanes taking 16 bytes each in turn.
+  __device__ __forceinline__ void stage(unsigned* words_s, unsigned* valid, long long base,
+                                        int words, int lane) const {
+    const long long w0 = base >> 4;
+    const bool whole_p = (reinterpret_cast<uintptr_t>(packed) & 15) == 0;
+    for (int j = lane; j < words / 4; j += 32) {
+      const long long w = w0 + 4 * j;
+      uint4 v;
+      if (whole_p && w + 4 <= n_words) {
+        v = *reinterpret_cast<const uint4*>(packed + w);
+      } else {
+        v.x = w < n_words ? packed[w] : 0u;
+        v.y = w + 1 < n_words ? packed[w + 1] : 0u;
+        v.z = w + 2 < n_words ? packed[w + 2] : 0u;
+        v.w = w + 3 < n_words ? packed[w + 3] : 0u;
+      }
+      reinterpret_cast<uint4*>(words_s)[j] = v;
+    }
+    const long long n_bytes = 2 * n_words;
+    const bool whole_v = (reinterpret_cast<uintptr_t>(vbits) & 15) == 0;
+    for (int j = lane; j < words / 8; j += 32) {
+      const long long b = 2 * w0 + 16 * j;
+      uint4 v;
+      if (whole_v && b + 16 <= n_bytes) {
+        v = *reinterpret_cast<const uint4*>(vbits + b);
+      } else {
+        uint64_t lo = 0, hi = 0;
+        for (int i = 0; i < 16 && b + i < n_bytes; ++i) {
+          const uint64_t byte = vbits[b + i];
+          if (i < 8)
+            lo |= byte << (8 * i);
+          else
+            hi |= byte << (8 * (i - 8));
+        }
+        v = make_uint4(static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
+                       static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32));
+      }
+      reinterpret_cast<uint4*>(valid)[j] = v;
+    }
+  }
+};
+
+// 0x80 in each byte of x that is 0, 0 in the others (no borrow crosses a
+// byte).
+__device__ __forceinline__ unsigned zero_bytes(unsigned x) {
+  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x | 0x7F7F7F7Fu);
+}
+
+// The four ASCII bytes of x (the first in the low byte) coded: returns
+// their 2-bit codes, byte i in bits 2i, 2i + 1 (A/a 0, C/c 1, G/g 2, T/t 3,
+// any other byte 3), and writes their validity bits, byte i in bit i.
+__device__ __forceinline__ unsigned code_bytes4(unsigned x, unsigned* ok) {
+  const unsigned low = x | 0x20202020u;  // only A and a reach 'a', and so on
+  const unsigned hit = zero_bytes(low ^ 0x61616161u) | zero_bytes(low ^ 0x63636363u) |
+                       zero_bytes(low ^ 0x67676767u) | zero_bytes(low ^ 0x74747474u);
+  const unsigned one = hit >> 7;  // 1 in each valid byte
+  // bits 1-3 of a, c, g, t: ((x >> 1) ^ (x >> 2)) & 3 reads 0, 1, 2, 3
+  const unsigned c = (((x >> 1) ^ (x >> 2)) & 0x03030303u) | ((one ^ 0x01010101u) * 3u);
+  const unsigned two = c | (c >> 6);
+  const unsigned bits = one | (one >> 7);
+  *ok = (bits | (bits >> 14)) & 0xFu;
+  return (two | (two >> 12)) & 0xFFu;
+}
+
+// ASCII rows: ascii uint8[n_bytes], rows of stride bytes back to back.
+struct AsciiSource {
+  const unsigned char* ascii;
+  long long n_bytes;
+  long long stride;
+  int k;
+
+  __host__ __device__ long long width() const { return stride - k + 1; }
+
+  // The stage's first byte for a tile whose first window starts at byte p:
+  // the byte at the 16-byte aligned address at or before p's (it may lie
+  // up to 15 bytes before the buffer).
+  __device__ __forceinline__ long long stage_base(long long p) const {
+    return p - static_cast<long long>((reinterpret_cast<uintptr_t>(ascii) + p) & 15);
+  }
+
+  // The `words` words of 16 bytes from byte `base`, coded, and their
+  // validity bits; a lane a word, each lane's 16 bytes one aligned load
+  // where they lie in the buffer.
+  __device__ __forceinline__ void stage(unsigned* words_s, unsigned* valid, long long base,
+                                        int words, int lane) const {
+    unsigned short* valid16 = reinterpret_cast<unsigned short*>(valid);
+    for (int j = lane; j < words; j += 32) {
+      const long long b = base + 16LL * j;
+      uint4 v;
+      if (b >= 0 && b + 16 <= n_bytes) {
+        v = *reinterpret_cast<const uint4*>(ascii + b);
+      } else {
+        unsigned x[4] = {0u, 0u, 0u, 0u};
+        for (int i = 0; i < 16; ++i)
+          if (b + i >= 0 && b + i < n_bytes)
+            x[i >> 2] |= static_cast<unsigned>(ascii[b + i]) << (8 * (i & 3));
+        v = make_uint4(x[0], x[1], x[2], x[3]);
+      }
+      unsigned o0, o1, o2, o3;
+      const unsigned c0 = code_bytes4(v.x, &o0), c1 = code_bytes4(v.y, &o1);
+      const unsigned c2 = code_bytes4(v.z, &o2), c3 = code_bytes4(v.w, &o3);
+      words_s[j] = c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
+      valid16[j] = static_cast<unsigned short>(o0 | (o1 << 4) | (o2 << 8) | (o3 << 12));
+    }
+  }
+};
 
 // One thread's run: outputs [first, first + count) of the flat index, and
 // their windows' forward codes, reverse-complement codes and validity.
@@ -202,17 +346,17 @@ __device__ __forceinline__ void row_col(long long i, long long width, unsigned l
   *c = m;
 }
 
-// Stages the warp's tile in its slice of `stage` (n_stage =
-// stage_words<RUN>(stride, k) words of packed bases, then n_stage / 2
+// Stages the warp's tile of src's rows in its slice of `stage` (n_stage =
+// stage_words<RUN>(src.width(), src.k) words of codes, then n_stage / 2
 // words of validity bits, a slice a warp) and fills this thread's run.
 // Every lane of the warp calls it (one warp barrier).
-template <int RUN>
-__device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage,
-                                         const unsigned* __restrict__ packed,
-                                         const unsigned char* __restrict__ vbits,
-                                         long long n_words, long long rows, long long stride,
-                                         int k, unsigned long long recip, Run<RUN>* out) {
-  const long long width = stride - k;
+template <int RUN, class Src>
+__device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage, const Src& src,
+                                         long long rows, unsigned long long recip,
+                                         Run<RUN>* out) {
+  const int k = src.k;
+  const long long stride = src.stride;
+  const long long width = src.width();
   const long long n = rows * width;
   const int lane = threadIdx.x & 31;
   const long long t0 =
@@ -222,48 +366,14 @@ __device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage,
   unsigned* words_s = stage + (threadIdx.x >> 5) * (n_stage + n_stage / 2);
   unsigned* valid = words_s + n_stage;
   // the tile's first and last outputs' (row, column), its first staged
-  // word (8-word aligned) and its words
+  // base and its words
   long long r0, c0, r1, c1;
   row_col(t0, width, recip, &r0, &c0);
   row_col((t0 + 32 * RUN < n ? t0 + 32 * RUN : n) - 1, width, recip, &r1, &c1);
-  const long long w0 = ((r0 * stride + c0) >> 4) & ~7LL;
-  const long long end = r1 * stride + c1 + k - 16 * w0;
+  const long long base = src.stage_base(r0 * stride + c0);
+  const long long end = r1 * stride + c1 + k - base;
   const int words = static_cast<int>(((end + 15) / 16 + 4 + 7) / 8 * 8);
-  const bool whole_p = (reinterpret_cast<uintptr_t>(packed) & 15) == 0;
-  for (int j = lane; j < words / 4; j += 32) {
-    const long long w = w0 + 4 * j;
-    uint4 v;
-    if (whole_p && w + 4 <= n_words) {
-      v = *reinterpret_cast<const uint4*>(packed + w);
-    } else {
-      v.x = w < n_words ? packed[w] : 0u;
-      v.y = w + 1 < n_words ? packed[w + 1] : 0u;
-      v.z = w + 2 < n_words ? packed[w + 2] : 0u;
-      v.w = w + 3 < n_words ? packed[w + 3] : 0u;
-    }
-    reinterpret_cast<uint4*>(words_s)[j] = v;
-  }
-  const long long n_bytes = 2 * n_words;
-  const bool whole_v = (reinterpret_cast<uintptr_t>(vbits) & 15) == 0;
-  for (int j = lane; j < words / 8; j += 32) {
-    const long long b = 2 * w0 + 16 * j;
-    uint4 v;
-    if (whole_v && b + 16 <= n_bytes) {
-      v = *reinterpret_cast<const uint4*>(vbits + b);
-    } else {
-      uint64_t lo = 0, hi = 0;
-      for (int i = 0; i < 16 && b + i < n_bytes; ++i) {
-        const uint64_t byte = vbits[b + i];
-        if (i < 8)
-          lo |= byte << (8 * i);
-        else
-          hi |= byte << (8 * (i - 8));
-      }
-      v = make_uint4(static_cast<unsigned>(lo), static_cast<unsigned>(lo >> 32),
-                     static_cast<unsigned>(hi), static_cast<unsigned>(hi >> 32));
-    }
-    reinterpret_cast<uint4*>(valid)[j] = v;
-  }
+  src.stage(words_s, valid, base, words, lane);
   __syncwarp();
 
   out->first = t0 + static_cast<long long>(lane) * RUN;
@@ -281,7 +391,8 @@ __device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage,
       c -= static_cast<long long>(d) * width;
     }
   }
-  int q = static_cast<int>(r * stride + c - 16 * w0);
+  const int cross = static_cast<int>(stride - width) + 1;  // bases from a row's last window on
+  int q = static_cast<int>(r * stride + c - base);
   Window win(words_s, valid, q, k);
 #pragma unroll
   for (int j = 0; j < RUN; ++j) {
@@ -289,7 +400,7 @@ __device__ __forceinline__ void tile_run(unsigned* stage, long long n_stage,
       int steps = 1;
       if (++c == width) {
         c = 0;
-        steps = k + 1;
+        steps = cross;
       }
       for (int s = 0; s < steps; ++s, ++q) win.roll(words_s, valid, q + k, k);
     }

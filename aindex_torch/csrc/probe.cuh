@@ -1,7 +1,8 @@
 // The verified key -> (tf, slot) probes of the sparse index's two query
 // engines, the two query rules, and the kernels built on them: the query
-// kernel (K6, K10, K11), the coverage kernels (K7, K10, K11; and K7's
-// ASCII-rows entry) and the window -> slot step of the positional fill
+// kernel (K6, K10, K11), the coverage kernel (K7, K10, K11 on packed rows;
+// K7's ASCII-rows entry on ASCII rows) and the window -> slot step of the
+// positional fill
 // (K9, K10, K11; fill.cuh).
 //
 // Engines (aindex_tpu/index/sparse23.py:313-369 chooses between the
@@ -43,9 +44,11 @@
 // walk reads three g-words (a g-vector of a few MB, which L2 holds) and
 // then one 16-byte node record. The tables of the E. coli-scale index
 // (200-520 MB) are far beyond the 50 MB L2. Design: one thread per query;
-// a run of E::RUN windows a thread for the packed coverage, rolled along
-// a tile staged in shared memory (dna23::tile_run), with its probes issued
-// together (each engine's issue() and finish()); invalid inputs
+// a run of E::RUN windows a thread for the coverage of packed or ASCII
+// rows, rolled along a tile staged in shared memory (dna23::tile_run on a
+// PackedSource or an AsciiSource: each byte or word loaded and coded once
+// a tile, not once a window), with its probes issued together (each
+// engine's issue() and finish()); invalid inputs
 // read nothing; the record carries the slot; the 64-bit arithmetic
 // (revcomp, mix64 and the walk's 64-bit remainders) hides under the
 // memory latency.
@@ -392,25 +395,23 @@ int query(const void* const* p, const unsigned long long* u, const void* codes,
   return query_rule<E, false, false>(e, codes, valid, ascii, k, n, rule, tf, slot, strand, s);
 }
 
-// Per-position coverage of many rows of packed ingest at once, a warp a
-// tile of 32 * E::RUN outputs (dna23::tile_run: the tile's packed words
-// staged in shared memory, a run of E::RUN windows rolled a thread). Row r
-// holds its sequence from base r * stride, padded with invalid bases to
-// stride; its stride - k windows are written. Each thread issues its
-// valid windows' probes under the rule together (FWD_RC: the forward
-// codes, then the reverse complements of the misses, again together),
-// then applies the cutoff and stores its run.
-template <class E, int RULE>
+// Per-position coverage of many rows at once, a warp a tile of 32 * E::RUN
+// outputs (dna23::tile_run: the tile's bases staged in shared memory, a run
+// of E::RUN windows rolled a thread) from either source: packed ingest, row
+// r's sequence from base r * stride padded with invalid bases to stride,
+// its stride - k windows written; or ASCII rows of stride bytes, their
+// stride - k + 1 windows written. Each thread issues its valid windows'
+// probes under the rule together (FWD_RC: the forward codes, then the
+// reverse complements of the misses, again together), then applies the
+// cutoff and stores its run.
+template <class E, int RULE, class Src>
 __global__ void __launch_bounds__(dna13::BLOCK)
-    coverage_kernel(E e, const unsigned* __restrict__ packed,
-                    const unsigned char* __restrict__ vbits, long long n_words, long long rows,
-                    long long stride, int k, long long n_stage, unsigned long long recip,
+    coverage_kernel(E e, Src src, long long rows, long long n_stage, unsigned long long recip,
                     unsigned cutoff, unsigned* __restrict__ out) {
   constexpr int RUN = E::RUN;
   extern __shared__ uint4 stage[];
   dna23::Run<RUN> w;
-  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, packed, vbits, n_words, rows,
-                  stride, k, recip, &w);
+  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, src, rows, recip, &w);
   if (!w.count) return;
   uint64_t key[RUN];
   typename E::Pending pend[RUN];
@@ -442,6 +443,23 @@ __global__ void __launch_bounds__(dna13::BLOCK)
   dna23::store_run(out, w.first, w.count, tf);
 }
 
+// One coverage launch of the rows of src (rows >= 1, width >= 1): a block
+// a tile of E::RUN * BLOCK outputs; refuses more than 2^31 - 1 tiles or
+// rows * stride at or above 2^52.
+template <class E, int RULE, class Src>
+int launch_coverage(const E& e, const Src& src, long long rows, unsigned cutoff, void* out,
+                    void* stream) {
+  constexpr long long TILE = dna23::tile_outputs<E::RUN>();
+  const long long width = src.width();
+  const long long tiles = (rows * width + TILE - 1) / TILE;
+  if (tiles > 0x7FFFFFFFLL || rows * src.stride >= (1LL << 52)) return BAD;
+  const long long n_stage = dna23::stage_words<E::RUN>(width, src.k);
+  coverage_kernel<E, RULE, Src><<<static_cast<unsigned>(tiles), dna13::BLOCK,
+                                  dna23::stage_bytes(n_stage), static_cast<cudaStream_t>(stream)>>>(
+      e, src, rows, n_stage, dna23::reciprocal(width), cutoff, static_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The coverage entry of an engine: packed uint32[n_words] and vbits
 // uint8[2 * n_words] hold rows * stride bases (below 2^52); rule CANON or
 // FWD_RC; out uint32[rows, stride - k].
@@ -453,64 +471,24 @@ int coverage(const void* const* p, const unsigned long long* u, const void* pack
   E e;
   if (k < 1 || k > 31 || (rule != CANON && rule != FWD_RC) || E::make(p, u, &e) != 0)
     return BAD;
-  constexpr long long TILE = dna23::tile_outputs<E::RUN>();
-  const long long tiles = (rows * (stride - k) + TILE - 1) / TILE;
-  if (tiles > 0x7FFFFFFFLL || rows * stride >= (1LL << 52)) return BAD;
-  const long long n_stage = dna23::stage_words<E::RUN>(stride, k);
-  const size_t smem = dna23::stage_bytes(n_stage);
-  const unsigned long long recip = dna23::reciprocal(stride - k);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* pk = static_cast<const unsigned*>(packed);
-  const auto* vb = static_cast<const unsigned char*>(vbits);
-  auto* o = static_cast<unsigned*>(out);
-  const unsigned grid = static_cast<unsigned>(tiles);
-  if (rule == CANON)
-    coverage_kernel<E, CANON><<<grid, dna13::BLOCK, smem, s>>>(e, pk, vb, n_words, rows, stride,
-                                                                 k, n_stage, recip, cutoff, o);
-  else
-    coverage_kernel<E, FWD_RC><<<grid, dna13::BLOCK, smem, s>>>(e, pk, vb, n_words, rows, stride,
-                                                                  k, n_stage, recip, cutoff, o);
-  return static_cast<int>(cudaGetLastError());
+  const dna23::PackedSource src{static_cast<const unsigned*>(packed),
+                                static_cast<const unsigned char*>(vbits), n_words, stride, k};
+  if (rule == CANON) return launch_coverage<E, CANON>(e, src, rows, cutoff, out, stream);
+  return launch_coverage<E, FWD_RC>(e, src, rows, cutoff, out, stream);
 }
 
-// Per-position coverage of ASCII rows: one thread per (row, window) reads
-// the window's k bytes (dna23::ascii_window64), applies the rule's probes
-// and writes the tf (0 for an invalid or absent window), uint32[rows, len -
-// k + 1] out. No cutoff: quotcuckoo.py:329 quot_tf_windows has none.
-template <class E, int RULE>
-__global__ void coverage_rows_kernel(E e, const unsigned char* __restrict__ ascii,
-                                     long long rows, long long len, int k,
-                                     unsigned* __restrict__ out) {
-  const long long width = len - k + 1;
-  const long long n = rows * width;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const long long r = i / width;
-    uint64_t code;
-    unsigned tf = 0u;
-    if (dna23::ascii_window64(ascii + r * len + (i - r * width), k, &code)) {
-      long long ref;
-      int strand;
-      if (!resolve<E, RULE>(e, code, k, &tf, &ref, &strand)) tf = 0u;
-    }
-    out[i] = tf;
-  }
-}
-
-// The ASCII-rows coverage entry of an engine, canonical rule: ascii
-// uint8[rows, len] (row-major), out uint32[rows, len - k + 1].
+// The ASCII-rows coverage entry of an engine, canonical rule, no cutoff
+// (quotcuckoo.py:329 quot_tf_windows has none): ascii uint8[rows, len]
+// (row-major), out uint32[rows, len - k + 1], the tf of each window (0 for
+// an invalid or absent one), on the same tiles as the packed entry.
 template <class E>
 int coverage_rows(const void* const* p, const unsigned long long* u, const void* ascii,
                   long long rows, long long len, int k, void* out, void* stream) {
   E e;
   if (k < 1 || k > 31 || E::make(p, u, &e) != 0) return BAD;
   if (rows <= 0 || len < k) return 0;
-  const long long n = rows * (len - k + 1);
-  coverage_rows_kernel<E, CANON><<<dna13::grid_for(n), dna13::BLOCK, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      e, static_cast<const unsigned char*>(ascii), rows, len, k, static_cast<unsigned*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const dna23::AsciiSource src{static_cast<const unsigned char*>(ascii), rows * len, len, k};
+  return launch_coverage<E, CANON>(e, src, rows, 0u, out, stream);
 }
 
 }  // namespace probe

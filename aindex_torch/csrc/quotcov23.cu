@@ -12,12 +12,16 @@
 // Its entry quotcov23_rows replaces aindex_tpu/index/quotcuckoo.py:329
 // quot_tf_windows: the same coverage from ASCII rows (uint8[B, L] ->
 // uint32[B, L - k + 1]), canonical probes, no cutoff (probe.cuh
-// coverage_rows_kernel on probe::Buckets).
+// coverage_kernel on a dna23::AsciiSource).
 //
 // Bound: random reads of the table, as in quot23: one aligned 64-byte
 // bucket a window (a second for the ~1% of keys whose bucket overflowed);
 // the packed input is 0.375 bytes a base (ASCII rows 1 byte) and read
-// coalesced. Design: one thread per (row, window), with quot23's probe.
+// coalesced. Design (both entries): a warp a tile of 32 x 2 consecutive
+// windows (Buckets::RUN), its bases staged in shared memory with 16-byte
+// loads (ASCII bytes coded to 2-bit codes and validity bits as they are
+// staged), each thread's two windows rolled along the stage and their
+// buckets loaded together, the bucket matched by selects in registers.
 #include "probe.cuh"
 
 DNA13_EXPORT_ERROR_STRING

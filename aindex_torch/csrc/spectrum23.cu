@@ -11,7 +11,12 @@
 // from ASCII bytes (1-D, or [B, L] rows whose windows stay in their row),
 // and canonical23_ascii replaces index/sparse23.py:38 _extract_canonical:
 // the windows of step 1 alone, every window's canonical code and its
-// valid flag out.
+// valid flag out. Its bound is bytes (the chunk in, 9 bytes a window out:
+// 41.9 MB for a 2^22-byte chunk), so it runs on the staged ASCII front end
+// (dna23.cuh tile_run on an AsciiSource): a warp stages a tile's bytes in
+// shared memory with 16-byte loads, coding each byte once, and each thread
+// rolls CANONICAL_RUN windows along it and writes their keys with 16-byte
+// and their flags with one CANONICAL_RUN-byte streaming store.
 //
 // Bound: the sort. A 2^22-byte chunk gives 4.19M windows of 8-byte keys
 // (about 3.5M valid on the corpus); only the 2k = 46 significant bits are
@@ -87,20 +92,63 @@ struct Keys {
   }
 };
 
-// canonical23_ascii: every window's canonical code and valid flag.
-__global__ void ascii_windows_kernel(const unsigned char* __restrict__ ascii, long long len,
-                                     int k, long long n_win,
-                                     unsigned long long* __restrict__ keys,
-                                     bool* __restrict__ flags) {
-  const AsciiWindows src{ascii, len, len - k + 1, k};
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; p < n_win;
-       p += step) {
-    unsigned long long key;
-    unsigned unused;
-    flags[p] = src(p, key, unused);
-    keys[p] = key;
+// Windows a thread of canonical23_ascii rolls: each tile's fixed cost
+// (finding its rows, staging and coding its bytes, building each run's
+// first window) shared by more windows (PERF.md section 6: 2, 4 and 8
+// measured, 8 fastest).
+constexpr int CANONICAL_RUN = 8;
+
+// Stores a run of canonical23_ascii: its keys with 16-byte and its flags
+// with one RUN-byte store where the run is whole and aligned, else one
+// store an output; streamed past L2.
+template <int RUN>
+__device__ __forceinline__ void store_keys(unsigned long long* __restrict__ keys,
+                                           bool* __restrict__ flags, long long first, int count,
+                                           const unsigned long long (&key)[RUN],
+                                           const bool (&ok)[RUN]) {
+  if (RUN % 2 == 0 && count == RUN && (reinterpret_cast<uintptr_t>(keys) & 15) == 0) {
+    ulonglong2* o = reinterpret_cast<ulonglong2*>(keys + first);
+#pragma unroll
+    for (int j = 0; j < RUN / 2; ++j) __stcs(o + j, make_ulonglong2(key[2 * j], key[2 * j + 1]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j)
+      if (j < count) __stcs(keys + first + j, key[j]);
   }
+  unsigned long long bytes = 0;
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) bytes |= static_cast<unsigned long long>(ok[j]) << (8 * j);
+  unsigned char* f = reinterpret_cast<unsigned char*>(flags + first);
+  const bool whole = count == RUN && (reinterpret_cast<uintptr_t>(f) & (RUN - 1)) == 0;
+  if (RUN == 8 && whole) {
+    __stcs(reinterpret_cast<unsigned long long*>(f), bytes);
+  } else if (RUN == 4 && whole) {
+    __stcs(reinterpret_cast<unsigned*>(f), static_cast<unsigned>(bytes));
+  } else if (RUN == 2 && whole) {
+    __stcs(reinterpret_cast<unsigned short*>(f), static_cast<unsigned short>(bytes));
+  } else {
+#pragma unroll
+    for (int j = 0; j < RUN; ++j)
+      if (j < count) __stcs(f + j, static_cast<unsigned char>(ok[j]));
+  }
+}
+
+// canonical23_ascii: every window's canonical code min(fwd, rc) and valid
+// flag, a warp a tile of 32 * RUN windows rolled along its staged bytes
+// (dna23::tile_run on dna23::AsciiSource).
+template <int RUN>
+__global__ void __launch_bounds__(dna13::BLOCK)
+    canonical_kernel(dna23::AsciiSource src, long long rows, long long n_stage,
+                     unsigned long long recip, unsigned long long* __restrict__ keys,
+                     bool* __restrict__ flags) {
+  extern __shared__ uint4 stage[];
+  dna23::Run<RUN> w;
+  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, src, rows, recip, &w);
+  if (!w.count) return;
+  unsigned long long key[RUN];
+#pragma unroll
+  for (int j = 0; j < RUN; ++j) key[j] = w.rc[j] < w.fwd[j] ? w.rc[j] : w.fwd[j];
+  store_keys(keys, flags, w.first, w.count, key, w.ok);
 }
 
 template <class Src>
@@ -155,15 +203,20 @@ extern "C" int spectrum23_ascii(const void* ascii, long long rows, long long len
 }
 
 // ASCII rows as spectrum23_ascii takes them -> keys_out uint64[rows, len -
-// k + 1], the canonical code of every window (invalid ones included), and
-// valid_out bool[rows, len - k + 1]. Returns cudaGetLastError().
+// k + 1], the canonical code of every window (invalid ones included, a
+// byte outside ACGT/acgt read as 3), and valid_out bool[rows, len - k + 1].
+// Returns cudaGetLastError().
 extern "C" int canonical23_ascii(const void* ascii, long long rows, long long len, int k,
                                  void* keys_out, void* valid_out, void* stream) {
   if (bad_rows(rows, len, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = rows * (len - k + 1);
-  ascii_windows_kernel<<<dna13::grid_for(n), dna13::BLOCK, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(ascii), len, k, n,
-      static_cast<unsigned long long*>(keys_out), static_cast<bool*>(valid_out));
+  constexpr int RUN = CANONICAL_RUN;
+  constexpr long long TILE = dna23::tile_outputs<RUN>();
+  const dna23::AsciiSource src{static_cast<const unsigned char*>(ascii), rows * len, len, k};
+  const long long width = src.width();
+  const long long n_stage = dna23::stage_words<RUN>(width, k);
+  canonical_kernel<RUN><<<static_cast<unsigned>((rows * width + TILE - 1) / TILE), dna13::BLOCK,
+                          dna23::stage_bytes(n_stage), static_cast<cudaStream_t>(stream)>>>(
+      src, rows, n_stage, dna23::reciprocal(width), static_cast<unsigned long long*>(keys_out),
+      static_cast<bool*>(valid_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,13 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [parent=DIR]
 
 ``parent=DIR`` names a checkout of an earlier commit (``git archive`` of it
-unpacked into ``dist/parent``): its K1, K2, K4, K15, K6, K7, K10 and K11's
-coverage (``count13.cu``, ``total13.cu``, ``coverage13.cu``, ``quot23.cu``,
-``quotcov23.cu``, ``cuckoo64.cu``, ``mphfwalk.cu``) are then built and
-timed beside this tree's (K6 and K10 on the layout that checkout uploads;
-each coverage entry through this tree's wrapper) in steps 2, 4, 7, 9 and
-13.
+unpacked into ``dist/parent``): its K1, K2, K4, K15, K6, K7 (both
+entries), K10 and K11's coverage and K5's canonical23_ascii
+(``count13.cu``, ``total13.cu``, ``coverage13.cu``, ``quot23.cu``,
+``quotcov23.cu``, ``cuckoo64.cu``, ``mphfwalk.cu``, ``spectrum23.cu``) are
+then built and timed beside this tree's (K6 and K10 on the layout that
+checkout uploads; each coverage entry and canonical23_ascii through this
+tree's wrapper) in steps 2, 4, 7, 9 and 13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
    builds the sixteen CUDA kernels (K1-K16, twenty-six C entries) from
@@ -103,6 +104,15 @@ each coverage entry through this tree's wrapper) in steps 2, 4, 7, 9 and
    weight 255, timed) and on codes at every bin edge of spaces 2^15 - 1,
    2^15, 2^15 + 1, 2^18 + 1, 4^13 and 2^26 + 1; with ``parent=DIR``, that
    checkout's K15 on the corpus codes, equal, each timed twice in turns.
+   Then the two kernels of the staged ASCII front end (csrc/dna23.cuh
+   ``AsciiSource``), exactly at its edge shapes (``ascii_edges``: rows of
+   k and k + 1 bytes, 64 rows of 30, one row of 2^16 + 5, all N,
+   lowercase and N mixed, a last tile ending mid-run, a [4096, 1024] view
+   3 bytes past alignment; canonical23_ascii at k = 11, 23 and 31,
+   quotcov23_rows at k = 23 and on a corpus chunk as one row), each timed
+   four ways (``clocks``): quotcov23_rows on 8 batches of 10,000 reads
+   beside K7 and the random-read floor, canonical23_ascii on 8 corpus
+   chunks beside its byte bound, with ``parent=DIR`` beside the parent's.
 10. Holds K8 (CSR offsets) against its plain version on the dense 4^13 table
    and the sparse index's tf, beside ``torch.cumsum``, and K9 (the
    positional fill of one chunk) on a 2^22-byte corpus chunk of each kind
@@ -389,6 +399,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the entries on the tiled front end (csrc/dna23.cuh tile_run), whose
+#: kernels must keep their windows and buckets in registers
+TILED = ("quotcov23", "quotcov23_rows", "cuckoocov64", "mphfcov", "canonical23_ascii")
+
+
+def stack_frames(log: str) -> dict[str, int]:
+    """Stack frame bytes of each function of an ``nvcc -Xptxas=-v`` log,
+    by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name is not None and "bytes stack frame" in line:
+            out[name] = int(line.split("bytes stack frame")[0].split()[-1])
+            name = None
+    return out
+
+
 def bound_ms(n_bytes: float) -> float:
     """The least time to move ``n_bytes`` at the published memory rate."""
     return n_bytes / HBM_BYTES_PER_S * 1e3
@@ -443,13 +471,14 @@ def report(card, name, shape, rec):
 #: the count of a build's chunks and the tile pairs; the four packed
 #: coverage entries' (K4, K7, K10's and K11's) from PR 14's final call
 #: (K11's from PR 11's), before the bucket match kept in registers and the
-#: tiled front end
+#: tiled front end; K7's ASCII-rows entry and K5's canonical23_ascii as
+#: PERF.md section 6 recorded them before the staged ASCII front end
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0531, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
               "posbucket": 0.2792, "posfill_pairs": 0.5888, "quot23": 3.4678,
-              "quotcov23": 0.0751, "quotcov23_rows": 0.0528, "cuckoo64": 3.6817,
+              "quotcov23": 0.0751, "quotcov23_rows": 0.0622, "canonical23_ascii": 0.1254, "cuckoo64": 3.6817,
               "cuckoocov64": 0.0724, "coverage13_packed": 0.0310, "shardwalk": 5.3189, "scatter_count": 6.9395,
               "count13_packed": 6.3952, "total13": 2.2774}
 
@@ -978,19 +1007,21 @@ def engine_edges_vs_plain(dev, card: str, index) -> None:
 
 @functools.lru_cache(maxsize=2)
 def parent_engines(parent: str) -> dict:
-    """The K6, K7 and K10 query and coverage entries, K4, K11's coverage,
-    K1, K15 and K2 of the checkout at ``parent`` (its ``quot23.cu``,
-    ``quotcov23.cu``, ``cuckoo64.cu``, ``coverage13.cu``, ``mphfwalk.cu``,
-    ``count13.cu`` and ``total13.cu``, one nvcc each, all started
+    """The K6, K7 and K10 query and coverage entries, K7's ASCII-rows entry,
+    K4, K11's coverage, K1, K15, K2 and K5's canonical23_ascii of the
+    checkout at ``parent`` (its ``quot23.cu``, ``quotcov23.cu``,
+    ``cuckoo64.cu``, ``coverage13.cu``, ``mphfwalk.cu``, ``count13.cu``,
+    ``total13.cu`` and ``spectrum23.cu``, one nvcc each, all started
     together), by name."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent, "aindex_torch", "csrc")
-    sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23",),
+    sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23", "quotcov23_rows"),
                "cuckoo64": ("cuckoo64", "cuckoocov64"),
                "coverage13": ("coverage13_packed",), "mphfwalk": ("mphfcov",),
-               "count13": ("scatter_count", "count13_packed"), "total13": ("total13",)}
+               "count13": ("scatter_count", "count13_packed"), "total13": ("total13",),
+               "spectrum23": ("canonical23_ascii",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc, f"{src}.cu")],
@@ -1111,9 +1142,11 @@ def parent_kernel(name: str):
         kern._lib = own
 
 
-def device_ms_per_call(fn, calls, tries: int = 3) -> tuple[float, int]:
-    """(torch.profiler's mean device time of the coverage kernels that
-    ``fn(b)`` launches for b in ``calls``, the launches the trace holds).
+def device_ms_per_call(fn, calls, tries: int = 3,
+                       kernel: tuple = ("coverage",)) -> tuple[float, int]:
+    """(torch.profiler's mean device time of the kernels that ``fn(b)``
+    launches for b in ``calls`` whose names hold a word of ``kernel``, the
+    launches the trace holds).
     A trace taken late in a long process can come back short of its
     events, so the mean is over those it holds, and a trace holding fewer
     than half the launches is taken again, up to ``tries`` times."""
@@ -1127,7 +1160,8 @@ def device_ms_per_call(fn, calls, tries: int = 3) -> tuple[float, int]:
                 fn(b)
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and "coverage" in e.name]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(word in e.name for word in kernel)]
         best = spans if len(spans) > len(best) else best
         if 2 * len(best) >= len(calls):
             break
@@ -1135,8 +1169,10 @@ def device_ms_per_call(fn, calls, tries: int = 3) -> tuple[float, int]:
 
 
 def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float,
-           footprint: int, reps: int = 48) -> dict:
-    """The coverage entry ``name`` through its wrapper, ``fn(b)`` on the
+           footprint: int, reps: int = 48, kernel: tuple = ("coverage",),
+           floor_what: str = "random-read floor", footprint_what: str = "table") -> dict:
+    """The kernel entry ``name`` (its device kernels named by a word of
+    ``kernel``) through its wrapper, ``fn(b)`` on the
     uploaded batch b < ``n_batches``, timed by this tree's kernel and, with
     ``parent=DIR``, the parent's in the same wrapper (``parent_kernel``),
     in turns (this, parent, parent, this), after both gave equal answers
@@ -1150,7 +1186,7 @@ def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float
     * host: the host clock a call of the rotation, with no synchronize
       (the wrapper's Python and the launch).
 
-    Prints them beside the random-read floor; returns tree -> clock ->
+    Prints them beside the floor (``floor_what``); returns tree -> clock ->
     [ms, ...]."""
     import torch
     trees = {"this tree": contextlib.nullcontext}
@@ -1159,8 +1195,10 @@ def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float
         for b in range(n_batches):
             mine = fn(b)
             with parent_kernel(name):
-                max_abs_err(mine, fn(b))
-        del mine
+                theirs = fn(b)
+            for x, y in zip(*(v if isinstance(v, tuple) else (v,) for v in (mine, theirs))):
+                max_abs_err(x, y)
+        del mine, theirs
     rotation = [b % n_batches for b in range(reps)]
     out = {tree: {c: [] for c in ("warm", "cold", "device cold", "device warm", "host")}
            for tree in trees}
@@ -1172,7 +1210,7 @@ def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float
             turn = itertools.cycle(range(n_batches))
             got["cold"].append(cuda_ms(lambda: fn(next(turn)), reps))
             for clock, bs in (("device cold", rotation), ("device warm", [0] * reps)):
-                ms, ops = device_ms_per_call(fn, bs)
+                ms, ops = device_ms_per_call(fn, bs, kernel=kernel)
                 check(ops <= reps, f"{name}: one device operation a call ({ops} for {reps})")
                 if ops < reps:
                     print(f"{name} {label}, {tree}: the {clock} trace holds {ops} of {reps} "
@@ -1186,8 +1224,8 @@ def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float
     for tree, got in out.items():
         print(f"{name} {label}, {tree}: " + ", ".join(
             f"{c} " + " / ".join(f"{v:.4f}" for v in vals) for c, vals in got.items())
-            + f" ms; random-read floor {floor_ms:.4f} ms; cold rotation {n_batches} batches, "
-            f"{footprint / 1e6:.1f} MB of table ({card})")
+            + f" ms; {floor_what} {floor_ms:.4f} ms; cold rotation {n_batches} batches, "
+            f"{footprint / 1e6:.1f} MB of {footprint_what} ({card})")
     SIDE_MS[f"{name} {label}, clocks"] = {f"{tree} {c}": vals for tree, got in out.items()
                                           for c, vals in got.items()}
     return out
@@ -2749,6 +2787,103 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
          lambda: quot_tf_windows(t, rows, K23), lambda: quot_tf_windows_plain(t, rows, K23),
          0, 0, 0, timed=False)
     return res
+
+
+# -- phase 9b: the staged ASCII front end (quotcov23_rows, canonical23_ascii) --
+
+def ascii_edges(dev, rows_of, k: int) -> list:
+    """(tag, uint8 rows on the card) of the shapes where the staged ASCII
+    front end (csrc/dna23.cuh AsciiSource and tile_run) could break, rows
+    from ``rows_of(n, length)``: rows of k and of k + 1 bytes (one and two
+    windows a row), 64 rows of 30 bytes (narrower than a tile; k <= 30),
+    one row of 2^16 + 5 bytes, rows of all N, lowercase and N mixed in, 7
+    rows of 100 (a last tile that ends mid-run), and a [4096, 1024] view of
+    a 1-D buffer at a 3-byte offset (its rows off 16-byte alignment)."""
+    import torch
+    rng = np.random.default_rng(k)
+    mats = [(f"5000 rows of k = {k} bytes", rows_of(5000, k)),
+            (f"5000 rows of k + 1 = {k + 1} bytes", rows_of(5000, k + 1))]
+    if k <= 30:
+        mats.append(("64 rows of 30 bytes", rows_of(64, 30)))
+    mats.append(("one row of 2^16 + 5 bytes", rows_of(1, (1 << 16) + 5).reshape(-1)))
+    mats.append((f"40 rows of {READ_LEN + 1} N", np.full((40, READ_LEN + 1), ord("N"), np.uint8)))
+    mixed = rows_of(64, READ_LEN + 1)
+    mixed[rng.random(mixed.shape) < 0.3] |= 0x20
+    mixed[rng.random(mixed.shape) < 0.02] = ord("N")
+    mats.append((f"64 rows of {READ_LEN + 1}, lowercase and N mixed in", mixed))
+    mats.append(("7 rows of 100, the last tile ending mid-run", rows_of(7, 100)))
+    out = [(tag, torch.from_numpy(np.ascontiguousarray(m)).to(dev)) for tag, m in mats]
+    buf = torch.from_numpy(rows_of(1, 4096 * 1024 + 3).reshape(-1)).to(dev)
+    view = buf[3:].view(4096, 1024)
+    check(view.is_contiguous() and view.data_ptr() % 16 == 3, "a view 3 bytes past alignment")
+    out.append(("[4096, 1024] view of a 1-D buffer at a 3-byte offset", view))
+    return out
+
+
+def ascii_front_end(dev, card: str, reads: np.ndarray, index) -> None:
+    """The two kernels on the staged ASCII front end: canonical23_ascii at
+    k = 11, 23 and 31 and quotcov23_rows at k = 23 held exactly to their
+    plain versions at ascii_edges' shapes (rows cut from the corpus reads,
+    0.3% N) and on a 2^22-byte corpus chunk as one row; then each timed
+    four ways (clocks), with parent=DIR beside the parent's entry in turns:
+    quotcov23_rows on N_COLD batches of 10,000 x 150 corpus reads, beside
+    K7 on the same reads packed (quot_vs_plain's clocks) and the
+    random-read floor; canonical23_ascii on N_COLD corpus chunks of 2^22
+    bytes, beside its byte bound."""
+    import torch
+    from aindex_torch.core.reads import blob_chunks
+    from aindex_torch.kernels.encode import ascii_to_base_codes, canonical_code64, window_codes
+    from aindex_torch.kernels.quot import quot_tf_windows, quot_tf_windows_plain
+    from aindex_torch.kernels.spectrum import ascii_canonical, ascii_canonical_plain
+    t = index.tables
+    rng = np.random.default_rng(89)
+    flat = reads.reshape(-1)
+
+    def rows_of(n, length):
+        start = rng.integers(0, flat.size - length, n)
+        mat = flat[start[:, None] + np.arange(length)[None, :]]
+        mat[rng.random(mat.shape) < 0.003] = ord("N")
+        return mat
+    chunks = [torch.from_numpy(piece).to(dev) for piece, _ in itertools.islice(
+        blob_chunks(corpus_blob(reads), K23, CHUNK_BYTES), N_COLD)]
+    for k in (11, K23, 31):
+        shapes = ascii_edges(dev, rows_of, k)
+        if k == K23:
+            shapes.append(("a 2^22-byte corpus chunk as one row", chunks[0]))
+        for tag, x in shapes:
+            for a, b in zip(ascii_canonical(x, k), ascii_canonical_plain(x, k)):
+                max_abs_err(a, b)
+            if k == K23:
+                max_abs_err(quot_tf_windows(t, x, k), quot_tf_windows_plain(t, x, k))
+        print(f"canonical23_ascii k={k}{' and quotcov23_rows' if k == K23 else ''} edge shapes "
+              f"== plain: {'; '.join(tag for tag, _ in shapes)} ({card})")
+        del shapes
+
+    batches = [torch.from_numpy(reads[i * N_SEQ:(i + 1) * N_SEQ]).to(dev) for i in range(N_COLD)]
+    n_reads, sectors = 0, []
+    for b in batches:
+        codes, valid = window_codes(ascii_to_base_codes(b), K23)
+        n, sec = table_reads(t, canonical_code64(codes[valid], K23))
+        n_reads = n_reads or n
+        sectors.append(sec)
+    footprint = int(torch.unique(torch.cat(sectors)).numel()) * 64
+    floor = n_reads / READ_RATE[64] * 1e3
+    rows = clocks(card, f"{N_SEQ} x {READ_LEN}, k={K23}", "quotcov23_rows",
+                  lambda b: quot_tf_windows(t, batches[b], K23), N_COLD, floor, footprint)
+    k7 = SIDE_MS.get(f"quotcov23 cutoff 0, {N_SEQ} x {READ_LEN + 1}, k={K23}, clocks", {})
+    print(f"quotcov23_rows beside K7 on the same {N_SEQ * (READ_LEN - K23 + 1)} windows, device "
+          f"cold: " + " / ".join(f"{v:.4f}" for v in rows["this tree"]["device cold"])
+          + " ms, K7 " + " / ".join(f"{v:.4f}" for v in k7.get("this tree device cold", []))
+          + f" ms; random-read floor {floor:.4f} ms ({card})")
+    del batches, sectors
+    n_win = chunks[0].numel() - K23 + 1
+    clocks(card, f"corpus chunk of {chunks[0].numel()} bytes, k={K23}", "canonical23_ascii",
+           lambda b: ascii_canonical(chunks[b], K23), len(chunks),
+           bound_ms(chunks[0].numel() + 9 * n_win), sum(c.numel() for c in chunks),
+           kernel=("canonical", "ascii_windows"), floor_what="byte bound",
+           footprint_what="chunks")
+    del chunks
+    torch.cuda.empty_cache()
 
 
 # -- phase 10: K8 and K9 against their plain versions --------------------------
@@ -4487,6 +4622,15 @@ def main() -> int:
         spills = sum("0 bytes spill stores" not in line
                      for line in k.build_log.splitlines() if "spill stores" in line)
         print(f"  {k.name}: registers per thread {regs}, instantiations with spills {spills}")
+    built = [name for name in TILED if _cuda.KERNELS[name].build_log]
+    for name in built:
+        frames = {f: b for f, b in stack_frames(_cuda.KERNELS[name].build_log).items()
+                  if "coverage_kernel" in f or "canonical_kernel" in f}
+        check(bool(frames) and not any(frames.values()),
+              f"{name}: the tiled kernels' stack frames are 0 bytes ({frames})")
+    print(f"tiled front-end kernels of {', '.join(built)}: 0-byte stack frames"
+          + (f"; {', '.join(sorted(set(TILED) - set(built)))}: libraries built by an earlier "
+             "process, not read" if len(built) < len(TILED) else ""))
 
     t0 = time.perf_counter()
     width_test(dev, card)
@@ -4556,6 +4700,9 @@ def main() -> int:
         measured.update(ascii_kernels_vs_plain(dev, card, reads, table, index))
         print(f"phase ascii kernels-vs-plain: {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ascii_front_end(dev, card, reads, index)
+        print(f"phase ascii front end: {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         measured.update(positional_vs_plain(dev, card, reads, table, index))

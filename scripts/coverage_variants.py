@@ -59,8 +59,8 @@ __global__ void __launch_bounds__(dna13::BLOCK)
              unsigned* __restrict__ out) {
   extern __shared__ uint4 stage[];
   dna23::Run<RUN> w;
-  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, packed, vbits, n_words, rows,
-                  stride, dna13::K, recip, &w);
+  const dna23::PackedSource src{packed, vbits, n_words, stride, dna13::K};
+  dna23::tile_run(reinterpret_cast<unsigned*>(stage), n_stage, src, rows, recip, &w);
   if (!w.count) return;
   unsigned tf[RUN];
 #pragma unroll
@@ -73,7 +73,7 @@ template <typename T>
 void launch(const void* table, const void* packed, const void* vbits, long long n_words,
             long long rows, long long stride, unsigned cutoff, void* out, cudaStream_t s) {
   constexpr long long TILE = dna23::tile_outputs<RUN>();
-  const long long n_stage = dna23::stage_words<RUN>(stride, dna13::K);
+  const long long n_stage = dna23::stage_words<RUN>(stride - dna13::K, dna13::K);
   k4_tiled<T><<<static_cast<unsigned>((rows * (stride - dna13::K) + TILE - 1) / TILE),
                 dna13::BLOCK, dna23::stage_bytes(n_stage), s>>>(
       static_cast<const T*>(table), static_cast<const unsigned*>(packed),
@@ -171,11 +171,11 @@ def entry(lib, name: str):
 
 
 def side_by_side(card: str, label: str, name: str, fn, n_batches: int, others: dict,
-                 reps: int = 48) -> None:
+                 reps: int = 48, kernel: tuple = ("coverage",)) -> None:
     """This tree's kernel ``name`` and each of ``others`` (tag -> C entry)
     through this tree's wrapper ``fn(b)``: equal answers on every batch,
-    then device time a launch (cold rotation) and warm CUDA events, each
-    twice in turns."""
+    then device time a launch (cold rotation; device kernels named by a
+    word of ``kernel``) and warm CUDA events, each twice in turns."""
     import chip_smoke as c
     from aindex_torch.kernels import _cuda
     kern = _cuda.KERNELS[name]
@@ -184,17 +184,19 @@ def side_by_side(card: str, label: str, name: str, fn, n_batches: int, others: d
     for tag, f in others.items():
         libs[tag] = types.SimpleNamespace(**{name: f,
                                              "dna13_error_string": own.dna13_error_string})
-    ref = [fn(b).clone() for b in range(n_batches)]
+    ref = [fn(b) for b in range(n_batches)]
     times = {tag: [] for tag in libs}
     try:
         for tag, lib in libs.items():
             kern._lib = lib
             for b in range(n_batches):
-                c.max_abs_err(fn(b), ref[b])
+                got = fn(b)
+                for x, y in zip(*((v if isinstance(v, tuple) else (v,)) for v in (got, ref[b]))):
+                    c.max_abs_err(x, y)
         rotation = [b % n_batches for b in range(reps)]
         for tag in list(libs) + list(libs)[::-1]:
             kern._lib = libs[tag]
-            times[tag].append((c.device_ms_per_call(fn, rotation)[0],
+            times[tag].append((c.device_ms_per_call(fn, rotation, kernel=kernel)[0],
                                c.cuda_ms(lambda: fn(0), reps)))
     finally:
         kern._lib = own
@@ -204,15 +206,16 @@ def side_by_side(card: str, label: str, name: str, fn, n_batches: int, others: d
               + f" ms ({card})")
 
 
-def sass_counts(lib: str) -> None:
-    """Per coverage kernel of ``lib``: its LDL, STL, LDG and STG."""
+def sass_counts(lib: str, words: tuple = ("coverage",)) -> None:
+    """Per kernel of ``lib`` whose name holds a word of ``words``: its LDL,
+    STL, LDG and STG."""
     from aindex_torch.kernels import _cuda
     cuobjdump = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     for body in re.split(r"\n\s+Function : ", sass)[1:]:
         name = body.splitlines()[0].strip()
-        if "coverage" not in name:
+        if not any(word in name for word in words):
             continue
         ops = collections.Counter(m.group(1) for m in re.finditer(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body))

@@ -100,6 +100,48 @@ def _ascii(case: str, seed: int) -> np.ndarray:
     raise AssertionError(case)
 
 
+#: the edge shapes of the staged ASCII front end of K5's canonical23_ascii
+#: and K7's quotcov23_rows (csrc/dna23.cuh AsciiSource, tile_run)
+EDGE_CASES = ["rows_of_k", "rows_of_k_plus_1", "rows_64x30", "row_2p16_plus_5",
+              "all_n_and_mixed", "view_offset_3"]
+
+
+def _edge_ascii(case: str, k: int, pool: np.ndarray | None = None) -> np.ndarray:
+    """ASCII rows at the front end's edges for k, cut from ``pool`` (random
+    ACGT when None): rows of k and of k + 1 bytes (one and two windows a
+    row), 64 rows of 30 bytes (narrower than a tile; k + 3 for k = 31), one
+    row of 2^16 + 5 bytes, rows of all N beside rows with lowercase and N
+    mixed in, and a [4096, 1024] view of a 1-D buffer 3 bytes into it."""
+    rng = np.random.default_rng(k + len(case))
+    if pool is None:
+        pool = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=1 << 14)]
+
+    def rows(n, length):
+        src = np.tile(pool, length // pool.size + 2)
+        start = rng.integers(0, src.size - length, n)
+        return src[start[:, None] + np.arange(length)[None, :]]
+    if case == "rows_of_k":
+        return rows(300, k)
+    if case == "rows_of_k_plus_1":
+        return rows(300, k + 1)
+    if case == "rows_64x30":
+        return rows(64, 30 if k <= 30 else k + 3)
+    if case == "row_2p16_plus_5":
+        return rows(1, (1 << 16) + 5)[0]
+    if case == "all_n_and_mixed":
+        mat = rows(48, 151)
+        mat[:16] = ord("N")
+        mat[16:][rng.random((32, 151)) < 0.3] |= 0x20
+        mat[16:][rng.random((32, 151)) < 0.03] = ord("N")
+        return mat
+    if case == "view_offset_3":
+        buf = rows(1, 4096 * 1024 + 3)[0]
+        view = buf[3:].reshape(4096, 1024)
+        assert view.base is not None and view.ctypes.data == buf.ctypes.data + 3
+        return view
+    raise AssertionError(case)
+
+
 # -- zeros_dev ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(7,), (2, 3), (0,)], ids=["1d", "2d", "empty"])
@@ -362,10 +404,10 @@ def test_chunk_spectrum(case, k):
     assert keys.numel() == ascii.size // ascii.shape[-1] * (ascii.shape[-1] - k + 1)
 
 
-@pytest.mark.parametrize("case", SPECTRUM_CASES + ["no_rows"])
+@pytest.mark.parametrize("case", SPECTRUM_CASES + ["no_rows"] + EDGE_CASES)
 @pytest.mark.parametrize("k", [23, 31, 11])
 def test_extract_canonical(case, k):
-    ascii = _ascii(case, k)
+    ascii = _edge_ascii(case, k) if case in EDGE_CASES else _ascii(case, k)
     canon, valid = tsparse._extract_canonical(torch.from_numpy(ascii), k)
     jcanon, jvalid = jsparse._extract_canonical(jnp.asarray(ascii), k)
     _same(_np(canon).view(np.uint64), jcanon)          # invalid windows' codes too
@@ -411,15 +453,19 @@ def _read_rows(reads: list[str], case: str) -> np.ndarray:
     return mat
 
 
-@pytest.mark.parametrize("case", ["rows", "lowercase_n", "one_row", "all_bytes"])
+@pytest.mark.parametrize("case", ["rows", "lowercase_n", "one_row", "all_bytes"] + EDGE_CASES)
 def test_quot_tf_windows(quot_built, random_reads, case):
     t, j = quot_built
-    mat = _ascii("all_bytes", 1) if case == "all_bytes" else _read_rows(random_reads, case)
+    if case in EDGE_CASES:          # rows cut from the indexed reads, so windows hit
+        pool = np.frombuffer("".join(random_reads).encode(), np.uint8)
+        mat = _edge_ascii(case, 23, pool)
+    else:
+        mat = _ascii("all_bytes", 1) if case == "all_bytes" else _read_rows(random_reads, case)
     got = tquot.quot_tf_windows(t.tables("cpu"), torch.from_numpy(mat), 23)
     want = jquot.quot_tf_windows(*j.device, jnp.asarray(mat), *j.mults, k=23, m=j.m,
                                  lb=j.lb, w=j.w)
     _same(_np(got), want)
-    if case == "rows":
+    if case in ("rows", "rows_of_k", "view_offset_3"):
         assert (_np(got) > 0).any()
     assert tquotcuckoo.quot_tf_windows is tquot.quot_tf_windows
 

@@ -16,13 +16,25 @@
 // aindex_tpu/kernels/count.py:54 count_batch_13 (jitted with donation as
 // index/dense13.py:29 _count_step).
 //
-// K16, bound: the atomics. Its 4M windows a call each do one 4-byte
-// atomicAdd at a random address of a 256 MB table, far beyond the 50 MB L2.
-// Design: one thread per segment of SEG windows of a row, which rolls the
-// code one byte at a time and counts the run of valid bases, so a window is
-// counted once the run reaches k and no [B, L] window tensor exists. Invalid
-// windows issue no atomic at all. The sum does not depend on the order of
-// the atomics, so the result is exact; uint32 wraps as JAX's add does.
+// K16, bound: the table's read-modify-writes. A batch's ~3.9M valid windows
+// each add 1 at a random entry of a 256 MB table, 5x the 50 MB L2: a
+// sector read and later written back an add. In random order such adds
+// (REDs) run at 14.7 G a second, less than half the card's random-read
+// rate; grouped by bins of the table in bin order, 1.7x that; sorted, 2x
+// (scripts/randread.cu randrmw; PERF.md section 6). Design: the windows
+// come from bins::RowsSource (a thread the 16 windows that start at 16
+// consecutive bytes of the flattened rows, read as aligned 16-byte loads,
+// coded without a table, rolled in registers; weight 0 past a row's last
+// window or over a byte outside ACGT/acgt), and each block of
+// bins::rows_sweep ranks a tile of them by slice of the table in shared
+// memory and makes their adds in slice order, all blocks together, so the
+// adds in flight fall in a moving part of the table. (K15's partition with
+// its records' adds in bin order measured slower: the partition costs more
+// than the order saves at a batch's size.) Tables of at most RED_SPACE
+// entries, which L2 holds, take the windows' REDs straight from the source
+// (bins::rows_red); tables of at most 2^15 entries, small_count's shared
+// histogram. The sum does not depend on the order of the adds, so the
+// result is exact; uint32 wraps as JAX's add does.
 //
 // K15 and K1, bound: bytes. Their codes are many (every window of a read
 // set: 107M at E. coli scale) and the table is written whole, so one random
@@ -82,38 +94,10 @@
 // (dna13::scatter_index): a code is cast to int32, a negative index gains
 // the table length, anything outside the table is dropped. So with k = 16
 // a code >= 2^31 lands at code - 2^32 + space when that is >= 0.
+#include "dna23.cuh"
 #include "scan.cuh"
 
 namespace {
-
-// windows of one row a K16 thread counts
-constexpr int SEG = 64;
-
-__global__ void count13_rows_kernel(unsigned* __restrict__ counts,
-                                    const unsigned char* __restrict__ ascii, long long rows,
-                                    long long len, int k, long long space) {
-  const long long n_win = len - k + 1;
-  const long long segs = (n_win + SEG - 1) / SEG;
-  const unsigned mask = k >= 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < rows * segs; t += stride) {
-    const long long r = t / segs;
-    const long long w0 = (t - r * segs) * SEG;
-    const long long end = (w0 + SEG < n_win ? w0 + SEG : n_win) + k - 1;
-    const unsigned char* row = ascii + r * len;
-    unsigned code = 0u;
-    int run = 0;  // valid bases read so far that end at p, at most k counted
-    for (long long p = w0; p < end; ++p) {
-      const unsigned b = dna13::ascii_code(row[p]);
-      code = ((code << 2) | (b & 3u)) & mask;
-      run = b < 4u ? (run < k ? run + 1 : k) : 0;
-      long long at;
-      if (run == k && dna13::scatter_index(code, space, &at)) atomicAdd(counts + at, 1u);
-    }
-  }
-}
-
 
 // -- K15 ----------------------------------------------------------------------
 
@@ -141,6 +125,26 @@ constexpr int MAX_RANGES = 128;
 constexpr long long MIN_RANGE = 1LL << 14;
 constexpr int COUNT_BLOCK = 1024;
 constexpr int SMALL_GRID = 264;              // blocks of the no-partition count
+// K16's routes by table entries, each the fastest on 27,962 x 150 reads
+// (scripts/count_profile.py; device ms a call, NVIDIA H100 80GB HBM3,
+// PERF.md section 6): at most SMALL_SPACE, small_count's shared histogram
+// of the rows (k = 7 into 4^7 entries: 0.0313, the rows' REDs 0.0620); at
+// most RED_SPACE (16 MB, which L2 holds), each window's RED straight from
+// the rows (rows_red; k = 16 into 2^22 entries: 0.0160, the sweep
+// 0.0208); more, rows_sweep (k = 13 into 4^13 entries: 0.2173, the rows'
+// REDs 0.2456, K15's partition with its adds in bin order 0.2885)
+constexpr long long SMALL_SPACE = 1LL << 15;
+constexpr long long RED_SPACE = 1LL << 22;
+// 2^8 slices of the table rank a rows_sweep tile (64 and 1024 measured
+// within 1%); 264 blocks of 1024 threads, two an SM, a tile their 16,384
+// windows (one block an SM measured the same; blocks of 512 and 256
+// threads, at the same threads an SM, 8-13% slower)
+constexpr int SWEEP_BITS = 8;
+constexpr int SWEEP_BINS = 1 << SWEEP_BITS;
+constexpr int SWEEP_BLOCK = 1024;
+constexpr int SWEEP_GRID = 264;
+constexpr int SWEEP_TILE = SWEEP_BLOCK * ITEMS;
+static_assert(SWEEP_BINS <= SWEEP_BLOCK, "rows_sweep scans a slice a thread");
 
 inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -248,6 +252,87 @@ struct PackedSource {
     }
   }
   PackedSource at(long long first) const { return {packed, vbits, n_words, base + first}; }
+};
+
+// K16: the window that starts at each byte of ASCII rows (uint8[rows, len],
+// row-major, at any byte offset), weight 1 where its k bases are ACGT/acgt
+// and it ends in its row (its column at most len - k), else 0; its code the
+// k bases' 2-bit codes, the first in the top field. A thread takes the 16
+// windows that start at first + 16 t + j, so neighbouring threads read
+// neighbouring bytes:
+// the 16 + k - 1 bytes from the first, read as two or three 16-byte loads
+// from the 16-byte aligned address at or before it (a load that would
+// cross the buffer's start or end read byte by byte), coded without a table
+// (dna23::code_bytes4), the first window cut out of the 32 bases that
+// follow and the other 15 rolled on in registers; one row_col for the
+// column, no divide.
+struct RowsSource {
+  const unsigned char* ascii;
+  long long n_bytes;           // rows * len
+  long long len;
+  unsigned long long recip;    // dna23::reciprocal(len)
+  int k;
+
+  // The 16 bytes from ascii + b (a 16-byte aligned address) coded: their
+  // 2-bit codes, byte i in bits 2i and 2i + 1, and their validity bits.
+  __device__ __forceinline__ void block16(long long b, unsigned* code, unsigned* ok) const {
+    uint4 v;
+    if (b >= 0 && b + 16 <= n_bytes) {
+      v = __ldg(reinterpret_cast<const uint4*>(ascii + b));
+    } else {
+      unsigned x[4] = {0u, 0u, 0u, 0u};
+      for (int i = 0; i < 16; ++i)
+        if (b + i >= 0 && b + i < n_bytes)
+          x[i >> 2] |= static_cast<unsigned>(ascii[b + i]) << (8 * (i & 3));
+      v = make_uint4(x[0], x[1], x[2], x[3]);
+    }
+    unsigned o0, o1, o2, o3;
+    const unsigned c0 = dna23::code_bytes4(v.x, &o0), c1 = dna23::code_bytes4(v.y, &o1);
+    const unsigned c2 = dna23::code_bytes4(v.z, &o2), c3 = dna23::code_bytes4(v.w, &o3);
+    *code = c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
+    *ok = o0 | (o1 << 4) | (o2 << 8) | (o3 << 12);
+  }
+
+  template <int N>
+  __device__ __forceinline__ void items(long long first, int t, int, long long last, int* code,
+                                        unsigned* w) const {
+    static_assert(N == 16, "a thread takes 16 windows");
+    const long long p = first + 16LL * t;
+    const long long left = last - p;   // of the thread's windows, those in range
+    if (left <= 0) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        code[j] = 0;
+        w[j] = 0u;
+      }
+      return;
+    }
+    const int d = static_cast<int>((reinterpret_cast<uintptr_t>(ascii) + p) & 15);
+    unsigned c0, v0, c1, v1, c2 = 0u, v2 = 0u;
+    block16(p - d, &c0, &v0);
+    block16(p - d + 16, &c1, &v1);
+    if (d + k >= 18) block16(p - d + 32, &c2, &v2);   // the bytes reach d + 14 + k
+    const uint64_t lo = c0 | (static_cast<uint64_t>(c1) << 32);
+    // bases p .. p + 31, base p + j in bits 2j and 2j + 1; validity bit j
+    const uint64_t x = d ? (lo >> (2 * d)) | (static_cast<uint64_t>(c2) << (64 - 2 * d)) : lo;
+    const uint64_t ok =
+        (v0 | (static_cast<uint64_t>(v1) << 16) | (static_cast<uint64_t>(v2) << 32)) >> d;
+    const uint64_t all = (1ull << k) - 1ull;
+    const unsigned mask = k >= 16 ? 0xFFFFFFFFu : (1u << (2 * k)) - 1u;
+    unsigned fwd = static_cast<unsigned>(dna23::mirror64(x) >> (64 - 2 * k));
+    long long r, c;
+    dna23::row_col(p, len, recip, &r, &c);
+    const long long last_col = len - k;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (j > 0) {
+        fwd = ((fwd << 2) | static_cast<unsigned>((x >> (2 * (j + k - 1))) & 3u)) & mask;
+        if (++c == len) c = 0;
+      }
+      code[j] = static_cast<int>(fwd);
+      w[j] = j < left && c <= last_col && ((ok >> j) & all) == all ? 1u : 0u;
+    }
+  }
 };
 
 // A code's bin in the round [lo, lo + len) of the table and its record
@@ -534,10 +619,10 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
 
 // Spaces of at most W entries: each block counts its codes into a shared
 // histogram of the whole table (dynamic shared memory) and adds the
-// nonzero entries into the zeroed table.
+// nonzero entries into the table (K15 zeroes it first; K16 adds into it).
+template <class Src>
 __global__ void __launch_bounds__(COUNT_BLOCK)
-    small_count(const int* __restrict__ codes, const unsigned char* __restrict__ valid,
-                long long n, long long space, unsigned* __restrict__ table) {
+    small_count(Src src, long long n, long long space, unsigned* __restrict__ table) {
   extern __shared__ unsigned s_hist[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -548,12 +633,7 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
        i0 < n; i0 += step) {
     int code[UNROLL];
     unsigned w[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long i = i0 + u * 32 + lane;
-      code[u] = i < n ? codes[i] : 0;
-      w[u] = i < n ? valid[i] : 0u;
-    }
+    src.template items<UNROLL>(i0, lane, 32, n, code, w);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       unsigned rec = 0;
@@ -567,6 +647,110 @@ __global__ void __launch_bounds__(COUNT_BLOCK)
   __syncthreads();
   for (int o = threadIdx.x; o < space; o += COUNT_BLOCK)
     if (s_hist[o] != 0u) atomicAdd(table + o, s_hist[o]);
+}
+
+// Launches of small_count over n codes of src into a table of space <= W
+// entries.
+template <class Src>
+int small_count_launch(Src src, long long n, long long space, unsigned* table, cudaStream_t s) {
+  const int smem = static_cast<int>(space * 4);
+  if (cudaError_t e = cudaFuncSetAttribute(small_count<Src>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return static_cast<int>(e);
+  const long long grid = cdiv(n, COUNT_BLOCK * UNROLL);
+  small_count<<<static_cast<unsigned>(grid < SMALL_GRID ? grid : SMALL_GRID), COUNT_BLOCK, smem,
+                s>>>(src, n, space, table);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K16 on a table larger than RED_SPACE entries: one launch of SWEEP_GRID
+// blocks, each taking tiles of SWEEP_TILE windows in turn. A tile's windows are
+// ranked by slice of the table (SWEEP_BINS slices of 2^shift entries) in
+// shared memory, equal slices of a warp row combined first; their table
+// offsets are staged in slice order, and the block makes their adds as
+// REDs in stage order, a warp row at a time, equal offsets combined first
+// (a poly-A batch's code 0 fills whole rows). The blocks start together on
+// equal tiles, so they sweep the table together: the adds in flight fall
+// in a moving part of it, not all over it. Dynamic shared memory:
+// SWEEP_TILE uint32.
+__global__ void __launch_bounds__(SWEEP_BLOCK)
+    rows_sweep(RowsSource src, long long n, long long space, int shift,
+               unsigned* __restrict__ table) {
+  extern __shared__ unsigned s_stage[];
+  __shared__ unsigned s_cnt[SWEEP_BINS];   // a slice's count in the tile, then its start
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  for (long long t0 = static_cast<long long>(blockIdx.x) * SWEEP_TILE; t0 < n;
+       t0 += static_cast<long long>(gridDim.x) * SWEEP_TILE) {
+    if (threadIdx.x < SWEEP_BINS) s_cnt[threadIdx.x] = 0u;
+    __syncthreads();
+    // per window: its table offset and its rank among the tile's windows of
+    // its slice, or ~0 for none
+    int code[ITEMS];
+    unsigned w[ITEMS], rank[ITEMS];
+    src.items<ITEMS>(t0, threadIdx.x, SWEEP_BLOCK, n, code, w);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      long long at = 0;
+      const bool ok =
+          w[j] != 0u && dna13::scatter_index(static_cast<unsigned>(code[j]), space, &at);
+      const unsigned slice = static_cast<unsigned>(at >> shift);
+      unsigned c;
+      const unsigned peers = group_of(ok, slice, 1u, &c);
+      const int leader = __ffs(peers) - 1;
+      unsigned base = 0;
+      if (ok && lane == leader) base = atomicAdd(&s_cnt[slice], __popc(peers));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      code[j] = static_cast<int>(at);
+      rank[j] = ok ? base + __popc(peers & lower) : ~0u;
+    }
+    __syncthreads();
+    unsigned tile_n;
+    const unsigned start =
+        scan::block_exclusive_scan(threadIdx.x < SWEEP_BINS ? s_cnt[threadIdx.x] : 0u, &tile_n);
+    if (threadIdx.x < SWEEP_BINS) s_cnt[threadIdx.x] = start;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if (rank[j] != ~0u) {
+        const unsigned at = static_cast<unsigned>(code[j]);
+        s_stage[s_cnt[at >> shift] + rank[j]] = at;
+      }
+    __syncthreads();
+    for (unsigned i0 = warp * 32; i0 < tile_n; i0 += SWEEP_BLOCK) {
+      const unsigned i = i0 + lane;
+      const bool ok = i < tile_n;
+      const unsigned at = ok ? s_stage[i] : 0u;
+      unsigned c;
+      const unsigned peers = group_of(ok, at, 1u, &c);
+      if (ok && lane == __ffs(peers) - 1) atomicAdd(table + at, c);
+    }
+    __syncthreads();
+  }
+}
+
+// K16 on a table of at most RED_SPACE entries: each window's add a RED as
+// the source makes it, a warp's 32 x 16 windows at once, equal entries of
+// a warp row combined first. Grid: n over BLOCK x 16.
+__global__ void __launch_bounds__(dna13::BLOCK)
+    rows_red(RowsSource src, long long n, long long space, unsigned* __restrict__ table) {
+  const int lane = threadIdx.x & 31;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * dna13::BLOCK + (threadIdx.x & ~31)) * 16;
+  if (first >= n) return;   // the whole warp
+  int code[16];
+  unsigned w[16];
+  src.items<16>(first, lane, 32, n, code, w);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    long long at = 0;
+    const bool ok =
+        w[j] != 0u && dna13::scatter_index(static_cast<unsigned>(code[j]), space, &at);
+    unsigned c;
+    const unsigned peers = group_of(ok, static_cast<unsigned>(at), 1u, &c);
+    if (ok && lane == __ffs(peers) - 1) atomicAdd(table + at, c);
+  }
 }
 
 // The four launches over every round of the table and piece of the n
@@ -649,30 +833,39 @@ extern "C" int scatter_count(void* counts, const void* codes, const void* valid,
     if (cudaError_t e = cudaMemsetAsync(table, 0, static_cast<size_t>(space) * 4, s))
       return static_cast<int>(e);
     if (n <= 0) return cudaSuccess;
-    const int smem = static_cast<int>(space * 4);
-    if (cudaError_t e = cudaFuncSetAttribute(
-            small_count, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
-      return static_cast<int>(e);
-    const long long grid = cdiv(n, COUNT_BLOCK * UNROLL);
-    small_count<<<static_cast<unsigned>(grid < SMALL_GRID ? grid : SMALL_GRID), COUNT_BLOCK,
-                  smem, s>>>(c, v, n, space, table);
-    return static_cast<int>(cudaGetLastError());
+    return small_count_launch(CodeSource{c, v}, n, space, table, s);
   }
   return partition_count(CodeSource{c, v}, n, space, scratch, true, table, s);
 }
 
 // counts: uint32[space], updated in place, 1 <= space < 2^31. ascii:
-// uint8[rows, len], row-major; 1 <= k <= 16. Returns cudaGetLastError()
-// after the launch.
+// uint8[rows, len], row-major, at any byte offset; 1 <= k <= 16. Returns
+// the first CUDA error of the launch, or 0.
 extern "C" int count13_rows(void* counts, const void* ascii, long long rows, long long len,
                             int k, long long space, void* stream) {
+  using namespace bins;
   if (k < 1 || k > 16 || space < 1 || space >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || len < k) return cudaSuccess;
-  const long long threads = rows * ((len - k + 1 + SEG - 1) / SEG);
-  count13_rows_kernel<<<dna13::grid_for(threads), dna13::BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned*>(counts), static_cast<const unsigned char*>(ascii), rows, len, k,
-      space);
+  const long long n = rows * len;   // a window at every byte, weight 0 past a row's last
+  const RowsSource src{static_cast<const unsigned char*>(ascii), n, len,
+                       dna23::reciprocal(len), k};
+  auto* table = static_cast<unsigned*>(counts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (space <= SMALL_SPACE) return small_count_launch(src, n, space, table, s);
+  if (space <= RED_SPACE) {
+    rows_red<<<static_cast<unsigned>(cdiv(n, dna13::BLOCK * 16)), dna13::BLOCK, 0, s>>>(
+        src, n, space, table);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int bits = 0;   // a slice: the top SWEEP_BITS of a table offset
+  while ((1LL << bits) < space) ++bits;
+  const int smem = SWEEP_TILE * 4;
+  if (cudaError_t e = cudaFuncSetAttribute(rows_sweep,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return static_cast<int>(e);
+  const long long tiles = cdiv(n, SWEEP_TILE);
+  rows_sweep<<<static_cast<unsigned>(tiles < SWEEP_GRID ? tiles : SWEEP_GRID), SWEEP_BLOCK,
+               smem, s>>>(src, n, space, bits > SWEEP_BITS ? bits - SWEEP_BITS : 0, table);
   return static_cast<int>(cudaGetLastError());
 }

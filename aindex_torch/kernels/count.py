@@ -14,7 +14,9 @@ count table:
   shared memory and written once (the source's notes);
 * ``count_batch_13`` (K16 ``count13_rows``, same source) replaces
   ``count_batch_13`` (:54): the forward k-mers (k <= 16) of ASCII rows,
-  one atomic add per valid window;
+  one add a valid window, made by every block in order of the table's
+  slices, so the blocks sweep a table larger than L2 together (a table L2
+  holds takes the adds straight from the rows);
 * ``zeros_dev`` (:23) is a device memset (``torch.zeros`` on the device),
   as XLA lowers ``jnp.zeros`` under jit: no kernel of its own.
 

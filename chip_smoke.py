@@ -10,7 +10,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py [parent=DIR]
 
 ``parent=DIR`` names a checkout of an earlier commit (``git archive`` of it
-unpacked into ``dist/parent``): its K1, K2, K4, K15, K6, K7 (both
+unpacked into ``dist/parent``): its K1, K2, K4, K15, K16, K6, K7 (both
 entries), K10 and K11's coverage and K5's canonical23_ascii
 (``count13.cu``, ``total13.cu``, ``coverage13.cu``, ``quot23.cu``,
 ``quotcov23.cu``, ``cuckoo64.cu``, ``mphfwalk.cu``, ``spectrum23.cu``) are
@@ -23,7 +23,9 @@ tree's wrapper) in steps 2, 4, 7, 9 and 13.
    aindex_torch/csrc, one nvcc per source, all started together; then
    times 2^26 random reads of 16, 32, 64 and 128 bytes from a 512 MiB
    buffer (scripts/randread.cu), the cost that sets K6's and K10's bucket
-   width.
+   width, and 4-byte adds (REDs) at hashed entries of the 4^13 table in
+   random, bin and sorted order and of a 2^22-entry table (``rmw_test``),
+   K16's floors.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
    the card, at the shapes the dense path gives them, with exact equality
    (all outputs are integers), and times both with CUDA events: K1 alone
@@ -104,6 +106,13 @@ tree's wrapper) in steps 2, 4, 7, 9 and 13.
    weight 255, timed) and on codes at every bin edge of spaces 2^15 - 1,
    2^15, 2^15 + 1, 2^18 + 1, 4^13 and 2^26 + 1; with ``parent=DIR``, that
    checkout's K15 on the corpus codes, equal, each timed twice in turns.
+   K16 also from a table near 2^32, beside its add floors, and exactly at
+   the shapes where its routes and source could break (poly-A rows past
+   2^18 windows, rows of exactly k bytes, views 1-15 bytes past
+   alignment, spaces below and not a multiple of the bin width, k = 16
+   codes that wrap on each route, more than 2^27 windows);
+   with ``parent=DIR``, the parent's K16 on 8 row batches, equal tables,
+   then both timed four ways in turns (``clocks``).
    Then the two kernels of the staged ASCII front end (csrc/dna23.cuh
    ``AsciiSource``), exactly at its edge shapes (``ascii_edges``: rows of
    k and k + 1 bytes, 64 rows of 30, one row of 2^16 + 5, all N,
@@ -472,7 +481,8 @@ def report(card, name, shape, rec):
 #: coverage entries' (K4, K7, K10's and K11's) from PR 14's final call
 #: (K11's from PR 11's), before the bucket match kept in registers and the
 #: tiled front end; K7's ASCII-rows entry and K5's canonical23_ascii as
-#: PERF.md section 6 recorded them before the staged ASCII front end
+#: PERF.md section 6 recorded them before the staged ASCII front end; K16's
+#: before its sweep
 EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0531, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
@@ -480,7 +490,7 @@ EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.
               "posbucket": 0.2792, "posfill_pairs": 0.5888, "quot23": 3.4678,
               "quotcov23": 0.0751, "quotcov23_rows": 0.0622, "canonical23_ascii": 0.1254, "cuckoo64": 3.6817,
               "cuckoocov64": 0.0724, "coverage13_packed": 0.0310, "shardwalk": 5.3189, "scatter_count": 6.9395,
-              "count13_packed": 6.3952, "total13": 2.2774}
+              "count13_packed": 6.3952, "total13": 2.2774, "count13_rows": 0.2486}
 
 
 #: times beside the kernels line's rows, printed with the summary: K15 and
@@ -767,15 +777,9 @@ PARENT: str | None = None
 WIDTHS = (16, 32, 64, 128)
 
 
-def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -> dict:
-    """Random-read cost by width (``scripts/randread.cu``): ``n_reads``
-    reads of 16, 32, 64 and 128 bytes, each as uint4 loads from one aligned
-    block at a hashed address of an ``n_bytes`` device buffer, each width
-    timed twice in turns. Prints reads/s and 32-byte sectors/s; returns
-    width -> mean ms."""
-    import ctypes
-
-    import torch
+@functools.lru_cache(maxsize=1)
+def randread_lib():
+    """``scripts/randread.cu`` built into build/measure/ and loaded."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "measure")
     os.makedirs(out_dir, exist_ok=True)
@@ -785,6 +789,21 @@ def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -
     lib = ctypes.CDLL(lib_path)
     lib.randread.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
+    lib.hashed_indices.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_ulonglong, ctypes.c_void_p]
+    lib.randrmw.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    return lib
+
+
+def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -> dict:
+    """Random-read cost by width (``scripts/randread.cu``): ``n_reads``
+    reads of 16, 32, 64 and 128 bytes, each as uint4 loads from one aligned
+    block at a hashed address of an ``n_bytes`` device buffer, each width
+    timed twice in turns. Prints reads/s and 32-byte sectors/s; returns
+    width -> mean ms."""
+    import torch
+    from aindex_torch.kernels import _cuda
+    lib = randread_lib()
     gen = torch.Generator(device=dev).manual_seed(3)
     buf = torch.randint(-2 ** 31, 2 ** 31, (n_bytes // 4,), dtype=torch.int32, device=dev,
                         generator=gen)
@@ -812,6 +831,61 @@ def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -
     del buf
     torch.cuda.empty_cache()
     return res
+
+
+#: K16's windows on its timed batch (27,962 x 150 corpus rows, k = 13) and
+#: a larger n, for rmw_test
+RMW_NS = (3_858_756, 1 << 24)
+#: table entries (log2): 4^13 (256 MB, 5x L2) and 2^22 (16 MB, in L2)
+RMW_TABLES = (26, 22)
+#: bin widths (log2 entries) of the bin orders
+RMW_BINS = (12, 13, 14, 15)
+
+
+def rmw_test(dev, card: str) -> dict:
+    """Read-modify-write cost by order (``scripts/randread.cu`` randrmw):
+    n adds of 1 at hashed entries (``hashed_indices``) of a uint32 table,
+    a RED each, in three orders of the same entries: random; grouped by
+    bins of 2^b entries in bin order, in random order within a bin (a
+    stable sort by bin); sorted. Each n of RMW_NS into the 4^13 table in
+    every order, and in random order into the 2^22-entry table; each order
+    of a table and n timed twice in turns (CUDA events, 20 calls after a
+    warm-up; the index array read too, as a count reads what it adds).
+    Prints G adds/s; fills RMW_RATE (adds a second by (log2
+    table, n, order)) and returns it."""
+    import torch
+    from aindex_torch.kernels import _cuda
+    lib = randread_lib()
+    st = _cuda.stream(dev)
+    for lb in RMW_TABLES:
+        table = torch.zeros(1 << lb, dtype=torch.int32, device=dev)
+        for n in RMW_NS:
+            idx = torch.empty(n, dtype=torch.int32, device=dev)
+            check(lib.hashed_indices(idx.data_ptr(), n, lb, 0x5EED + n, st) == 0,
+                  "hashed_indices")
+            orders = {"random": idx}
+            if lb == RMW_TABLES[0]:
+                for b in RMW_BINS:
+                    orders[f"bins of 2^{b}"] = idx[torch.sort(idx >> b, stable=True).indices]
+                orders["sorted"] = torch.sort(idx).values
+            times = {o: [] for o in orders}
+            for names in (list(orders), list(orders)[::-1]):
+                for o in names:
+                    x = orders[o]
+                    times[o].append(cuda_ms(lambda: check(
+                        lib.randrmw(table.data_ptr(), x.data_ptr(), n, st) == 0, "randrmw"), 20))
+            torch.cuda.synchronize()
+            for o, t in times.items():
+                ms = sum(t) / 2
+                RMW_RATE[(lb, n, o)] = n / ms * 1e3
+                print(f"random adds (RED), {o}, {n} adds into 2^{lb} uint32 entries "
+                      f"({4 << lb >> 20} MiB): {t[0]:.4f} / {t[1]:.4f} ms, "
+                      f"{n / ms / 1e6:.3f} G adds/s, {times['random'][0] / t[0]:.2f}x / "
+                      f"{times['random'][1] / t[1]:.2f}x random's rate ({card})")
+            del idx, orders
+        del table
+        torch.cuda.empty_cache()
+    return RMW_RATE
 
 
 def key_of(rec):
@@ -1020,7 +1094,8 @@ def parent_engines(parent: str) -> dict:
     sources = {"quot23": ("quot23",), "quotcov23": ("quotcov23", "quotcov23_rows"),
                "cuckoo64": ("cuckoo64", "cuckoocov64"),
                "coverage13": ("coverage13_packed",), "mphfwalk": ("mphfcov",),
-               "count13": ("scatter_count", "count13_packed"), "total13": ("total13",),
+               "count13": ("scatter_count", "count13_packed", "count13_rows"),
+               "total13": ("total13",),
                "spectrum23": ("canonical23_ascii",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
@@ -1125,6 +1200,9 @@ N_COLD = 8
 #: random reads a second by width in bytes, from this run's width_test: the
 #: coverage entries' random-read floors
 READ_RATE: dict[int, float] = {}
+#: 4-byte adds a second by (log2 table entries, n, order), from this run's
+#: rmw_test: K16's floors
+RMW_RATE: dict[tuple, float] = {}
 
 
 @contextlib.contextmanager
@@ -1170,13 +1248,14 @@ def device_ms_per_call(fn, calls, tries: int = 3,
 
 def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float,
            footprint: int, reps: int = 48, kernel: tuple = ("coverage",),
-           floor_what: str = "random-read floor", footprint_what: str = "table") -> dict:
+           floor_what: str = "random-read floor", footprint_what: str = "table",
+           compare: bool = True) -> dict:
     """The kernel entry ``name`` (its device kernels named by a word of
     ``kernel``) through its wrapper, ``fn(b)`` on the
     uploaded batch b < ``n_batches``, timed by this tree's kernel and, with
     ``parent=DIR``, the parent's in the same wrapper (``parent_kernel``),
     in turns (this, parent, parent, this), after both gave equal answers
-    on every batch:
+    on every batch (unless ``compare`` is False: the caller held them):
 
     * warm: CUDA events over ``reps`` calls back to back on batch 0;
     * cold: CUDA events over ``reps`` calls rotating over the batches, whose
@@ -1192,12 +1271,12 @@ def clocks(card: str, label: str, name: str, fn, n_batches: int, floor_ms: float
     trees = {"this tree": contextlib.nullcontext}
     if PARENT is not None:
         trees["parent"] = lambda: parent_kernel(name)
-        for b in range(n_batches):
-            mine = fn(b)
-            with parent_kernel(name):
-                theirs = fn(b)
-            for x, y in zip(*(v if isinstance(v, tuple) else (v,) for v in (mine, theirs))):
-                max_abs_err(x, y)
+    for b in range(n_batches if PARENT is not None and compare else 0):
+        mine = fn(b)
+        with parent_kernel(name):
+            theirs = fn(b)
+        for x, y in zip(*(v if isinstance(v, tuple) else (v,) for v in (mine, theirs))):
+            max_abs_err(x, y)
         del mine, theirs
     rotation = [b % n_batches for b in range(reps)]
     out = {tree: {c: [] for c in ("warm", "cold", "device cold", "device warm", "host")}
@@ -2592,8 +2671,7 @@ def corpus_windows13(dev, reads: np.ndarray):
 def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray, index) -> dict:
     import torch
     from aindex_torch.kernels import _cuda
-    from aindex_torch.kernels.count import (BIN_W, count_batch_13, count_batch_13_plain,
-                                            scatter_count, scatter_count_plain,
+    from aindex_torch.kernels.count import (BIN_W, scatter_count, scatter_count_plain,
                                             scatter_scratch_bytes)
     from aindex_torch.kernels.encode import (ascii_to_base_codes, canonical_code64,
                                              revcomp_code13, window_codes)
@@ -2630,33 +2708,7 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
     mixed[rng.permutation(mixed.size)[:4096]] = np.arange(4096) % 256
     mixed_dev = torch.from_numpy(mixed).to(dev)
 
-    # K16: one row batch of the path, k = 13 into the 4^13 table; then
-    # k = 16 into a 2^22 table (codes >= 2^31 wrap) on the mixed chunk
-    batch = torch.from_numpy(read_batches(reads)[0]).to(dev)
-    codes13, valid13 = window_codes(ascii_to_base_codes(batch), K)
-    touched = int(torch.unique(codes13[valid13]).numel())
-    scratch = torch.zeros(SPACE, dtype=torch.int32, device=dev)
-    kern = torch.zeros(SPACE, dtype=torch.int32, device=dev)
-    plain = torch.zeros(SPACE, dtype=torch.int32, device=dev)
-    count_batch_13(kern, batch)
-    count_batch_13_plain(plain, batch)
-    err = max_abs_err(kern.view(torch.uint32), plain.view(torch.uint32))
-    ms = cuda_ms(lambda: count_batch_13(scratch, batch), 50)
-    pms = cuda_ms(lambda: count_batch_13_plain(scratch, batch), 5)
-    # the rows in, and each table entry their windows touch read and written once
-    res["count13_rows"] = record(err, ms, pms, batch.numel() + 8 * touched)
-    report(card, "count13_rows", f"{batch.shape[0]} x {batch.shape[1]} rows, k=13",
-           res["count13_rows"])
-    del kern, plain, scratch
-    for k, space, rows in ((16, 1 << 22, mixed_dev.view(-1, 1024)), (13, SPACE, mixed_dev)):
-        kern = torch.zeros(space, dtype=torch.int32, device=dev)
-        plain = torch.zeros(space, dtype=torch.int32, device=dev)
-        res["count13_rows"]["max_abs_err"] = max(res["count13_rows"]["max_abs_err"], max_abs_err(
-            count_batch_13(kern, rows, k, space).view(torch.uint32),
-            count_batch_13_plain(plain, rows, k, space).view(torch.uint32)))
-        print(f"kernel count13_rows [mixed chunk {tuple(rows.shape)}, k={k}, space {space}]: "
-              f"max_abs_err 0 ({card})")
-        del kern, plain
+    res["count13_rows"] = rows_count_vs_plain(dev, card, reads, mixed_dev)
 
     # K15: every window of the corpus in one call, as the path calls it
     # (beside the parent's K15 in turns, given a parent); the corpus codes
@@ -2787,6 +2839,103 @@ def ascii_kernels_vs_plain(dev, card: str, reads: np.ndarray, table: np.ndarray,
          lambda: quot_tf_windows(t, rows, K23), lambda: quot_tf_windows_plain(t, rows, K23),
          0, 0, 0, timed=False)
     return res
+
+
+def rows_count_vs_plain(dev, card: str, reads: np.ndarray, mixed_dev) -> dict:
+    """K16 (count13_rows) held exactly to count_batch_13_plain: on the
+    path's first row batch (k = 13 into the 4^13 table, timed, beside its
+    read-modify-write floors from rmw_test), then at the shapes where its
+    routes, source and partition could break; with ``parent=DIR``, beside
+    the parent's on 8 row batches (``clocks``, in turns, after equal
+    tables). Returns the batch's record."""
+    import torch
+    from aindex_torch.kernels.count import PIECE, count_batch_13, count_batch_13_plain
+    from aindex_torch.kernels.encode import ascii_to_base_codes, window_codes
+
+    def held(tag, rows, k=K, space=SPACE, start=None):
+        kern = (torch.zeros(space, dtype=torch.int32, device=dev) if start is None
+                else start.clone())
+        plain = kern.clone()
+        err = max_abs_err(count_batch_13(kern, rows, k, space).view(torch.uint32),
+                          count_batch_13_plain(plain, rows, k, space).view(torch.uint32))
+        print(f"kernel count13_rows [{tag}, {tuple(rows.shape)}, k={k}, space {space}]: "
+              f"max_abs_err {err} ({card})")
+        return err
+
+    batches = [torch.from_numpy(b).to(dev) for b in read_batches(reads)[:N_COLD]]
+    batch = batches[0]
+    codes13, valid13 = window_codes(ascii_to_base_codes(batch), K)
+    touched = int(torch.unique(codes13[valid13]).numel())
+    n_valid = int(valid13.sum())
+    del codes13, valid13
+    gen = torch.Generator(device=dev).manual_seed(59)
+    near = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    near[torch.randint(0, SPACE, (1 << 16,), device=dev, generator=gen)] = -2  # 2^32 - 2
+    err = held("the path's first row batch, from a table near 2^32", batch, start=near)
+    del near
+    scratch = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: count_batch_13(scratch, batch), 50)
+    pms = cuda_ms(lambda: count_batch_13_plain(scratch, batch), 5)
+    # the rows in, and each table entry their windows touch read and written once
+    rec = record(err, ms, pms, batch.numel() + 8 * touched)
+    report(card, "count13_rows", f"{batch.shape[0]} x {batch.shape[1]} rows, k=13", rec)
+    floors = {o: n_valid / RMW_RATE[(26, RMW_NS[0], o)] * 1e3
+              for o in ("random", "bins of 2^15", "sorted")}
+    print(f"count13_rows floors: its {n_valid} adds at this run's rates (rmw_test, "
+          f"{RMW_NS[0]} adds into 2^26 entries): " + ", ".join(
+              f"{o} {v:.4f} ms" for o, v in floors.items()) + f" ({card})")
+    SIDE_MS["count13_rows: the adds' floors (random, bins of 2^15, sorted)"] = {
+        "this tree": list(floors.values())}
+
+    # the edge shapes
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+    poly = torch.full((4096, READ_LEN), ord("A"), dtype=torch.uint8, device=dev)
+    poly[7, 40] = ord("C")
+    err = max(err, held("poly-A rows: code 0 fills whole tiles, past 2^18 windows", poly))
+    err = max(err, held("poly-A rows, into 2^22", poly, space=1 << 22))
+    rows_k = acgt[torch.randint(0, 4, (1 << 17, K), device=dev, generator=gen)]
+    err = max(err, held("rows of exactly k bytes", rows_k))
+    err = max(err, held("rows of exactly k bytes, k=16", acgt[torch.randint(
+        0, 4, (1 << 17, 16), device=dev, generator=gen)], 16))
+    err = max(err, held("the mixed chunk, 1-D", mixed_dev))
+    flat = batch.reshape(-1)
+    n_view = min(4000, batch.shape[0] - 1)
+    for off in range(1, 16):
+        view = flat[off:off + n_view * READ_LEN].view(n_view, READ_LEN)
+        err = max(err, held(f"a view {off} bytes past the batch's start", view))
+    rows = mixed_dev.view(-1, 1024)
+    red_space = 1 << 22   # csrc/count13.cu bins::RED_SPACE: the largest table of the rows' REDs
+    for k, space, tag in ((13, red_space + 7, "a space no multiple of the bin width"),
+                          (7, 4 ** 7 - 1000, "a space below the bin width"),
+                          (7, 4 ** 7, "4^7, the shared histogram"),
+                          (13, 3 * 2 ** 15 + 7, "3 x 2^15 + 7, the rows' REDs"),
+                          (16, red_space, "k=16 wrapping, the rows' REDs"),
+                          (16, (1 << 26) + 1, "k=16 wrapping, the sweep")):
+        err = max(err, held(tag, rows, k, space))
+    big = acgt[torch.randint(0, 4, (PIECE // READ_LEN + 4096, READ_LEN), device=dev,
+                             generator=gen)]
+    err = max(err, held("more than 2^27 windows: 31 tiles a sweep block", big))
+    del poly, rows_k, big
+    rec["max_abs_err"] = err
+
+    if PARENT is not None:
+        mine = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+        theirs = torch.zeros(SPACE, dtype=torch.int32, device=dev)
+        for b in batches:
+            count_batch_13(mine, b)
+            with parent_kernel("count13_rows"):
+                count_batch_13(theirs, b)
+        max_abs_err(mine.view(torch.uint32), theirs.view(torch.uint32))
+        print(f"count13_rows, the parent's: equal tables after {len(batches)} row batches "
+              f"({card})")
+        del mine, theirs
+        clocks(card, f"{batch.shape[0]} x {batch.shape[1]} rows, k=13", "count13_rows",
+               lambda b: count_batch_13(scratch, batches[b]), len(batches),
+               floors["bins of 2^15"], sum(b.numel() for b in batches),
+               kernel=("rows_sweep", "count13_rows"), floor_what="bin-order add floor",
+               footprint_what="rows", compare=False)
+    del scratch
+    return rec
 
 
 # -- phase 9b: the staged ASCII front end (quotcov23_rows, canonical23_ascii) --
@@ -4634,7 +4783,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     width_test(dev, card)
-    print(f"phase random reads by width: {time.perf_counter() - t0:.1f} s")
+    rmw_test(dev, card)
+    print(f"phase random reads by width and adds by order: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     measured = dense_kernels_vs_plain(dev, card)
     print(f"phase dense kernels-vs-plain: {time.perf_counter() - t0:.1f} s")

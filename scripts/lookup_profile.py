@@ -5,7 +5,7 @@ checkouts, and of K11 (the MPHF walk and its fill), on one CUDA card.
 
     python3 scripts/lookup_profile.py [PART ...] [NAME=DIR ...]
 
-PART is any of widths, engines, k3, walk and fill (all of them when none
+PART is any of widths, rmw, engines, k3, walk and fill (all of them when none
 is named). Each DIR is a checkout of the repo (e.g. ``git archive`` of the
 parent unpacked into ``dist/parent``); its ``aindex_torch/csrc/gather13.cu``
 (and, for engines, ``quot23.cu`` and ``cuckoo64.cu``) is built beside this
@@ -15,6 +15,9 @@ every kernel's answers equal this tree's:
 
 * widths: 2^26 random reads of 16, 32, 64 and 128 bytes over 512 MiB
   (chip_smoke.py ``width_test``, ``scripts/randread.cu``);
+* rmw: 4-byte adds (REDs) at hashed entries of the 4^13 uint32 table in
+  random, bin and sorted order and of a 2^22-entry table in random order,
+  at K16's n and 2^24 (chip_smoke.py ``rmw_test``);
 * engines: K6 and K10 on tables of random canonical keys at the
   E. coli-scale n (9,602,528 at k = 23; 10,568,899 at k = 29), 4 x 2^24
   codes, half stored keys: every rule against the plain version, the edge
@@ -339,7 +342,7 @@ def coverage_beside(dev, card: str, label: str, other: str, fn, old, t, cov, k: 
 
 
 #: what a call runs, by name (all of them when none is named)
-PARTS = ("widths", "engines", "k3", "walk", "fill")
+PARTS = ("widths", "rmw", "engines", "k3", "walk", "fill")
 
 
 def main() -> int:
@@ -368,6 +371,8 @@ def main() -> int:
         print(f"  {name}: registers per thread {regs}")
     if "widths" in parts:
         c.width_test(dev, card)
+    if "rmw" in parts:
+        c.rmw_test(dev, card)
     if "engines" in parts:
         engine_times(dev, card, trees)
     if "k3" in parts:

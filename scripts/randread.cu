@@ -6,8 +6,14 @@
 // value the random buffer almost never holds, so the reads are kept and
 // nearly nothing is written.
 //
-// Built and run by scripts/lookup_profile.py (width_test), which
-// chip_smoke.py also calls.
+// And the read-modify-write cost by order, the measurement behind K16's
+// design (aindex_torch/csrc/count13.cu): n 4-byte adds of 1 whose result is
+// unused (so each compiles to a RED), one a thread, at the entries of a
+// given index array (hashed_indices fills one, in the order of i; the
+// caller reorders it), into a uint32 table.
+//
+// Built and run by chip_smoke.py (width_test, rmw_test), which
+// scripts/lookup_profile.py also calls.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -41,15 +47,51 @@ __global__ void randread_kernel(const uint4* __restrict__ buf, int lb, long long
   }
 }
 
+__global__ void hashed_kernel(unsigned* __restrict__ out, long long n, int lb, uint64_t seed) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = static_cast<unsigned>((mix64(static_cast<uint64_t>(i) ^ seed) >> 1) >> (63 - lb));
+}
+
+__global__ void rmw_kernel(unsigned* __restrict__ table, const unsigned* __restrict__ idx,
+                           long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    atomicAdd(table + idx[i], 1u);
+}
+
+inline unsigned grid_of(long long n, int block) {
+  const long long blocks = (n + block - 1) / block;
+  return static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
+}
+
 }  // namespace
+
+// out: uint32[n], out[i] the hashed entry of i in a table of 2^lb entries.
+extern "C" int hashed_indices(void* out, long long n, int lb, unsigned long long seed,
+                              void* stream) {
+  if (n <= 0 || lb < 0 || lb > 32) return static_cast<int>(cudaErrorInvalidValue);
+  hashed_kernel<<<grid_of(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(out), n, lb, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table: uint32, idx: uint32[n] entries of it; table[idx[i]] += 1 for each i.
+extern "C" int randrmw(void* table, const void* idx, long long n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  rmw_kernel<<<grid_of(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(table), static_cast<const unsigned*>(idx), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // buf: 2^lb blocks of width bytes (16-byte aligned); n reads; out uint32[1].
 extern "C" int randread(const void* buf, int lb, int width, long long n,
                         unsigned long long seed, void* out, void* stream) {
   if (n <= 0 || lb < 0 || lb > 62) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = grid_of(n, 256);
   const int block = 256;
-  const long long blocks = (n + block - 1) / block;
-  const unsigned grid = static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
   const auto* b = static_cast<const uint4*>(buf);
   auto* o = static_cast<unsigned*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -274,13 +274,31 @@ def _start(start_table: np.ndarray, space: int) -> np.ndarray:
     return rng.integers(2 ** 32 - 4, 2 ** 32, size=space, dtype=np.uint64).astype(np.uint32)
 
 
+def _rows_ascii(case: str, k: int) -> np.ndarray:
+    """count_batch_13's inputs: _ascii's, and rows of exactly k bytes (one
+    window a row), and poly-A rows of more than 2^18 windows, whose code 0
+    fills whole warp rows and tiles of K16's adds (csrc/count13.cu
+    bins::rows_sweep)."""
+    if case == "len_eq_k":
+        rng = np.random.default_rng(k)
+        rows = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, size=(300, k))]
+        rows[7, k // 2] = ord("N")
+        return rows
+    if case == "poly_a":
+        rows = np.full((2000, 150), ord("A"), np.uint8)
+        rows[5, 40] = ord("C")
+        return rows
+    return _ascii(case, k)
+
+
 @pytest.mark.parametrize("case", ["chunk_1d", "rows_padded", "mixed_case", "all_bytes",
-                                  "poly_t", "no_rows"])
+                                  "poly_t", "no_rows", "len_eq_k", "poly_a"])
 @pytest.mark.parametrize("k, space", [(13, SPACE_13), (13, 1 << 20), (9, 4 ** 9 - 1000),
-                                      (16, 1 << 22), (3, 64)],
-                         ids=["k13", "k13_small_space", "k9_small_space", "k16_wrap", "k3"])
+                                      (16, 1 << 22), (3, 64), (13, 3 * BIN_W + 7)],
+                         ids=["k13", "k13_small_space", "k9_small_space", "k16_wrap", "k3",
+                              "k13_space_3w_plus_7"])
 def test_count_batch_13(start_table, case, k, space):
-    ascii = _ascii(case, k)
+    ascii = _rows_ascii(case, k)
     start = _start(start_table, space)
     counts = _torch(start.copy())                      # the port adds into its own copy
     got = tcount.count_batch_13(counts, torch.from_numpy(ascii), k, space)

@@ -34,6 +34,7 @@ from aindex_torch.index.dense13 import Dense13Index
 from aindex_torch.index.emphf import EmphfPF, dense_slot_permutation
 from aindex_torch.index.positional import PositionalIndex
 from aindex_torch.index.sparse23 import Sparse23Index
+from aindex_torch.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -487,16 +488,19 @@ class AIndex:
     # the kernels' rate.
 
     def get_tf_values_codes_13mer(self, codes, valid=None):
-        self._require(self.dense13, "13-mer index")
-        return self.dense13.get_tf_values_codes(codes, valid)
+        with span("aindex.facade.get_tf_values_codes_13mer"):
+            self._require(self.dense13, "13-mer index")
+            return self.dense13.get_tf_values_codes(codes, valid)
 
     def get_total_tf_values_codes_13mer(self, codes, valid=None):
-        self._require(self.dense13, "13-mer index")
-        return self.dense13.get_total_tf_values_codes(codes, valid)
+        with span("aindex.facade.get_total_tf_values_codes_13mer"):
+            self._require(self.dense13, "13-mer index")
+            return self.dense13.get_total_tf_values_codes(codes, valid)
 
     def get_tf_values_codes_23mer(self, codes, valid=None):
-        self._require(self.sparse23, "23-mer index")
-        return self._engine23.get_tf_values_codes(codes, valid)
+        with span("aindex.facade.get_tf_values_codes_23mer"):
+            self._require(self.sparse23, "23-mer index")
+            return self._engine23.get_tf_values_codes(codes, valid)
 
     def get_reverse_complement_13mer(self, kmer: str) -> str:
         return codec.revcomp(kmer)

@@ -22,6 +22,7 @@ from typing import Iterator
 import numpy as np
 
 from aindex_torch.core.codec import revcomp
+from aindex_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -68,10 +69,12 @@ class ReadsStore:
 
     @classmethod
     def from_sequences(cls, sequences: list[str]) -> "ReadsStore":
-        text = "".join(s + "\n" for s in sequences)
-        blob = np.frombuffer(text.encode("ascii"), dtype=np.uint8)
-        starts, ends = cls._scan_newlines(blob)
-        return cls(blob.copy(), starts, ends)
+        """The store of ``sequences``, in the timed span ``aindex.build.reads``."""
+        with span("aindex.build.reads", timed=True):
+            text = "".join(s + "\n" for s in sequences)
+            blob = np.frombuffer(text.encode("ascii"), dtype=np.uint8)
+            starts, ends = cls._scan_newlines(blob)
+            return cls(blob.copy(), starts, ends)
 
     @staticmethod
     def _scan_newlines(blob: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from aindex_torch.core import codec
+from aindex_torch.trace import note_h2d
 
 
 def resolve_device(device) -> torch.device:
@@ -65,6 +66,8 @@ def _packed_chunks_cuda(chunk_iter, device: torch.device):
         slot.copied.synchronize()
         slot.host_packed.numpy()[:n] = packed.view(np.int32)
         slot.host_vbits.numpy()[:2 * n] = vbits
+        note_h2d(slot.host_packed[:n])
+        note_h2d(slot.host_vbits[:2 * n])
         with torch.cuda.stream(copy):
             copy.wait_event(slot.consumed)
             slot.dev_packed[:n].copy_(slot.host_packed[:n], non_blocking=True)

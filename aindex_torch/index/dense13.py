@@ -34,6 +34,7 @@ from aindex_torch.kernels import coverage as cov_kernels
 from aindex_torch.kernels.count import PackedCounter, count_batch_13, zeros_dev
 from aindex_torch.kernels.encode import revcomp_code13
 from aindex_torch.kernels.lookup import gather13
+from aindex_torch.trace import span, to_device
 
 KERNEL_TOTAL = _cuda.KERNELS["total13"]
 
@@ -92,15 +93,16 @@ def _count_step(counts: torch.Tensor, ascii: torch.Tensor) -> torch.Tensor:
 def _count(counts: torch.Tensor, chunk_iter, on_progress) -> None:
     """Every packed chunk (double-buffered on CUDA, see
     ``common.packed_chunks``) into a ``PackedCounter`` of ``counts``, then
-    one count of them all (K1)."""
-    counter = PackedCounter(counts)
-    for packed, vbits, done in packed_chunks(chunk_iter, counts.device):
-        counter.add(packed, vbits)
-        if on_progress is not None:
-            on_progress(done)
-    counter.finish()
-    if counts.device.type == "cuda":
-        torch.cuda.synchronize(counts.device)
+    one count of them all (K1), in the timed span ``aindex.build.count``."""
+    with span("aindex.build.count", timed=True):
+        counter = PackedCounter(counts)
+        for packed, vbits, done in packed_chunks(chunk_iter, counts.device):
+            counter.add(packed, vbits)
+            if on_progress is not None:
+                on_progress(done)
+        counter.finish()
+        if counts.device.type == "cuda":
+            torch.cuda.synchronize(counts.device)
 
 
 def _count_blob_sharded(blob: np.ndarray, mesh, chunk: int, on_progress=None) -> torch.Tensor:
@@ -151,14 +153,16 @@ class Dense13Index:
         once (K2) so that each total query is one gather; stored at the
         smallest exact width (see ``_narrow``)."""
         if self._tf_total is None:
-            self._tf_total = _narrow(total13(self.tf))
+            with span("aindex.index.total", timed=True):
+                self._tf_total = _narrow(total13(self.tf))
         return self._tf_total
 
     @property
     def tf_query(self) -> torch.Tensor:
         """Smallest-width copy of tf for forward-strand query gathers."""
         if self._tf_query is None:
-            self._tf_query = _narrow(self.tf)
+            with span("aindex.index.total", timed=True):
+                self._tf_query = _narrow(self.tf)
         return self._tf_query
 
     # -- construction --------------------------------------------------
@@ -227,7 +231,8 @@ class Dense13Index:
         device = resolve_device(device)
         # a copy: the index's table must not alias the caller's array
         dev_tf = torch.from_numpy(np.array(tf, dtype=np.uint32).view(np.int32))
-        return cls(dev_tf.to(device), tf_host=tf_host)
+        with span("aindex.index.upload", timed=True):
+            return cls(to_device(dev_tf, device), tf_host=tf_host)
 
     # -- persistence (.tf.bin = uint64 x 4^13 in code order, the same file
     #    aindex_tpu writes and reads) ---------------------------------------
@@ -289,7 +294,7 @@ class Dense13Index:
                 f"batch byte length {len(raw)} is not a multiple of k={K13} "
                 "(mixed-length or ragged k-mer batch)")
         rows = np.frombuffer(bytearray(raw), dtype=np.uint8).reshape(-1, K13)
-        return torch.from_numpy(rows).to(self.device)
+        return to_device(torch.from_numpy(rows), self.device)
 
     def get_tf_values(self, kmers: list[str]) -> np.ndarray:
         """Forward-strand tf per k-mer (get_tf_value_13mer semantics), uint32;
@@ -309,36 +314,39 @@ class Dense13Index:
         """Codes (tensor, array or list; any integer dtype, read as uint32
         bit patterns as JAX's int32 cast does) and an optional mask, as
         contiguous int32/bool tensors on the index's device."""
-        if isinstance(codes, torch.Tensor):
-            if codes.dtype == torch.uint32:
-                codes = codes.view(torch.int32)
-            elif codes.dtype != torch.int32:
-                codes = codes.to(torch.int32)
-        else:
-            arr = np.asarray(codes)
-            if arr.dtype.kind not in "iu":
-                raise TypeError(f"codes must be integers, got {arr.dtype}")
-            codes = torch.from_numpy(arr.astype(np.uint32).view(np.int32))
-        codes = codes.to(self.device).contiguous()
-        if valid is not None:
-            valid = torch.as_tensor(valid).to(device=self.device, dtype=torch.bool)
-            if valid.shape != codes.shape:
-                raise ValueError(f"valid shape {tuple(valid.shape)} differs "
-                                 f"from codes shape {tuple(codes.shape)}")
-            valid = valid.contiguous()
-        return codes, valid
+        with span("aindex.index.codes_in"):
+            if isinstance(codes, torch.Tensor):
+                if codes.dtype == torch.uint32:
+                    codes = codes.view(torch.int32)
+                elif codes.dtype != torch.int32:
+                    codes = codes.to(torch.int32)
+            else:
+                arr = np.asarray(codes)
+                if arr.dtype.kind not in "iu":
+                    raise TypeError(f"codes must be integers, got {arr.dtype}")
+                codes = torch.from_numpy(arr.astype(np.uint32).view(np.int32))
+            codes = to_device(codes, self.device).contiguous()
+            if valid is not None:
+                valid = to_device(torch.as_tensor(valid, dtype=torch.bool), self.device)
+                if valid.shape != codes.shape:
+                    raise ValueError(f"valid shape {tuple(valid.shape)} differs "
+                                     f"from codes shape {tuple(codes.shape)}")
+                valid = valid.contiguous()
+            return codes, valid
 
     def get_tf_values_codes(self, codes, valid=None) -> torch.Tensor:
         """Forward-strand tf per pre-encoded 2-bit 13-mer code: uint32 on
         the index's device, one gather, no string encode. ``valid=None``
         asserts every code is valid (no mask)."""
-        codes, valid = self._codes_in(codes, valid)
-        return gather13(self.tf_query, codes, valid)
+        with span("aindex.index.query"):
+            codes, valid = self._codes_in(codes, valid)
+            return gather13(self.tf_query, codes, valid)
 
     def get_total_tf_values_codes(self, codes, valid=None) -> torch.Tensor:
         """fwd + rc tf per pre-encoded code, one gather in ``tf_total``."""
-        codes, valid = self._codes_in(codes, valid)
-        return gather13(self.tf_total, codes, valid)
+        with span("aindex.index.query"):
+            codes, valid = self._codes_in(codes, valid)
+            return gather13(self.tf_total, codes, valid)
 
     def get_tf_by_index(self, index: int) -> int:
         """tf by raw table index (get_tf_by_index_13mer)."""

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from aindex_torch.constants import K13, SUFFIX_INDEX, SUFFIX_INDICES
 from aindex_torch.core.reads import blob_chunks
@@ -40,6 +39,7 @@ from aindex_torch.index.sparse23 import Sparse23Index
 from aindex_torch.kernels.count import zeros_dev
 from aindex_torch.kernels.positional import csr_offsets, fill_scratch, posfill
 from aindex_torch.kernels.probe import CANON
+from aindex_torch.trace import span
 
 
 def tf_tensor(tf, n_slots: int, device: torch.device) -> torch.Tensor:
@@ -105,15 +105,14 @@ class PositionalIndex:
         every chunk's occurrences directly into their final cells. The
         chunks cross to the device packed (``common.packed_chunks``); K9's
         scratch is allocated once, at the first chunk. The stages are
-        ``record_function`` ranges (``positional.offsets``, ``.fill``,
-        ``.copy``) for a profiler trace; the fill's ends when the device
-        has finished it."""
-        with record_function("positional.offsets"):
+        spans (``aindex.positional.offsets``, ``.fill``, ``.copy``) for a
+        profiler trace; the fill's ends when the device has finished it."""
+        with span("aindex.positional.offsets"):
             offsets = csr_offsets(tf_tensor(tf, n_slots, device))
             total = int(offsets[-1])
         if total == 0:
             return cls(offsets.cpu().numpy().view(np.uint64), np.zeros(0, np.uint64))
-        with record_function("positional.fill"):
+        with span("aindex.positional.fill"):
             positions = zeros_dev(total, torch.int64, device=device)
             cursor = zeros_dev(n_slots, torch.int32, device=device)
             starts = offsets[:-1]
@@ -127,7 +126,7 @@ class PositionalIndex:
             del scratch, cursor
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-        with record_function("positional.copy"):
+        with span("aindex.positional.copy"):
             return cls(offsets.cpu().numpy().view(np.uint64),
                        positions.cpu().numpy().view(np.uint64))
 
@@ -176,12 +175,12 @@ class PositionalIndex:
         wide cuckoo table or MPHF walk). The index's own tf array sizes the
         CSR; absent and invalid windows are dropped on the device. The
         engine's tables are built first (``index.tables``), in a range of
-        their own, ``positional.tables``.
+        their own, ``aindex.positional.tables``.
 
         With ``mesh``, the fill runs data-parallel and slot-range-sharded
         (see ``build_dense13``); the verified slot probe is the index's own
         engine on the rank's device, which must be the mesh's."""
-        with record_function("positional.tables"):
+        with span("aindex.positional.tables"):
             tables = index.tables
         if mesh is not None:
             from aindex_torch.parallel.positional import build_positional_sharded

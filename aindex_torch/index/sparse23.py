@@ -43,8 +43,6 @@ src/hash.hpp:150-170) equals numeric code-min.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -59,6 +57,7 @@ from aindex_torch.index.mphf import MPHF
 from aindex_torch.kernels import probe
 from aindex_torch.kernels.lookup import MphfTables
 from aindex_torch.kernels.spectrum import ascii_canonical, chunk_spectrum_packed, merge_spectra
+from aindex_torch.trace import span, to_device
 
 
 #: aindex_tpu/index/sparse23.py:38's name for kernels/spectrum.py's
@@ -133,28 +132,30 @@ def codes_tensor(codes, valid, device: torch.device):
     """Codes (tensor, array or list of integers, read as uint64 bit
     patterns as aindex_tpu's ``astype(uint64)`` reads them) and an optional
     mask, as 1-D int64 / bool tensors on ``device``, and the codes' shape."""
-    if isinstance(codes, torch.Tensor):
-        if codes.dtype == torch.uint64:
-            codes = codes.view(torch.int64)
-        elif codes.dtype == torch.uint32:
-            codes = codes.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        elif codes.dtype.is_floating_point or codes.dtype == torch.bool:
-            raise TypeError(f"codes must be integers, got {codes.dtype}")
+    with span("aindex.index.codes_in"):
+        if isinstance(codes, torch.Tensor):
+            if codes.dtype == torch.uint64:
+                codes = codes.view(torch.int64)
+            elif codes.dtype == torch.uint32:
+                codes = codes.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            elif codes.dtype.is_floating_point or codes.dtype == torch.bool:
+                raise TypeError(f"codes must be integers, got {codes.dtype}")
+            else:
+                codes = codes.to(torch.int64)
         else:
-            codes = codes.to(torch.int64)
-    else:
-        arr = np.asarray(codes)
-        if arr.dtype.kind not in "iu":
-            raise TypeError(f"codes must be integers, got {arr.dtype}")
-        codes = torch.from_numpy(np.ascontiguousarray(arr.astype(np.uint64)).view(np.int64))
-    shape = tuple(codes.shape)
-    codes = codes.to(device).reshape(-1).contiguous()
-    if valid is not None:
-        valid = torch.as_tensor(valid).to(device=device, dtype=torch.bool)
-        if tuple(valid.shape) != shape:
-            raise ValueError(f"valid shape {tuple(valid.shape)} differs from codes shape {shape}")
-        valid = valid.reshape(-1).contiguous()
-    return codes, valid, shape
+            arr = np.asarray(codes)
+            if arr.dtype.kind not in "iu":
+                raise TypeError(f"codes must be integers, got {arr.dtype}")
+            codes = torch.from_numpy(np.ascontiguousarray(arr.astype(np.uint64)).view(np.int64))
+        shape = tuple(codes.shape)
+        codes = to_device(codes, device).reshape(-1).contiguous()
+        if valid is not None:
+            valid = to_device(torch.as_tensor(valid, dtype=torch.bool), device)
+            if tuple(valid.shape) != shape:
+                raise ValueError(f"valid shape {tuple(valid.shape)} differs from codes shape "
+                                 f"{shape}")
+            valid = valid.reshape(-1).contiguous()
+        return codes, valid, shape
 
 
 class SharedQueryOps:
@@ -281,8 +282,9 @@ class Sparse23Index(SharedQueryOps):
         ``QuotTables``); None when the fingerprint-width floor makes the layout wasteful
         for this (n, k), or k > 30."""
         if self._quot is None and self.k <= 30 and quotcuckoo.eligible(self.n, self.k):
-            self._quot = quotcuckoo.QuotCuckoo.build(
-                self.checker_host, self.tf_host, np.arange(self.n, dtype=np.int32), self.k)
+            with span("aindex.build.quot", timed=True):
+                self._quot = quotcuckoo.QuotCuckoo.build(
+                    self.checker_host, self.tf_host, np.arange(self.n, dtype=np.int32), self.k)
         return self._quot
 
     @property
@@ -351,18 +353,18 @@ class Sparse23Index(SharedQueryOps):
     def _build(cls, chunk_iter, k: int, min_tf: int, on_progress, device
                ) -> "Sparse23Index":
         device = resolve_device(device)
-        t0 = time.perf_counter()
-        parts = _spectrum_parts(chunk_iter, k, device, on_progress)
-        t1 = time.perf_counter()
-        keys, counts = merge_spectra(parts)
-        del parts
-        if min_tf > 1:
-            keep = counts >= min_tf
-            keys, counts = keys[keep], counts[keep]
-        t2 = time.perf_counter()
-        index = cls.from_spectrum(keys, counts, k, device=device)
-        index.build_seconds = {"spectrum": t1 - t0, "merge": t2 - t1,
-                               "mphf": time.perf_counter() - t2}
+        with span("aindex.build.spectrum", timed=True) as spectrum:
+            parts = _spectrum_parts(chunk_iter, k, device, on_progress)
+        with span("aindex.build.merge", timed=True) as merge:
+            keys, counts = merge_spectra(parts)
+            del parts
+            if min_tf > 1:
+                keep = counts >= min_tf
+                keys, counts = keys[keep], counts[keep]
+        with span("aindex.build.mphf", timed=True) as mphf:
+            index = cls.from_spectrum(keys, counts, k, device=device)
+        index.build_seconds = {"spectrum": spectrum.seconds, "merge": merge.seconds,
+                               "mphf": mphf.seconds}
         return index
 
     @classmethod
@@ -503,7 +505,7 @@ class Sparse23Index(SharedQueryOps):
                 f"batch byte length {len(raw)} is not a multiple of k={self.k} "
                 "(mixed-length or ragged k-mer batch)")
         rows = np.frombuffer(bytearray(raw), dtype=np.uint8).reshape(-1, self.k)
-        return torch.from_numpy(rows).to(self.device)
+        return to_device(torch.from_numpy(rows), self.device)
 
     def _resolve_ascii(self, kmers: list[str]):
         """(tf uint32, slot int32, strand int32) per k-mer string: the
@@ -513,8 +515,8 @@ class Sparse23Index(SharedQueryOps):
         return host_u32(tf), slot.cpu().numpy(), strand.cpu().numpy()
 
     def _ext_tf(self, ext_codes: np.ndarray, cutoff: int) -> np.ndarray:
-        flat = torch.from_numpy(np.ascontiguousarray(ext_codes, dtype=np.uint64)
-                                .reshape(-1).view(np.int64)).to(self.device)
+        flat = to_device(torch.from_numpy(np.ascontiguousarray(ext_codes, dtype=np.uint64)
+                                          .reshape(-1).view(np.int64)), self.device)
         tf = host_u32(probe.query(self.tables, flat, k=self.k, rule=self.rule))
         tf = tf.reshape(ext_codes.shape)
         if cutoff > 0:
@@ -527,9 +529,9 @@ class Sparse23Index(SharedQueryOps):
         kernel computes windows, the rule's probes and the cutoff in one
         launch; returns uint32[rows, stride - k] on the host."""
         cov = probe.coverage(self.tables,
-                             torch.from_numpy(packed.view(np.int32)).to(self.device),
-                             torch.from_numpy(vbits).to(self.device), rows, stride, self.k,
-                             cutoff, self.rule)
+                             to_device(torch.from_numpy(packed.view(np.int32)), self.device),
+                             to_device(torch.from_numpy(vbits), self.device), rows, stride,
+                             self.k, cutoff, self.rule)
         return host_u32(cov)
 
     # -- queries -----------------------------------------------------------
@@ -548,8 +550,10 @@ class Sparse23Index(SharedQueryOps):
         the engine's query kernel (on the quotient table: revcomp +
         canonical + one bucket probe, no slot output). ``valid=None``
         asserts every code is a valid k-mer."""
-        codes, valid, shape = codes_tensor(codes, valid, self.device)
-        return probe.query(self.tables, codes, valid, k=self.k, rule=self.rule).reshape(shape)
+        with span("aindex.index.query"):
+            codes, valid, shape = codes_tensor(codes, valid, self.device)
+            return probe.query(self.tables, codes, valid, k=self.k,
+                               rule=self.rule).reshape(shape)
 
     def get_tf_both_directions(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """(fwd tf, rc tf). Both equal the verified canonical tf: the

@@ -16,7 +16,9 @@ an edited source or header is rebuilt and an unchanged one is reused.
 Each C entry launches on the stream it is given (PyTorch's current stream),
 allocates nothing and returns ``cudaGetLastError()``; ``Kernel.launch``
 raises if that is not 0 and otherwise adds one to the kernel's
-``launches`` count.
+``launches`` count, the counter ``launch.<kernel>`` of ``aindex_torch.trace``.
+``build_all`` runs in the timed span ``aindex.kernels.compile`` and counts
+``kernels.compiled`` (``nvcc`` runs) and ``kernels.loaded`` (libraries).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import re
 import shutil
 import subprocess
 import threading
-import time
+
+from aindex_torch import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -68,9 +71,14 @@ class Kernel:
         self.source = os.path.join(CSRC, source)
         self.argtypes = argtypes
         self.replaces = replaces
-        self.launches = 0
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
+        self._counter = "launch." + name
+
+    @property
+    def launches(self) -> int:
+        """Launches counted since the last ``reset_launches``."""
+        return int(trace.counters().get(self._counter, 0))
 
     def library_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -98,7 +106,7 @@ class Kernel:
         if rc != 0:
             msg = self._lib.dna13_error_string(rc).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed: error {rc} ({msg})")
-        self.launches += 1
+        trace.count(self._counter)
 
 
 # The engine entries of probe.cuh and fill.cuh take the engine as a host
@@ -218,42 +226,49 @@ def build_all() -> float:
     under a temporary name and renamed, so concurrent builders never load a
     half-written file."""
     with _build_lock:
-        t0 = time.perf_counter()
         todo = [k for k in KERNELS.values() if k._lib is None]
         if not todo:
             return 0.0
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}   # library path -> (tmp path, nvcc process or None)
-        for k in todo:
-            out = k.library_path()
-            if out in procs:
-                continue
-            if os.path.exists(out):
-                procs[out] = (None, None)
-                continue
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, k.source]
-            procs[out] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT))
-        failed = []
-        logs = {}
-        for out, (tmp, proc) in procs.items():
-            if proc is None:
-                continue
-            log, _ = proc.communicate()
-            logs[out] = log.decode(errors="replace")
-            if proc.returncode != 0:
-                failed.append(f"{os.path.basename(out)}:\n{logs[out]}")
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                continue
-            os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        for k in todo:
-            k.build_log = logs.get(k.library_path(), "")
-            k._load(k.library_path())
-        return time.perf_counter() - t0
+        with trace.span("aindex.kernels.compile", timed=True) as timed:
+            _build(todo)
+        return timed.seconds
+
+
+def _build(todo: list[Kernel]) -> None:
+    """``build_all``'s work on the kernels not loaded yet."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}   # library path -> (tmp path, nvcc process or None)
+    for k in todo:
+        out = k.library_path()
+        if out in procs:
+            continue
+        if os.path.exists(out):
+            procs[out] = (None, None)
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, k.source]
+        procs[out] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT))
+        trace.count("kernels.compiled")
+    failed = []
+    logs = {}
+    for out, (tmp, proc) in procs.items():
+        if proc is None:
+            continue
+        log, _ = proc.communicate()
+        logs[out] = log.decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(out)}:\n{logs[out]}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for k in todo:
+        k.build_log = logs.get(k.library_path(), "")
+        k._load(k.library_path())
+    trace.count("kernels.loaded", len(procs))
 
 
 def on_cuda(*tensors) -> bool:
@@ -278,9 +293,10 @@ def stream(device) -> int:
 
 
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    trace.reset("launch.")
 
 
 def launches() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Each kernel's launches since the last ``reset_launches``."""
+    counts = trace.counters()
+    return {name: int(counts.get(k._counter, 0)) for name, k in KERNELS.items()}

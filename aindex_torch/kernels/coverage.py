@@ -22,6 +22,7 @@ from aindex_torch.core import codec
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels.encode import check_packed, packed_window_codes, table_values
 from aindex_torch.kernels.lookup import WIDTHS, as_u32
+from aindex_torch.trace import to_device
 
 KERNEL = _cuda.KERNELS["coverage13_packed"]
 
@@ -92,8 +93,8 @@ def coverage_dense_batch(table: torch.Tensor, seqs: list[str], k: int,
     dtype = _NP_DTYPES[table.dtype]
     dev = table.device
     for members, stride, packed, vbits in codec.coverage_row_batches(raws, K13):
-        cov = coverage13_packed(table, torch.from_numpy(packed.view(np.int32)).to(dev),
-                                torch.from_numpy(vbits).to(dev), len(members), stride,
+        cov = coverage13_packed(table, to_device(torch.from_numpy(packed.view(np.int32)), dev),
+                                to_device(torch.from_numpy(vbits), dev), len(members), stride,
                                 cutoff)
         cov = cov.view(torch.int32).cpu().numpy().view(np.uint32)
         for row, i in enumerate(members):

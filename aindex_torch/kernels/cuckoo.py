@@ -20,6 +20,7 @@ import torch
 
 from aindex_torch.kernels.buckets import EMPTY_KEY, BucketTables, build_records
 from aindex_torch.kernels.lookup import _s64, mix64
+from aindex_torch.trace import span, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +37,15 @@ class CuckooTables(BucketTables):
                   device) -> "CuckooTables":
         """The records of the host table (index/cuckoo.py: uint32[2m, 4]
         rows, m a half, key_hi = 0xFFFFFFFF for an empty row), built on
-        ``device``."""
-        rows = torch.from_numpy(np.ascontiguousarray(table).view(np.int32)).to(device)
-        rows = rows[rows[:, 1] != -1]
-        keys = (rows[:, 0].to(torch.int64) & 0xFFFFFFFF) | (rows[:, 1].to(torch.int64) << 32)
-        records, levels = build_records(keys, rows[:, 2], rows[:, 3], seed1)
-        return cls(records, levels, seed1, 64, empty_answer(table, m, seed1, seed2))
+        ``device``; in the timed span ``aindex.index.upload``."""
+        with span("aindex.index.upload", timed=True):
+            rows = to_device(torch.from_numpy(np.ascontiguousarray(table).view(np.int32)),
+                             device)
+            rows = rows[rows[:, 1] != -1]
+            keys = (rows[:, 0].to(torch.int64) & 0xFFFFFFFF) \
+                | (rows[:, 1].to(torch.int64) << 32)
+            records, levels = build_records(keys, rows[:, 2], rows[:, 3], seed1)
+            return cls(records, levels, seed1, 64, empty_answer(table, m, seed1, seed2))
 
 
 def empty_answer(table: np.ndarray, m: int, seed1: int, seed2: int) -> tuple[bool, int, int]:

@@ -48,6 +48,7 @@ import torch
 
 from aindex_torch.constants import K13, SPACE_13
 from aindex_torch.kernels import _cuda
+from aindex_torch.trace import span, to_device
 from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check_packed,
                                          int32_value, packed_window_codes, revcomp_code13,
                                          revcomp_code64, table_values, u64_le, window_codes)
@@ -127,25 +128,27 @@ def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
     give 0. Returns the forward lookups shaped like the codes (``[B]`` for
     ASCII), or with ``both`` the pair (forward, reverse complement).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K3."""
-    _check(table, codes, valid, ascii)
-    query = ascii if ascii is not None else codes
-    extra = (valid,) if valid is not None else ()
-    if not _cuda.on_cuda(table, query, *extra):
-        return gather13_plain(table, codes, valid, ascii, both)
-    shape = (ascii.shape[0],) if ascii is not None else tuple(codes.shape)
-    out = torch.empty(shape, dtype=torch.int32, device=table.device)
-    out_rc = torch.empty_like(out) if both else None
-    if out.numel():
-        with torch.cuda.device(table.device):
-            KERNEL.launch(
-                table.data_ptr(), WIDTHS[table.dtype],
-                None if codes is None else codes.data_ptr(),
-                None if valid is None else valid.data_ptr(),
-                None if ascii is None else ascii.data_ptr(),
-                out.numel(), out.data_ptr(),
-                None if out_rc is None else out_rc.data_ptr(),
-                _cuda.stream(table.device))
+    A CPU tensor runs the plain version; a CUDA tensor launches K3. The
+    whole call is the span ``aindex.kernel.gather13``."""
+    with span("aindex.kernel.gather13"):
+        _check(table, codes, valid, ascii)
+        query = ascii if ascii is not None else codes
+        extra = (valid,) if valid is not None else ()
+        if not _cuda.on_cuda(table, query, *extra):
+            return gather13_plain(table, codes, valid, ascii, both)
+        shape = (ascii.shape[0],) if ascii is not None else tuple(codes.shape)
+        out = torch.empty(shape, dtype=torch.int32, device=table.device)
+        out_rc = torch.empty_like(out) if both else None
+        if out.numel():
+            with torch.cuda.device(table.device):
+                KERNEL.launch(
+                    table.data_ptr(), WIDTHS[table.dtype],
+                    None if codes is None else codes.data_ptr(),
+                    None if valid is None else valid.data_ptr(),
+                    None if ascii is None else ascii.data_ptr(),
+                    out.numel(), out.data_ptr(),
+                    None if out_rc is None else out_rc.data_ptr(),
+                    _cuda.stream(table.device))
     if both:
         return out.view(torch.uint32), out_rc.view(torch.uint32)
     return out.view(torch.uint32)
@@ -333,14 +336,16 @@ class MphfTables:
         """The engine of a host MPHF (``index/mphf.MPHF``) and its
         slot-ordered checker (uint64[n]) and tf (uint32[n]) on ``device``;
         the records are gathered there (the slots, checker and tf copies
-        are dropped after)."""
+        are dropped after); in the timed span ``aindex.index.upload``."""
         def up(x, dtype):
-            return torch.from_numpy(np.ascontiguousarray(x).view(dtype)).to(device, copy=True)
-        records = walk_records(up(np.asarray(mphf.slots, np.int32), np.int32),
-                               up(np.asarray(checker, np.uint64), np.int64),
-                               up(np.asarray(tf, np.uint32), np.int32))
-        return cls(up(np.asarray(mphf.g_packed, np.uint32), np.int32), records,
-                   int(mphf.n), int(mphf.domain), int(mphf.seed))
+            return to_device(torch.from_numpy(np.ascontiguousarray(x).view(dtype)), device,
+                             copy=True)
+        with span("aindex.index.upload", timed=True):
+            records = walk_records(up(np.asarray(mphf.slots, np.int32), np.int32),
+                                   up(np.asarray(checker, np.uint64), np.int64),
+                                   up(np.asarray(tf, np.uint32), np.int32))
+            return cls(up(np.asarray(mphf.g_packed, np.uint32), np.int32), records,
+                       int(mphf.n), int(mphf.domain), int(mphf.seed))
 
     @property
     def device(self) -> torch.device:

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from aindex_torch.kernels import _cuda
+from aindex_torch.trace import span
 from aindex_torch.kernels.encode import (ascii_to_base_codes, check_packed,
                                          packed_window_codes, revcomp_code64, u64_le,
                                          window_codes)
@@ -128,25 +129,27 @@ def query(t, codes: torch.Tensor | None = None, valid: torch.Tensor | None = Non
     reverse complement).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    engine's query kernel (K6, K10 or K11)."""
-    q = _check_query(t, codes, valid, ascii, k, rule, slot, strand)
-    extra = (valid,) if valid is not None else ()
-    if not _cuda.on_cuda(*t.tensors(), q, *extra):
-        return query_plain(t, codes, valid, ascii, k, rule, slot, strand)
-    dev = t.device
-    n = q.shape[0]
-    tf = torch.empty(n, dtype=torch.int32, device=dev)
-    sl = torch.empty(n, dtype=torch.int32, device=dev) if slot else None
-    st = torch.empty(n, dtype=torch.int32, device=dev) if strand else None
-    if n:
-        p, u = c_engine(t)
-        with torch.cuda.device(dev):
-            _cuda.KERNELS[t.QUERY].launch(
-                p, u, None if codes is None else codes.data_ptr(),
-                None if valid is None else valid.data_ptr(),
-                None if ascii is None else ascii.data_ptr(), k, n, rule, tf.data_ptr(),
-                None if sl is None else sl.data_ptr(), None if st is None else st.data_ptr(),
-                _cuda.stream(dev))
+    engine's query kernel (K6, K10 or K11). The whole call is the span
+    ``aindex.kernel.query``."""
+    with span("aindex.kernel.query"):
+        q = _check_query(t, codes, valid, ascii, k, rule, slot, strand)
+        extra = (valid,) if valid is not None else ()
+        if not _cuda.on_cuda(*t.tensors(), q, *extra):
+            return query_plain(t, codes, valid, ascii, k, rule, slot, strand)
+        dev = t.device
+        n = q.shape[0]
+        tf = torch.empty(n, dtype=torch.int32, device=dev)
+        sl = torch.empty(n, dtype=torch.int32, device=dev) if slot else None
+        st = torch.empty(n, dtype=torch.int32, device=dev) if strand else None
+        if n:
+            p, u = c_engine(t)
+            with torch.cuda.device(dev):
+                _cuda.KERNELS[t.QUERY].launch(
+                    p, u, None if codes is None else codes.data_ptr(),
+                    None if valid is None else valid.data_ptr(),
+                    None if ascii is None else ascii.data_ptr(), k, n, rule, tf.data_ptr(),
+                    None if sl is None else sl.data_ptr(),
+                    None if st is None else st.data_ptr(), _cuda.stream(dev))
     tf = tf.view(torch.uint32)
     if not slot:
         return tf

@@ -35,6 +35,7 @@ from aindex_torch.kernels import _cuda, probe
 from aindex_torch.kernels.buckets import BucketTables, build_records
 from aindex_torch.kernels.encode import ascii_to_base_codes, window_codes
 from aindex_torch.kernels.probe import CANON
+from aindex_torch.trace import span, to_device
 
 KERNEL_ROWS = _cuda.KERNELS["quotcov23_rows"]
 
@@ -60,19 +61,23 @@ class QuotTables(BucketTables):
         """The records of the host table (index/quotcuckoo.py: ``fp_tf``
         uint32[2m, 2] rows (fingerprint, tf), ``slot`` int32[2m]), built on
         ``device``: each occupied row's key is its bijection inverted at
-        (fingerprint << lb) | row, checked to probe back to that row."""
-        fp_tf = torch.from_numpy(np.ascontiguousarray(fp_tf).view(np.int32)).to(device)
-        slot = torch.from_numpy(np.ascontiguousarray(slot, dtype=np.int32)).to(device)
-        fp = fp_tf[:, 0].to(torch.int64) & 0xFFFFFFFF
-        rows = torch.nonzero(fp != 0xFFFFFFFF).reshape(-1)
-        h = (fp[rows] << lb) | (rows & (m - 1))
-        second = rows >= m
-        m1, m2 = tuple(int(x) for x in mults[:2]), tuple(int(x) for x in mults[2:])
-        keys = torch.where(second, bij_inverse(h, *m2, w), bij_inverse(h, *m1, w))
-        if not bool((torch.where(second, bij(keys, *m2, w), bij(keys, *m1, w)) == h).all()):
-            raise RuntimeError("a quotient row's key does not probe back to its row")
-        records, levels = build_records(keys, fp_tf[rows, 1], slot[rows], QUOT_SEED)
-        return cls(records, levels, QUOT_SEED, w)
+        (fingerprint << lb) | row, checked to probe back to that row; in the
+        timed span ``aindex.index.upload``."""
+        with span("aindex.index.upload", timed=True):
+            fp_tf = to_device(torch.from_numpy(np.ascontiguousarray(fp_tf).view(np.int32)),
+                              device)
+            slot = to_device(torch.from_numpy(np.ascontiguousarray(slot, dtype=np.int32)),
+                             device)
+            fp = fp_tf[:, 0].to(torch.int64) & 0xFFFFFFFF
+            rows = torch.nonzero(fp != 0xFFFFFFFF).reshape(-1)
+            h = (fp[rows] << lb) | (rows & (m - 1))
+            second = rows >= m
+            m1, m2 = tuple(int(x) for x in mults[:2]), tuple(int(x) for x in mults[2:])
+            keys = torch.where(second, bij_inverse(h, *m2, w), bij_inverse(h, *m1, w))
+            if not bool((torch.where(second, bij(keys, *m2, w), bij(keys, *m1, w)) == h).all()):
+                raise RuntimeError("a quotient row's key does not probe back to its row")
+            records, levels = build_records(keys, fp_tf[rows, 1], slot[rows], QUOT_SEED)
+            return cls(records, levels, QUOT_SEED, w)
 
     def check_k(self, k: int) -> None:
         if not 1 <= k <= 31 or 2 * k != self.w:

@@ -32,12 +32,12 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from aindex_torch.kernels.positional import (DELTA_BITS, bucket_scratch, csr_offsets,
                                              fill_scratch, posbucket, posfill_pairs)
 from aindex_torch.kernels.probe import CANON
 from aindex_torch.parallel.mesh import DATA_AXIS, axis_group, axis_rank, axis_size, mesh_device
+from aindex_torch.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -118,7 +118,7 @@ def build_positional_sharded(blob: np.ndarray, n_slots: int, tf, tables, mesh, k
     dev = mesh_device(mesh)
     if tables is not None and tables.device != dev:
         raise ValueError(f"the engine's tables lie on {tables.device}, the mesh's rank on {dev}")
-    with record_function("positional.offsets"):
+    with span("aindex.positional.offsets"):
         offsets = csr_offsets(tf_tensor(tf, n_slots, dev))
         if int(offsets[-1]) == 0 or blob.size < k:
             return PositionalIndex(offsets.cpu().numpy().view(np.uint64),
@@ -161,7 +161,7 @@ def build_positional_sharded(blob: np.ndarray, n_slots: int, tf, tables, mesh, k
         dist.all_reduce(overflow, group=group)
         return shard, int(overflow)
 
-    with record_function("positional.fill"):
+    with span("aindex.positional.fill"):
         shard, out = run(mode)
         if mode == "alltoall" and (out is None or out > 0):
             # bucket overflow (skewed slots) or an oversized chunk: redo
@@ -172,7 +172,7 @@ def build_positional_sharded(blob: np.ndarray, n_slots: int, tf, tables, mesh, k
             shard, _ = run("allgather")
     # each rank holds its slot range's segment; the concat over data (the
     # ranges ascend with the data row) is the whole positions array
-    with record_function("positional.copy"):
+    with span("aindex.positional.copy"):
         local = shard.positions[:seg_len[d]].cpu().numpy()
         positions = pdist.allgather_concat(local, group).view(np.uint64)
         offsets = offsets.cpu().numpy().view(np.uint64)

@@ -32,7 +32,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from aindex_torch.constants import K13, K23, SPACE_13
 from aindex_torch.core import codec
@@ -44,6 +43,7 @@ from aindex_torch.io import fastq as io_fastq
 from aindex_torch.kernels.spectrum import merge_spectra
 from aindex_torch.parallel import distributed as dist
 from aindex_torch.pipeline.progress import make_progress
+from aindex_torch.trace import span
 
 logger = logging.getLogger("aindex_torch.pipeline")
 
@@ -311,7 +311,7 @@ def build_positional(store: ReadsStore, index, cfg: BuildConfig) -> PositionalIn
                                              on_progress=cb)
     if prog:
         prog.close()
-    with record_function("positional.save"):
+    with span("aindex.positional.save"):
         if dist.should_write():
             pos.save(cfg.prefix)
     dist.barrier("aindex:positional-saved")
@@ -346,16 +346,16 @@ def build_all(inputs: list[str], cfg: BuildConfig,
     ``cfg.skip_existing``, each phase is gated on its output artifacts and
     resumes from them: rerunning a finished build is a no-op. With
     ``cfg.profile_dir``, the whole build runs under a torch.profiler trace
-    (view in Perfetto or chrome://tracing); each phase is a
-    ``record_function`` range named ``build_all.<phase>``."""
+    (view in Perfetto or chrome://tracing); each phase is a span
+    (``aindex_torch.trace``) named ``aindex.build_all.<phase>``."""
     out_dir = os.path.dirname(cfg.prefix)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     with _profiled(cfg.profile_dir):
-        with record_function("build_all.reads"):
+        with span("aindex.build_all.reads"):
             store = prepare_reads(inputs, read_type, cfg.prefix,
                                   skip_existing=cfg.skip_existing)
-        with record_function("build_all.count"):
+        with span("aindex.build_all.count"):
             if cfg.k == K13:
                 index = build_dense13(store, cfg)
             else:
@@ -369,7 +369,7 @@ def build_all(inputs: list[str], cfg: BuildConfig,
             artifacts["pf"] = cfg.prefix + ".pf"
             artifacts["kmers"] = cfg.prefix + ".kmers.bin"
         if cfg.build_aindex:
-            with record_function("build_all.positional"):
+            with span("aindex.build_all.positional"):
                 build_positional(store, index, cfg)
             artifacts["index"] = cfg.prefix + ".index.bin"
             artifacts["indices"] = cfg.prefix + ".indices.bin"

@@ -3404,15 +3404,16 @@ def positional_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
                 s, e = ranges[name]
                 return (e - s) / 1e6
             stages = {name: sec(name) for name in (
-                "build_all.reads", "build_all.count", "build_all.positional",
-                "positional.tables", "positional.offsets", "positional.fill",
-                "positional.copy", "positional.save") if name in ranges}
-            t_pos = stages["build_all.positional"]
+                "aindex.build_all.reads", "aindex.build_all.count",
+                "aindex.build_all.positional", "aindex.positional.tables",
+                "aindex.positional.offsets", "aindex.positional.fill",
+                "aindex.positional.copy", "aindex.positional.save") if name in ranges}
+            t_pos = stages["aindex.build_all.positional"]
             print(f"positional build_all k={k}: {t_all:.3f} s in all (torch.profiler on); "
                   + ", ".join(f"{n} {v:.3f} s" for n, v in stages.items()) + f"; positional "
                   f"stage {n_bases / t_pos / 1e6:.2f} MB/s of bases; launches "
                   f"{ {n: c for n, c in runs.items() if c} } ({card})")
-            fs, fe = ranges["positional.fill"]
+            fs, fe = ranges["aindex.positional.fill"]
             busy = busy_in(spans, fs, fe)
             if spans:
                 print(f"positional fill k={k}: device busy {busy / 1e3:.3f} ms of "
@@ -3904,15 +3905,15 @@ def run_cli(argv: list[str]) -> tuple[dict, str, float]:
 
 
 def trace_stages(path: str) -> dict[str, float]:
-    """Seconds of the first build_all.* and positional.* range of a
-    torch.profiler chrome trace."""
+    """Seconds of the first aindex.build_all.* and aindex.positional.* range
+    of a torch.profiler chrome trace."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     out = {}
     for e in events:
         name = e.get("name", "")
-        if e.get("ph") == "X" and name.startswith(("build_all.", "positional.")) \
-                and e.get("cat") == "user_annotation" and name not in out:
+        if e.get("ph") == "X" and name.startswith(("aindex.build_all.", "aindex.positional.")) \
+                and e.get("cat") in ("user_annotation", "cpu_op") and name not in out:
             out[name] = e["dur"] / 1e6
     return out
 
@@ -4138,13 +4139,13 @@ def facade_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str, k: int,
     cli_launches, out, t_cli = run_cli(["compute-aindex", "-i", fasta, "-o", prefix, "-k",
                                         str(k), "--profile-dir", prof_dir])
     stages = trace_stages(os.path.join(prof_dir, "build_all.trace.json"))
-    t_all = sum(stages[n] for n in ("build_all.reads", "build_all.count",
-                                    "build_all.positional"))
+    t_all = sum(stages[n] for n in ("aindex.build_all.reads", "aindex.build_all.count",
+                                    "aindex.build_all.positional"))
     print(f"facade k={k} compute-aindex: {t_cli:.3f} s for the subprocess (interpreter, "
           f"imports, kernel load, torch.profiler on); stages " + ", ".join(
               f"{n} {v:.3f} s" for n, v in stages.items()) + f"; build_all "
           f"{n_bases / t_all / 1e6:.2f} MB/s of bases, positional stage "
-          f"{n_bases / stages['build_all.positional'] / 1e6:.2f} MB/s; launches "
+          f"{n_bases / stages['aindex.build_all.positional'] / 1e6:.2f} MB/s; launches "
           f"{ {n: c for n, c in cli_launches.items() if c} } ({card})")
     check("pipeline complete" in out, "compute-aindex reports its artifacts")
 
@@ -4432,11 +4433,11 @@ def mesh_path(dev, card: str, tmp: str, reads: np.ndarray, fasta: str,
                 t_all = time.perf_counter() - t0
             ranges, spans = profile_ranges(prof)
             stages = {name: (e - s) / 1e6 for name, (s, e) in ranges.items()
-                      if name.startswith(("build_all.", "positional."))}
+                      if name.startswith(("aindex.build_all.", "aindex.positional."))}
             got = artifact_hashes(prefix)
             check(got == hashes[k], f"mesh build_all k={k}: every artifact's SHA-256 == the "
                   f"single-device build's ({sorted(got)})")
-            fs, fe = ranges["positional.fill"]
+            fs, fe = ranges["aindex.positional.fill"]
             idle = (f"idle share {1 - busy_in(spans, fs, fe) / (fe - fs):.4f} of the fill"
                     if spans else "fill idle share not measured (no device events)")
             print(f"mesh build_all k={k} (alltoall exchange): {t_all:.3f} s in all "

@@ -17,6 +17,9 @@ ALPHABET = "ACGT"
 # 2-bit code of the k-mer (no MPHF needed on the device; cf. SURVEY.md section 7.1).
 K13 = 13
 SPACE_13 = 4**K13  # 67,108,864
+# The half total table: a fwd+rc total at one code of each reverse-complement
+# pair (kernels/encode.py half_index13; no 13-mer is its own reverse complement).
+HALF_13 = SPACE_13 // 2  # 33,554,432
 
 # Sparse canonical 23-mer mode.
 K23 = 23

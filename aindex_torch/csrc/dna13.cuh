@@ -5,8 +5,9 @@
 //   ascii_code    <- ascii_to_base_codes    (encode.py:25)
 //   packed_window <- unpack_base_codes + window_codes (encode.py:46,63,98)
 //   revcomp13     <- revcomp_code13         (encode.py:106)
-// plus jax_index, the index rule of a JAX gather. The plain PyTorch versions
-// live in aindex_torch/kernels/encode.py.
+// plus jax_index, the index rule of a JAX gather, and half_index, the slot
+// of a code in the port's half total table (half_index13). The plain
+// PyTorch versions live in aindex_torch/kernels/encode.py.
 //
 // Every table is indexed by a 13-mer's 2-bit code (A=0 C=1 G=2 T=3, first
 // base in the most significant field), so a table holds 4^13 entries.
@@ -58,6 +59,16 @@ __device__ __forceinline__ long long jax_index_n(unsigned code, long long n) {
 
 __device__ __forceinline__ int jax_index(unsigned code) {
   return static_cast<int>(jax_index_n(code, SPACE));
+}
+
+// The slot of a code c in [0, 4^13) in the half total table (2^25 entries):
+// of c and revcomp13(c), the one whose middle base is A or C (bit 13 clear;
+// for odd k exactly one of the two), with that bit dropped. A total table
+// holds the same value at c and revcomp13(c), so half[half_index(c)] is
+// total[c].
+__device__ __forceinline__ int half_index(unsigned c) {
+  if (c & (1u << 13)) c = revcomp13(c);
+  return static_cast<int>(((c >> 14) << 13) | (c & 0x1FFFu));
 }
 
 // The index a JAX scatter `counts.at[code.astype(int32)].add(w,

@@ -8,7 +8,16 @@
 //   aindex_tpu/index/dense13.py:115 _gather_codes_valid_u32 (codes, mask)
 //   aindex_tpu/index/dense13.py:92  _encode_batch_dev    (ASCII [B, 13] rows in)
 // Template parameters: the table's width (8, 16 or 32 bits), ASCII rows or
-// codes in, a valid mask or none, and the reverse-complement second output.
+// codes in, a valid mask or none, the reverse-complement second output, and
+// the half total table (HALF).
+//
+// The half total table: a total table holds tf[c] + tf[revcomp13(c)], the
+// same value at c and at revcomp13(c), and no 13-mer is its own reverse
+// complement (the middle base M would equal 3 - M). So the C entry
+// gather13_half reads a table of 2^25 entries holding the totals of the
+// codes with M < 2 (built by total13_half), at dna13::half_index of each
+// code's jax_index: every answer of the full table, from half its bytes.
+// The forward table is not symmetric and is always read whole.
 //
 // Two more C entries take a 1-D table of any length n and answer in the
 // table's own type:
@@ -22,8 +31,10 @@
 // Bound: random reads of device memory. Each query reads one (or two)
 // table entries at an address unrelated to its neighbours', so a warp
 // touches 32 sectors for 32 useful entries of 1-4 bytes, and a read that
-// misses L2 costs a DRAM sector. The uint8 table (64 MiB) is larger than
-// the 50 MB L2, the uint16 and uint32 tables (128 / 256 MiB) far larger.
+// misses L2 costs a DRAM sector. How many reads hit the 50 MB L2 depends
+// on the table's footprint: the full uint8 table is 64 MiB, its half 32 MiB,
+// the uint16 and uint32 tables twice and four times that (PERF.md §6 gives
+// the card's random-read rate by footprint).
 //
 // Design: one thread per query. Codes, masks and answers are read and
 // written coalesced with the evict-first streaming intrinsics (__ldcs /
@@ -33,17 +44,19 @@
 // on part of the table, measured no faster on the H100: PERF.md §6.)
 //
 // Codes out of range read what JAX's gather reads (see dna13::jax_index,
-// and jax_index_n for a table of n entries), never outside the table.
-// Invalid queries give 0.
+// and jax_index_n for a table of n entries), never outside the table; the
+// half table folds the index jax_index gives, so it reads what the full
+// table reads. Invalid queries give 0.
 #include "dna13.cuh"
 
 namespace {
 
-template <typename T, bool ASCII, bool MASK, bool BOTH>
+template <typename T, bool ASCII, bool MASK, bool BOTH, bool HALF>
 __global__ void gather13_kernel(const T* __restrict__ table, const int* __restrict__ codes,
                                 const unsigned char* __restrict__ valid,
                                 const unsigned char* __restrict__ ascii, long long n,
                                 unsigned* __restrict__ out, unsigned* __restrict__ out_rc) {
+  static_assert(!(BOTH && HALF), "a half total table has no reverse-complement reads");
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -61,34 +74,44 @@ __global__ void gather13_kernel(const T* __restrict__ table, const int* __restri
       code = static_cast<unsigned>(__ldcs(codes + i));
       if (MASK) ok = __ldcs(valid + i) != 0;
     }
-    __stcs(out + i, ok ? static_cast<unsigned>(table[dna13::jax_index(code)]) : 0u);
+    const int slot = HALF ? dna13::half_index(dna13::jax_index(code)) : dna13::jax_index(code);
+    __stcs(out + i, ok ? static_cast<unsigned>(table[slot]) : 0u);
     if (BOTH) __stcs(out_rc + i, ok ? static_cast<unsigned>(table[dna13::revcomp13(code)]) : 0u);
   }
 }
 
-template <typename T, bool ASCII, bool MASK, bool BOTH>
+template <typename T, bool ASCII, bool MASK, bool BOTH, bool HALF>
 void launch(const void* table, const void* codes, const void* valid, const void* ascii,
             long long n, void* out, void* out_rc, cudaStream_t stream) {
-  gather13_kernel<T, ASCII, MASK, BOTH><<<dna13::grid_for(n), dna13::BLOCK, 0, stream>>>(
+  gather13_kernel<T, ASCII, MASK, BOTH, HALF><<<dna13::grid_for(n), dna13::BLOCK, 0, stream>>>(
       static_cast<const T*>(table), static_cast<const int*>(codes),
       static_cast<const unsigned char*>(valid), static_cast<const unsigned char*>(ascii), n,
       static_cast<unsigned*>(out), static_cast<unsigned*>(out_rc));
 }
 
-template <typename T>
-void dispatch(const void* table, const void* codes, const void* valid, const void* ascii,
+template <typename T, bool BOTH, bool HALF>
+void by_input(const void* table, const void* codes, const void* valid, const void* ascii,
               long long n, void* out, void* out_rc, cudaStream_t s) {
-  const bool both = out_rc != nullptr;
-  if (ascii != nullptr) {
-    if (both) launch<T, true, false, true>(table, codes, valid, ascii, n, out, out_rc, s);
-    else launch<T, true, false, false>(table, codes, valid, ascii, n, out, out_rc, s);
-  } else if (valid != nullptr) {
-    if (both) launch<T, false, true, true>(table, codes, valid, ascii, n, out, out_rc, s);
-    else launch<T, false, true, false>(table, codes, valid, ascii, n, out, out_rc, s);
-  } else {
-    if (both) launch<T, false, false, true>(table, codes, valid, ascii, n, out, out_rc, s);
-    else launch<T, false, false, false>(table, codes, valid, ascii, n, out, out_rc, s);
+  if (ascii != nullptr)
+    launch<T, true, false, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s);
+  else if (valid != nullptr)
+    launch<T, false, true, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s);
+  else
+    launch<T, false, false, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s);
+}
+
+template <bool BOTH, bool HALF>
+int entry(const void* table, int width, const void* codes, const void* valid, const void* ascii,
+          long long n, void* out, void* out_rc, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 8: by_input<uint8_t, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s); break;
+    case 16: by_input<uint16_t, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s); break;
+    case 32: by_input<uint32_t, BOTH, HALF>(table, codes, valid, ascii, n, out, out_rc, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -158,15 +181,17 @@ DNA13_EXPORT_ERROR_STRING
 extern "C" int gather13(const void* table, int width, const void* codes, const void* valid,
                         const void* ascii, long long n, void* out, void* out_rc,
                         void* stream) {
-  if (n <= 0) return cudaSuccess;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width) {
-    case 8: dispatch<uint8_t>(table, codes, valid, ascii, n, out, out_rc, s); break;
-    case 16: dispatch<uint16_t>(table, codes, valid, ascii, n, out, out_rc, s); break;
-    case 32: dispatch<uint32_t>(table, codes, valid, ascii, n, out, out_rc, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return out_rc != nullptr
+             ? entry<true, false>(table, width, codes, valid, ascii, n, out, out_rc, stream)
+             : entry<false, false>(table, width, codes, valid, ascii, n, out, nullptr, stream);
+}
+
+// As gather13 with no out_rc, on a half total table: uint8/uint16/uint32
+// [2^25], entry h the total of the code with M < 2 whose half_index is h.
+// out[i] = total[code] for every query, as gather13 reads on the full table.
+extern "C" int gather13_half(const void* table, int width, const void* codes, const void* valid,
+                             const void* ascii, long long n, void* out, void* stream) {
+  return entry<false, true>(table, width, codes, valid, ascii, n, out, nullptr, stream);
 }
 
 // table: uint8/uint16/uint32[n_table] (width = 8, 16 or 32), n_table >= 1.

@@ -25,6 +25,14 @@
 // Rows are read and written as 4-byte words, 128 bytes a warp: a 16-byte
 // load would store four words a lane into the padded rows, on colliding
 // banks.
+//
+// The half mode (C entry total13_half) writes the leading tiles alone: the
+// totals of the codes with M < 2, which hold every value of the table once
+// (out[revcomp13(c)] = out[c]), at dna13::half_index(c) = (Hh, Hl, M, Lh, Ll)
+// with M's high bit dropped, a uint32[2^25] table that gather13_half reads.
+// A leading tile's row Hh is then 64 contiguous words at
+// (Hh << 19) | (Hl << 13) | (M << 12) | (Lh << 6). It reads as much and
+// writes half as much.
 #include "dna13.cuh"
 
 namespace {
@@ -40,6 +48,7 @@ __device__ __forceinline__ unsigned rc3(unsigned x) {
   return (((x & 3u) << 4) | (x & 12u) | (x >> 4)) ^ 63u;
 }
 
+template <bool HALF>
 __global__ void __launch_bounds__(TOTAL_BLOCK)
     total13_kernel(const unsigned* __restrict__ tf, unsigned* __restrict__ out) {
   __shared__ unsigned s[2][T * STRIDE];
@@ -47,6 +56,8 @@ __global__ void __launch_bounds__(TOTAL_BLOCK)
   // a tile's first code (row Hh = 0, column Ll = 0): the leader, its partner
   const unsigned base[2] = {(hl << 14) | (m << 12) | (lh << 6),
                             (rc3(lh) << 14) | ((3u - m) << 12) | (rc3(hl) << 6)};
+  // where the leading tile's rows go in the half table, 2^19 words apart
+  const unsigned half_base = (hl << 13) | (m << 12) | (lh << 6);
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 5) * ROWS;
   unsigned v[2][ROWS][2];
@@ -66,17 +77,25 @@ __global__ void __launch_bounds__(TOTAL_BLOCK)
         s[t][rc3(row0 + r) * STRIDE + h * 32 + lane] = v[t][r][h];
   __syncthreads();
 #pragma unroll
-  for (int t = 0; t < 2; ++t)
+  for (int t = 0; t < (HALF ? 1 : 2); ++t)
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const unsigned rr = rc3(row0 + r);
+      const unsigned dst = HALF ? half_base + (static_cast<unsigned>(row0 + r) << 19)
+                                : base[t] + (static_cast<unsigned>(row0 + r) << 20);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = h * 32 + lane;
-        out[base[t] + (static_cast<unsigned>(row0 + r) << 20) + c] =
-            s[t][rr * STRIDE + c] + s[1 - t][c * STRIDE + rr];
+        out[dst + c] = s[t][rr * STRIDE + c] + s[1 - t][c * STRIDE + rr];
       }
     }
+}
+
+template <bool HALF>
+int launch(const void* tf, void* out, void* stream) {
+  total13_kernel<HALF><<<PAIRS, TOTAL_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(tf), static_cast<unsigned*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -85,7 +104,11 @@ DNA13_EXPORT_ERROR_STRING
 
 // tf, out: uint32[4^13], distinct buffers. Returns cudaGetLastError().
 extern "C" int total13(const void* tf, void* out, void* stream) {
-  total13_kernel<<<PAIRS, TOTAL_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(tf), static_cast<unsigned*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(tf, out, stream);
+}
+
+// tf: uint32[4^13]; out: uint32[2^25], the half table. Returns
+// cudaGetLastError().
+extern "C" int total13_half(const void* tf, void* out, void* stream) {
+  return launch<true>(tf, out, stream);
 }

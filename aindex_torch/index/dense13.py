@@ -9,7 +9,12 @@ below), and every query family is one or two gathers (K3,
 kernels/lookup.py) or the fused coverage pass (K4, kernels/coverage.py).
 
 Counting is forward-strand only, as reference count_kmers13 does; fwd and
-rc are combined at query time.
+rc are combined once, in the total table. That table holds the same value
+at a code and at its reverse complement, so the index holds only its half
+(``tf_total_half``: the totals of the 2^25 codes whose middle base is A or
+C, K2's half mode ``total13_half``), and each total query is one gather
+there that folds the code to its slot (K3's ``gather13_half``); the full
+``tf_total`` is built on request and not held.
 
 The index lives on one device, named by every constructor: the card
 (``"cuda"``) unless the caller asks for the CPU. On a CUDA device every
@@ -26,29 +31,55 @@ import logging
 import numpy as np
 import torch
 
-from aindex_torch.constants import K13, SPACE_13
+from aindex_torch.constants import HALF_13, K13, SPACE_13
 from aindex_torch.core.reads import blob_chunks, stream_blob_chunks
 from aindex_torch.index.common import host_u32, packed_chunks, resolve_device
 from aindex_torch.kernels import _cuda
 from aindex_torch.kernels import coverage as cov_kernels
 from aindex_torch.kernels.count import PackedCounter, count_batch_13, zeros_dev
-from aindex_torch.kernels.encode import revcomp_code13
+from aindex_torch.kernels.encode import half_code13, revcomp_code13
 from aindex_torch.kernels.lookup import gather13
 from aindex_torch.trace import span, to_device
 
 KERNEL_TOTAL = _cuda.KERNELS["total13"]
+KERNEL_TOTAL_HALF = _cuda.KERNELS["total13_half"]
 
-#: codes per step of the plain total table (bounds its int64 temporaries)
+#: codes per step of the plain total tables (bounds their int64 temporaries)
 _TOTAL_BLOCK = 1 << 22
 
 
-def total13_plain(tf: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``total13``, in blocks of codes."""
+def _total_plain(tf: torch.Tensor, n: int, codes_of) -> torch.Tensor:
+    """out[i] = tf[c] + tf[revcomp(c)] with c = codes_of(i), for i < n, in
+    blocks of codes, wrapping as uint32."""
     s = tf.view(torch.int32)
-    out = torch.empty_like(s)
-    for lo in range(0, SPACE_13, _TOTAL_BLOCK):
-        codes = torch.arange(lo, lo + _TOTAL_BLOCK, dtype=torch.int64, device=s.device)
-        out[lo:lo + _TOTAL_BLOCK] = s[lo:lo + _TOTAL_BLOCK] + s[revcomp_code13(codes)]
+    out = torch.empty(n, dtype=torch.int32, device=s.device)
+    for lo in range(0, n, _TOTAL_BLOCK):
+        codes = codes_of(torch.arange(lo, lo + _TOTAL_BLOCK, dtype=torch.int64,
+                                      device=s.device))
+        out[lo:lo + _TOTAL_BLOCK] = s[codes] + s[revcomp_code13(codes)]
+    return out.view(torch.uint32)
+
+
+def total13_plain(tf: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``total13``."""
+    return _total_plain(tf, SPACE_13, lambda codes: codes)
+
+
+def total13_half_plain(tf: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``total13_half``: ``total13(tf)`` at the codes
+    ``half_code13`` gives, slot by slot."""
+    return _total_plain(tf, HALF_13, half_code13)
+
+
+def _total(tf: torch.Tensor, n: int, kernel, plain) -> torch.Tensor:
+    if tf.dtype not in (torch.int32, torch.uint32) or tf.shape != (SPACE_13,) \
+            or not tf.is_contiguous():
+        raise ValueError(f"tf must be a contiguous uint32[{SPACE_13}] table")
+    if not _cuda.on_cuda(tf):
+        return plain(tf)
+    out = torch.empty(n, dtype=torch.int32, device=tf.device)
+    with torch.cuda.device(tf.device):
+        kernel.launch(tf.data_ptr(), out.data_ptr(), _cuda.stream(tf.device))
     return out.view(torch.uint32)
 
 
@@ -57,21 +88,24 @@ def total13(tf: torch.Tensor) -> torch.Tensor:
     (aindex_tpu/index/dense13.py:83 ``_build_total_table``).
 
     A CPU tensor runs the plain version; a CUDA tensor launches K2."""
-    if tf.dtype not in (torch.int32, torch.uint32) or tf.shape != (SPACE_13,) \
-            or not tf.is_contiguous():
-        raise ValueError(f"tf must be a contiguous uint32[{SPACE_13}] table")
-    if not _cuda.on_cuda(tf):
-        return total13_plain(tf)
-    out = torch.empty(SPACE_13, dtype=torch.int32, device=tf.device)
-    with torch.cuda.device(tf.device):
-        KERNEL_TOTAL.launch(tf.data_ptr(), out.data_ptr(), _cuda.stream(tf.device))
-    return out.view(torch.uint32)
+    return _total(tf, SPACE_13, KERNEL_TOTAL, total13_plain)
+
+
+def total13_half(tf: torch.Tensor) -> torch.Tensor:
+    """The half total table, uint32[2^25]: slot h holds ``total13(tf)`` at
+    the code whose middle base is A or C and whose ``half_index13`` is h,
+    so ``half[half_index13(c)] == total13(tf)[c]`` for every code.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K2's half
+    mode (the leading tiles alone)."""
+    return _total(tf, HALF_13, KERNEL_TOTAL_HALF, total13_half_plain)
 
 
 def _narrow(table: torch.Tensor) -> torch.Tensor:
     """The table at the smallest exact width (uint8, uint16 or uint32):
-    random gathers move fewer bytes and a uint8 table (64 MB) nearly fits
-    in the H100's 50 MB L2. Exact, never saturating."""
+    random gathers move fewer bytes, and a narrower table holds more of its
+    entries in the H100's 50 MB L2 (PERF.md §6 gives the card's random-read
+    rate by footprint). Exact, never saturating."""
     s = table.view(torch.int32)
     if bool((s < 0).any()):
         return table
@@ -135,7 +169,7 @@ class Dense13Index:
                              f"{tf.dtype}{tuple(tf.shape)}")
         self._tf = tf.contiguous().view(torch.int32)
         self._tf_host: np.ndarray | None = tf_host
-        self._tf_total: torch.Tensor | None = None
+        self._tf_total_half: torch.Tensor | None = None
         self._tf_query: torch.Tensor | None = None
 
     @property
@@ -149,13 +183,22 @@ class Dense13Index:
 
     @property
     def tf_total(self) -> torch.Tensor:
-        """Fused fwd+rc table, tf_total[c] = tf[c] + tf[revcomp(c)], built
-        once (K2) so that each total query is one gather; stored at the
-        smallest exact width (see ``_narrow``)."""
-        if self._tf_total is None:
+        """Fused fwd+rc table over every code, tf_total[c] = tf[c] +
+        tf[revcomp(c)] (K2), at the smallest exact width (see ``_narrow``).
+        Built on each access and not held: the total queries read
+        ``tf_total_half``."""
+        return _narrow(total13(self.tf))
+
+    @property
+    def tf_total_half(self) -> torch.Tensor:
+        """``tf_total`` at one code of each reverse-complement pair
+        (``total13_half``), built once (K2's half mode) so that each total
+        query is one gather (K3 folds the code); the same values at the
+        same width as ``tf_total``, in half its bytes."""
+        if self._tf_total_half is None:
             with span("aindex.index.total", timed=True):
-                self._tf_total = _narrow(total13(self.tf))
-        return self._tf_total
+                self._tf_total_half = _narrow(total13_half(self.tf))
+        return self._tf_total_half
 
     @property
     def tf_query(self) -> torch.Tensor:
@@ -302,8 +345,8 @@ class Dense13Index:
         return host_u32(gather13(self.tf_query, ascii=self._ascii_rows(kmers)))
 
     def get_total_tf_values(self, kmers: list[str]) -> np.ndarray:
-        """fwd + rc tf per k-mer: one gather in ``tf_total``, uint32."""
-        return host_u32(gather13(self.tf_total, ascii=self._ascii_rows(kmers)))
+        """fwd + rc tf per k-mer: one gather in ``tf_total_half``, uint32."""
+        return host_u32(gather13(self.tf_total_half, ascii=self._ascii_rows(kmers)))
 
     def get_tf_both_directions(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray]:
         """(fwd tf, rc tf) per k-mer, uint32 each."""
@@ -343,10 +386,11 @@ class Dense13Index:
             return gather13(self.tf_query, codes, valid)
 
     def get_total_tf_values_codes(self, codes, valid=None) -> torch.Tensor:
-        """fwd + rc tf per pre-encoded code, one gather in ``tf_total``."""
+        """fwd + rc tf per pre-encoded code, one gather in
+        ``tf_total_half``."""
         with span("aindex.index.query"):
             codes, valid = self._codes_in(codes, valid)
-            return gather13(self.tf_total, codes, valid)
+            return gather13(self.tf_total_half, codes, valid)
 
     def get_tf_by_index(self, index: int) -> int:
         """tf by raw table index (get_tf_by_index_13mer)."""

@@ -1,15 +1,15 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each ``aindex_torch/csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it
-includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library with a
-plain C interface and loaded with ctypes; a source may hold several C
+includes) is compiled by ``nvcc`` for ``sm_90a`` into its own shared library
+with a plain C interface and loaded with ctypes; a source may hold several C
 entries (K10 and K11 each hold a query, a coverage and a fill entry, K9 a
-chunk and a pairs-in entry; K1, K15 and
-K16 share ``count13.cu``; K3 has its table-length and total entries, K5
-its ASCII spectrum and canonical-windows entries, K7 its ASCII-rows
-entry), each a ``Kernel`` of its own with its own count. Nothing is built
-or loaded when this module is imported: the first launch builds every
-library, one ``nvcc`` per source, all started together. Libraries are named by a hash of their
+chunk and a pairs-in entry; K1, K15 and K16 share ``count13.cu``; K2 has its
+half-table entry, K3 its half-table, table-length and total entries, K5 its
+ASCII spectrum and canonical-windows entries, K7 its ASCII-rows entry), each
+a ``Kernel`` of its own with its own count. Nothing is built or loaded when
+this module is imported: the first launch builds every library, one ``nvcc``
+per source, all started together. Libraries are named by a hash of their
 source, every header it includes (followed transitively) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
 
@@ -142,9 +142,13 @@ KERNELS: dict[str, Kernel] = {
                "aindex_tpu/kernels/count.py:54"),
         # tf, out, stream
         Kernel("total13", "total13.cu", [_P, _P, _P], "aindex_tpu/index/dense13.py:83"),
+        Kernel("total13_half", "total13.cu", [_P, _P, _P], "aindex_tpu/index/dense13.py:83"),
         # table, width, codes, valid, ascii, n, out, out_rc, stream
         Kernel("gather13", "gather13.cu", [_P, ctypes.c_int, _P, _P, _P, _LL, _P, _P, _P],
                "aindex_tpu/kernels/lookup.py:32"),
+        # table, width, codes, valid, ascii, n, out, stream
+        Kernel("gather13_half", "gather13.cu", [_P, _I, _P, _P, _P, _LL, _P, _P],
+               "aindex_tpu/index/dense13.py:103"),
         # table, width, n_table, codes, n, out, stream
         Kernel("gather13_table", "gather13.cu", [_P, _I, _LL, _P, _LL, _P, _P],
                "aindex_tpu/kernels/lookup.py:22"),

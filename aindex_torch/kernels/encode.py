@@ -2,8 +2,8 @@
 
 Counterparts of aindex_tpu/kernels/encode.py. On the device these steps run
 inside the CUDA kernels (``csrc/dna13.cuh``: ``ascii_code``,
-``packed_window``, ``revcomp13``; ``csrc/dna23.cuh``: ``revcomp64``,
-``canonical64``, ``packed_window64``); the functions here are the plain
+``packed_window``, ``revcomp13``, ``half_index``; ``csrc/dna23.cuh``:
+``revcomp64``, ``canonical64``, ``packed_window64``); the functions here are the plain
 versions that the kernels' plain twins are built from, and they run on any
 device.
 
@@ -120,6 +120,25 @@ def revcomp_code13(codes: torch.Tensor, k: int = 13) -> torch.Tensor:
     x = ((x >> 8) & 0x00FF00FF) | ((x & 0x00FF00FF) << 8)
     x = ((x >> 16) | (x << 16)) & _U32
     return x >> (32 - 2 * k)
+
+
+#: bit 13 of a 13-mer code: the high bit of its middle base
+_MID_HIGH = 1 << 13
+
+
+def half_index13(codes: torch.Tensor) -> torch.Tensor:
+    """Slot of each 13-mer code (int64 in [0, 4^13)) in the half total
+    table (``csrc/dna13.cuh`` ``half_index``): of the code and its reverse
+    complement, the one whose middle base is A or C (bit 13 clear; for odd
+    k exactly one of the two), with that bit dropped -> int64 in [0, 2^25)."""
+    c = torch.where((codes & _MID_HIGH) != 0, revcomp_code13(codes), codes)
+    return ((c >> 14) << 13) | (c & (_MID_HIGH - 1))
+
+
+def half_code13(slots: torch.Tensor) -> torch.Tensor:
+    """The code with bit 13 clear that ``half_index13`` maps to each slot
+    (int64 in [0, 2^25)) -> int64 code."""
+    return ((slots >> 13) << 14) | (slots & (_MID_HIGH - 1))
 
 
 _M2 = 0x3333333333333333

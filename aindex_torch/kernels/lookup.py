@@ -6,7 +6,11 @@ path (kernels/lookup.py:32 ``gather_tf_valid``, :49 ``gather_tf_both_13``;
 index/dense13.py:103 ``_gather_total``, :109 ``_gather_codes_u32``, :115
 ``_gather_codes_valid_u32``, with :92 ``_encode_batch_dev`` for ASCII rows).
 The kernel is ``csrc/gather13.cu``; ``gather13_plain`` is its plain PyTorch
-version. Two more entries of K3 take a 1-D table of any length and answer
+version. ``gather13`` also reads a half total table (2^25 entries, built by
+``index/dense13.py`` ``total13_half``): the shape alone selects the C entry
+``gather13_half``, which folds each code to its slot (``encode.half_index13``)
+after the index rule below, so it answers what the full total table
+answers. Two more entries of K3 take a 1-D table of any length and answer
 in the table's own dtype: ``gather_tf`` (``gather13_table``, replacing
 aindex_tpu/kernels/lookup.py:22) and ``gather_tf_total_13``
 (``gather13_total``, :39: forward plus reverse complement straight from
@@ -46,14 +50,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from aindex_torch.constants import K13, SPACE_13
+from aindex_torch.constants import HALF_13, K13, SPACE_13
 from aindex_torch.kernels import _cuda
 from aindex_torch.trace import span, to_device
 from aindex_torch.kernels.encode import (as_unsigned, ascii_to_base_codes, check_packed,
-                                         int32_value, packed_window_codes, revcomp_code13,
-                                         revcomp_code64, table_values, u64_le, window_codes)
+                                         half_index13, int32_value, packed_window_codes,
+                                         revcomp_code13, revcomp_code64, table_values, u64_le,
+                                         window_codes)
 
 KERNEL = _cuda.KERNELS["gather13"]
+KERNEL_HALF = _cuda.KERNELS["gather13_half"]
 KERNEL_TABLE = _cuda.KERNELS["gather13_table"]
 KERNEL_TOTAL = _cuda.KERNELS["gather13_total"]
 KERNEL_WALK = _cuda.KERNELS["shardwalk"]
@@ -76,11 +82,14 @@ def jax_index(codes: torch.Tensor, n: int = SPACE_13) -> torch.Tensor:
     return torch.where(i < 0, i + n, i).clamp_(0, n - 1)
 
 
-def _check(table, codes, valid, ascii) -> None:
-    if table.dtype not in WIDTHS or table.shape != (SPACE_13,) \
+def _check(table, codes, valid, ascii, both) -> None:
+    if table.dtype not in WIDTHS or table.shape not in ((SPACE_13,), (HALF_13,)) \
             or not table.is_contiguous():
-        raise ValueError(f"table must be a contiguous uint8/uint16/uint32"
-                         f"[{SPACE_13}], got {table.dtype}{tuple(table.shape)}")
+        raise ValueError(f"table must be a contiguous uint8/uint16/uint32 [{SPACE_13}] "
+                         f"table or [{HALF_13}] half total table, got "
+                         f"{table.dtype}{tuple(table.shape)}")
+    if both and table.numel() == HALF_13:
+        raise ValueError("a half total table has no reverse-complement lookups")
     if (codes is None) == (ascii is None):
         raise ValueError("give exactly one of codes and ascii")
     if ascii is not None:
@@ -106,6 +115,8 @@ def gather13_plain(table, codes=None, valid=None, ascii=None, both=False):
     else:
         idx = jax_index(codes)
         code = codes
+    if table.numel() == HALF_13:
+        idx = half_index13(idx)
     fwd = table_values(table, idx)
     if valid is not None:
         fwd = torch.where(valid, fwd, 0)
@@ -120,7 +131,9 @@ def gather13_plain(table, codes=None, valid=None, ascii=None, both=False):
 def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
              valid: torch.Tensor | None = None, ascii: torch.Tensor | None = None,
              both: bool = False):
-    """uint32 lookups of 13-mers in ``table`` (uint8/16/32[4^13]).
+    """uint32 lookups of 13-mers in ``table`` (uint8/16/32[4^13], or a
+    half total table of 2^25 entries, which answers each code with the
+    full total table's entry and takes no ``both``).
 
     Queries are either ``codes`` (int32/uint32 of any shape, optionally
     masked by a bool ``valid`` of the same shape) or ``ascii`` rows
@@ -131,7 +144,7 @@ def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
     A CPU tensor runs the plain version; a CUDA tensor launches K3. The
     whole call is the span ``aindex.kernel.gather13``."""
     with span("aindex.kernel.gather13"):
-        _check(table, codes, valid, ascii)
+        _check(table, codes, valid, ascii, both)
         query = ascii if ascii is not None else codes
         extra = (valid,) if valid is not None else ()
         if not _cuda.on_cuda(table, query, *extra):
@@ -140,15 +153,17 @@ def gather13(table: torch.Tensor, codes: torch.Tensor | None = None,
         out = torch.empty(shape, dtype=torch.int32, device=table.device)
         out_rc = torch.empty_like(out) if both else None
         if out.numel():
-            with torch.cuda.device(table.device):
-                KERNEL.launch(
-                    table.data_ptr(), WIDTHS[table.dtype],
+            args = (table.data_ptr(), WIDTHS[table.dtype],
                     None if codes is None else codes.data_ptr(),
                     None if valid is None else valid.data_ptr(),
                     None if ascii is None else ascii.data_ptr(),
-                    out.numel(), out.data_ptr(),
-                    None if out_rc is None else out_rc.data_ptr(),
-                    _cuda.stream(table.device))
+                    out.numel(), out.data_ptr())
+            with torch.cuda.device(table.device):
+                if table.numel() == HALF_13:
+                    KERNEL_HALF.launch(*args, _cuda.stream(table.device))
+                else:
+                    KERNEL.launch(*args, None if out_rc is None else out_rc.data_ptr(),
+                                  _cuda.stream(table.device))
     if both:
         return out.view(torch.uint32), out_rc.view(torch.uint32)
     return out.view(torch.uint32)

@@ -19,11 +19,13 @@ checkout uploads; each coverage entry and canonical23_ascii through this
 tree's wrapper) in steps 2, 4, 7, 9 and 13.
 
 1. Checks for a card, prints its name and power limit (nvidia-smi) and
-   builds the sixteen CUDA kernels (K1-K16, twenty-six C entries) from
+   builds the sixteen CUDA kernels (K1-K16, twenty-eight C entries) from
    aindex_torch/csrc, one nvcc per source, all started together; then
    times 2^26 random reads of 16, 32, 64 and 128 bytes from a 512 MiB
    buffer (scripts/randread.cu), the cost that sets K6's and K10's bucket
-   width, and 4-byte adds (REDs) at hashed entries of the 4^13 table in
+   width, 2^26 random 16-byte reads over footprints of 8 to 512 MiB
+   (``footprint_test``: what K3's table size costs against the 50 MB L2),
+   and 4-byte adds (REDs) at hashed entries of the 4^13 table in
    random, bin and sorted order and of a 2^22-entry table (``rmw_test``),
    K16's floors.
 2. Holds K1-K4 (the dense kernels) against their plain PyTorch versions on
@@ -31,12 +33,16 @@ tree's wrapper) in steps 2, 4, 7, 9 and 13.
    (all outputs are integers), and times both with CUDA events: K1 alone
    on one 2^22-byte chunk, and on chunks of 1, 15, 16 and 17 words, an
    empty one and a skewed one (90% poly-A: bin 0 split) alone and through
-   one PackedCounter, from a table near 2^32; K2 on a random table whose
-   adds wrap; with ``parent=DIR``, the parent's K1 and K2 in turns; K3 also on
+   one PackedCounter, from a table near 2^32; K2 and its half mode on a
+   random table whose adds wrap; with ``parent=DIR``, the parent's K1 and
+   K2 in turns; K3 on full and half tables of every width, and also on
    4 x 2^24 codes all in range (the dense path's own traffic) beside
-   ``torch.take``, and all three K3 entries at edge shapes (0-9 and
-   2^20 + 3 codes, offsets 0-3, masks at another offset, every width,
-   tables of 1 entry to 4^13); K4 at u8, u16 and u32 on 10,000 x 151
+   ``torch.take``, and in the two u8 total tables of one count table (full
+   and half, equal answers) in turns, with ``parent=DIR`` the half beside
+   the parent's K3 on the full table; and all four K3 entries at edge
+   shapes (0-9 and 2^20 + 3 codes, offsets 0-3, masks at another offset,
+   every width, tables of 1 entry to 4^13 and the half total table); K4 at
+   u8, u16 and u32 on 10,000 x 151
    random rows timed four ways (``clocks``: warm and cold CUDA events,
    the cold ones over 8 distinct batches, torch.profiler device time a
    launch, the host clock a call) beside the parent's and its random-read
@@ -50,7 +56,10 @@ tree's wrapper) in steps 2, 4, 7, 9 and 13.
 4. Drives the dense path at E. coli scale, as ``aindex-tpu count -k 13``
    does (iter_sequence_bytes -> build_from_stream -> save -> stats), then
    loads the table back and makes the query and coverage calls that AIndex
-   makes for k = 13, each checked against a numpy oracle. Then holds K1 at
+   makes for k = 13, each checked against a numpy oracle; the codes-in
+   total calls must launch ``gather13_half`` once each and nothing else,
+   from the 2^25-entry half table the index holds, and ``tf_total``, built
+   on request, must equal the oracle's totals. Then holds K1 at
    the build's shape (the corpus's 28 packed chunks through one
    PackedCounter, and with a sixth of its windows a piece, several counts
    a build) to the plain version's sum over the same chunks, timed by CUDA
@@ -191,11 +200,13 @@ tree's wrapper) in steps 2, 4, 7, 9 and 13.
    255 destinations, and the MPHF walk under FWD_RC) and the pairs-in fill
    per destination, at one shard also against K9's fill of the same chunk.
    Each is timed at the world-of-one path's shape.
-17. Prints K3's three entries, K11's three, the rows built on
+17. Prints K3's four entries (the half-table entry beside the full u8
+   table's earlier time), K11's three, the rows built on
    csrc/onesweep.cuh (K5, its ASCII entry, K13; K8, K9's two entries, the
    K10 fill), K14, K15, K6, K7's two entries, K10's query and coverage,
-   K12, K1 (a build) and K2 beside their earlier times, with their launches a
-   call, from a torch.profiler trace of twenty calls in a fresh process
+   K12, K1 (a build) and K2's two entries beside their earlier times, with
+   their launches a call (the half-table entry's through a dense index's
+   total query), from a torch.profiler trace of twenty calls in a fresh process
    (``chip_smoke.py --launches``); then
    the kernels line (launch counts of steps 4, 6, 8, 11, 12 and 15, each
    path run with the counts set to 0 just before it), the card line and
@@ -225,6 +236,7 @@ READ_LEN = 150
 ERR = 0.003
 K = 13
 SPACE = 4 ** K
+HALF = SPACE // 2         # entries of a half total table
 K23 = 23
 MASK23 = (1 << (2 * K23)) - 1
 #: published H100 SXM memory rate at 700 W (NVIDIA data sheet)
@@ -238,7 +250,8 @@ CHUNK_BYTES = 1 << 22      # one ingest chunk
 N_SEQ = 10_000             # coverage batches
 N_DB = 1 << 16             # De Bruijn batch
 
-DENSE_KERNELS = ("count13_packed", "total13", "gather13", "coverage13_packed")
+DENSE_KERNELS = ("count13_packed", "total13", "total13_half", "gather13", "gather13_half",
+                 "coverage13_packed")
 SPARSE_KERNELS = ("spectrum23", "quot23", "quotcov23")
 POSITIONAL_KERNELS = ("csr_offsets", "posfill")
 
@@ -482,8 +495,9 @@ def report(card, name, shape, rec):
 #: (K11's from PR 11's), before the bucket match kept in registers and the
 #: tiled front end; K7's ASCII-rows entry and K5's canonical23_ascii as
 #: PERF.md section 6 recorded them before the staged ASCII front end; K16's
-#: before its sweep
-EARLIER_MS = {"gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
+#: before its sweep; the half-table entries of K3 and K2 beside the full
+#: table's entries (K3's u8 table on the same codes, K2's whole table)
+EARLIER_MS = {"gather13_half": 0.9181, "total13_half": 0.1924, "gather13": 0.9176, "gather13_table": 1.2516, "gather13_total": 2.9021,
               "mphfwalk": 2.5804, "mphfcov": 0.0531, "mphffill": 0.5682,
               "spectrum23": 0.4126, "spectrum23_ascii": 0.5283, "spectrummerge": 0.4433,
               "csr_offsets": 0.3750, "posfill": 0.7124, "cuckoofill64": 0.5099,
@@ -631,13 +645,17 @@ def fill_calls(dev) -> dict:
 
 
 def lookup_calls(dev) -> dict:
-    """K3's three entries, K11's query and coverage and K12: name ->
+    """K3's four entries, K11's query and coverage and K12: name ->
     (kernel call, plain call), K3 on 2^22 codes over the whole uint32
-    range (a u8 4^13 table; a u32 table for the table-length entries), K11
-    on 2^22 of the coverage-1 chunk's k = 31 windows and on 1,000 of its
-    rows, K12 as one shard of that index on the same windows."""
+    range (a u8 4^13 table; a u32 table for the table-length entries; the
+    half table through a dense index's total query, which must launch
+    ``gather13_half`` once and nothing else), K11 on 2^22 of the coverage-1
+    chunk's k = 31 windows and on 1,000 of its rows, K12 as one shard of
+    that index on the same windows."""
     import torch
-    from aindex_torch import Sparse23Index
+    from aindex_torch import Dense13Index, Sparse23Index
+    from aindex_torch.index.dense13 import _narrow, total13
+    from aindex_torch.kernels import _cuda
     from aindex_torch.core import codec
     from aindex_torch.kernels import probe
     from aindex_torch.kernels.encode import packed_window_codes
@@ -652,6 +670,18 @@ def lookup_calls(dev) -> dict:
     codes = torch.randint(-2 ** 31, 2 ** 31, (1 << 22,), dtype=torch.int32, device=dev,
                           generator=gen)
     valid = torch.rand(codes.numel(), device=dev, generator=gen) < 0.9
+    dense = Dense13Index(torch.randint(0, 128, (SPACE,), dtype=torch.int32, device=dev,
+                                       generator=gen))
+    full = _narrow(total13(dense.tf))
+    check(dense.tf_total_half.dtype == full.dtype == torch.uint8, "u8 total tables")
+
+    def dense_total():
+        before = _cuda.launches()
+        got = dense.get_total_tf_values_codes(codes, valid)
+        after = _cuda.launches()
+        diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        check(diff == {"gather13_half": 1}, f"a dense total call launches {diff}")
+        return (got,)
     chunk = coverage1_chunk()
     index = Sparse23Index.build_from_blob(chunk, k=31, device=dev)
     t = index.tables
@@ -664,6 +694,7 @@ def lookup_calls(dev) -> dict:
     shard = (t.g_packed, t.records, 0, t.n, t.seed, t.domain, keys)  # one shard: every node
     return {
         "gather13": (lambda: (gather13(u8, codes),), lambda: (gather13_plain(u8, codes),)),
+        "gather13_half": (dense_total, lambda: (gather13_plain(full, codes, valid),)),
         "gather13_table": (lambda: (gather_tf(u32, codes),),
                            lambda: (gather_tf_plain(u32, codes),)),
         "gather13_total": (lambda: (gather_tf_total_13(u32, codes, valid),),
@@ -678,11 +709,12 @@ def lookup_calls(dev) -> dict:
 
 def dense_calls(dev) -> dict:
     """K1 alone on the coverage-1 chunk (into a table it adds to: the
-    first calls from zeros) and K2 on a random table: name -> (kernel call,
-    plain call)."""
+    first calls from zeros) and K2's two entries on a random table: name ->
+    (kernel call, plain call)."""
     import torch
     from aindex_torch.core import codec
-    from aindex_torch.index.dense13 import total13, total13_plain
+    from aindex_torch.index.dense13 import (total13, total13_half, total13_half_plain,
+                                            total13_plain)
     from aindex_torch.kernels.count import count13_packed, count13_packed_plain
     packed, vbits = upload(dev, *codec.pack_ascii_chunk(coverage1_chunk()))
     mine, ref = (torch.zeros(SPACE, dtype=torch.int32, device=dev) for _ in range(2))
@@ -692,7 +724,8 @@ def dense_calls(dev) -> dict:
     return {"count13_packed": (lambda: (count13_packed(mine, packed, vbits).view(torch.uint32),),
                                lambda: (count13_packed_plain(ref, packed, vbits)
                                         .view(torch.uint32),)),
-            "total13": (lambda: (total13(tf),), lambda: (total13_plain(tf),))}
+            "total13": (lambda: (total13(tf),), lambda: (total13_plain(tf),)),
+            "total13_half": (lambda: (total13_half(tf),), lambda: (total13_half_plain(tf),))}
 
 
 def count_bucket_calls(dev) -> dict:
@@ -725,7 +758,7 @@ LAUNCHES_FLAG = "--launches"
 LAUNCH_ROWS = ("gather13", "gather13_table", "gather13_total", "mphfwalk", "mphfcov",
                "shardwalk", "spectrum23", "spectrum23_ascii", "spectrummerge", "csr_offsets", "posfill",
                "posfill_pairs", "cuckoofill64", "mphffill", "scatter_count", "posbucket",
-               "count13_packed", "total13")
+               "count13_packed", "total13", "gather13_half", "total13_half")
 
 
 def fresh_launches() -> dict[str, float]:
@@ -787,7 +820,7 @@ def randread_lib():
     subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", lib_path,
                     os.path.join(HERE, "scripts", "randread.cu")], check=True, capture_output=True)
     lib = ctypes.CDLL(lib_path)
-    lib.randread.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    lib.randread.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong,
                              ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
     lib.hashed_indices.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_ulonglong, ctypes.c_void_p]
@@ -811,9 +844,8 @@ def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -
     st = _cuda.stream(dev)
 
     def call(width):
-        lb = (n_bytes // width).bit_length() - 1
-        return lambda: check(lib.randread(buf.data_ptr(), lb, width, n_reads, 0x5EED,
-                                          out.data_ptr(), st) == 0, f"randread {width}")
+        return lambda: check(lib.randread(buf.data_ptr(), n_bytes // width, width, n_reads,
+                                          0x5EED, out.data_ptr(), st) == 0, f"randread {width}")
     times = {w: [] for w in WIDTHS}
     for order in (WIDTHS, WIDTHS[::-1]):
         for w in order:
@@ -831,6 +863,48 @@ def width_test(dev, card: str, n_reads: int = 1 << 26, n_bytes: int = 1 << 29) -
     del buf
     torch.cuda.empty_cache()
     return res
+
+
+#: footprints (MiB) of the random-read sweep across the L2's size: the full
+#: uint8 total table is 64 MiB, its half 32 MiB
+FOOTPRINTS_MIB = (8, 16, 20, 24, 28, 32, 40, 48, 64, 128, 512)
+
+
+def footprint_test(dev, card: str, n_reads: int = 1 << 26) -> dict:
+    """Random-read rate against footprint (``scripts/randread.cu``):
+    ``n_reads`` 16-byte reads (one 32-byte sector each, as K3's 1-4-byte
+    reads) at hashed blocks of the first FOOTPRINTS_MIB MiB of one buffer,
+    each footprint timed twice in turns (ascending, then descending), after
+    a warm-up call that fills the L2. Prints G reads/s; returns MiB ->
+    reads a second."""
+    import torch
+    from aindex_torch.kernels import _cuda
+    lib = randread_lib()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randint(-2 ** 31, 2 ** 31, (max(FOOTPRINTS_MIB) << 18,), dtype=torch.int32,
+                        device=dev, generator=gen)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    st = _cuda.stream(dev)
+
+    def call(mib):
+        return lambda: check(lib.randread(buf.data_ptr(), mib << 16, 16, n_reads, 0x5EED,
+                                          out.data_ptr(), st) == 0, f"randread {mib} MiB")
+    times = {f: [] for f in FOOTPRINTS_MIB}
+    for order in (FOOTPRINTS_MIB, FOOTPRINTS_MIB[::-1]):
+        for f in order:
+            times[f].append(cuda_ms(call(f), 20))
+    torch.cuda.synchronize()
+    rate = {f: n_reads / (sum(t) / 2) * 1e3 for f, t in times.items()}
+    for f in FOOTPRINTS_MIB:
+        print(f"random reads by footprint, 16 B a read, {n_reads} reads over {f} MiB: "
+              f"{times[f][0]:.4f} / {times[f][1]:.4f} ms, {rate[f] / 1e9:.3f} G reads/s, "
+              f"{rate[f] / rate[max(FOOTPRINTS_MIB)]:.3f}x the {max(FOOTPRINTS_MIB)} MiB rate "
+              f"({card})")
+    SIDE_MS["random 16-byte reads by footprint (MiB), 2^26 reads"] = {
+        f"{f} MiB": t for f, t in times.items()}
+    del buf
+    torch.cuda.empty_cache()
+    return rate
 
 
 #: K16's windows on its timed batch (27,962 x 150 corpus rows, k = 13) and
@@ -1082,11 +1156,11 @@ def engine_edges_vs_plain(dev, card: str, index) -> None:
 @functools.lru_cache(maxsize=2)
 def parent_engines(parent: str) -> dict:
     """The K6, K7 and K10 query and coverage entries, K7's ASCII-rows entry,
-    K4, K11's coverage, K1, K15, K2 and K5's canonical23_ascii of the
-    checkout at ``parent`` (its ``quot23.cu``, ``quotcov23.cu``,
-    ``cuckoo64.cu``, ``coverage13.cu``, ``mphfwalk.cu``, ``count13.cu``,
-    ``total13.cu`` and ``spectrum23.cu``, one nvcc each, all started
-    together), by name."""
+    K4, K11's coverage, K1, K15, K2, K3 (``gather13``) and K5's
+    canonical23_ascii of the checkout at ``parent`` (its ``quot23.cu``,
+    ``quotcov23.cu``, ``cuckoo64.cu``, ``coverage13.cu``, ``mphfwalk.cu``,
+    ``count13.cu``, ``total13.cu``, ``gather13.cu`` and ``spectrum23.cu``,
+    one nvcc each, all started together), by name."""
     from aindex_torch.kernels import _cuda
     out_dir = os.path.join(HERE, "build", "parent_kernels", os.path.basename(parent))
     os.makedirs(out_dir, exist_ok=True)
@@ -1095,7 +1169,7 @@ def parent_engines(parent: str) -> dict:
                "cuckoo64": ("cuckoo64", "cuckoocov64"),
                "coverage13": ("coverage13_packed",), "mphfwalk": ("mphfcov",),
                "count13": ("scatter_count", "count13_packed", "count13_rows"),
-               "total13": ("total13",),
+               "total13": ("total13",), "gather13": ("gather13",),
                "spectrum23": ("canonical23_ascii",)}
     procs = {src: (os.path.join(out_dir, f"{src}.so"), subprocess.Popen(
         [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", csrc, "-o",
@@ -1650,11 +1724,12 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     import torch
     from aindex_torch.core import codec
     from aindex_torch.kernels import _cuda
-    from aindex_torch.index.dense13 import total13, total13_plain
+    from aindex_torch.index.dense13 import (_narrow, total13, total13_half, total13_half_plain,
+                                            total13_plain)
     from aindex_torch.kernels.count import count13_packed, count13_packed_plain
     from aindex_torch.kernels.coverage import coverage13_packed, coverage13_packed_plain
-    from aindex_torch.kernels.encode import (ascii_to_base_codes, packed_window_codes,
-                                             revcomp_code13, window_codes)
+    from aindex_torch.kernels.encode import (ascii_to_base_codes, half_index13,
+                                             packed_window_codes, revcomp_code13, window_codes)
     from aindex_torch.kernels.lookup import gather13, gather13_plain, jax_index
 
     rng = np.random.default_rng(7)
@@ -1717,6 +1792,15 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
         SIDE_MS["total13: random 4^13 table, in turns"] = in_turns(
             card, "total13, random 4^13 table", lambda: total13(tf), parent_total, 20)
         del theirs
+    # K2's half mode: the same reads, half the writes
+    err = max_abs_err(total13_half(tf), total13_half_plain(tf))
+    check(torch.equal(total13_half(tf).view(torch.int32)[half_index13(
+        torch.arange(SPACE, dtype=torch.int64, device=dev))], total13(tf).view(torch.int32)),
+        "total13_half at each code's half_index13 == total13")
+    ms = cuda_ms(lambda: total13_half(tf), 20)
+    pms = cuda_ms(lambda: total13_half_plain(tf), 3)
+    res["total13_half"] = record(err, ms, pms, 4 * SPACE + 4 * HALF)
+    report(card, "total13_half", "4^13 table to its 2^25 half", res["total13_half"])
     del tf
 
     # K3: every mode on u8/u16/u32 tables; 4 x 2^24 codes over the whole
@@ -1739,14 +1823,15 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
     rc_index = revcomp_code13(codes)
     row_codes, row_valid = window_codes(ascii_to_base_codes(rows), K)
     row_codes = row_codes.reshape(-1)[row_valid.reshape(-1)]
-    n_touched = {}
+    n_touched, n_touched_half = {}, {}
     for mode, fwd in (("codes", index), ("codes+mask", index[valid]), ("ascii", row_codes)):
         rc = revcomp_code13(fwd) if mode == "ascii" else rc_index[valid] \
             if mode == "codes+mask" else rc_index
         n_touched[mode, False] = int(torch.unique(fwd).numel())
         n_touched[mode, True] = int(torch.unique(torch.cat([fwd, rc])).numel())
+        n_touched_half[mode] = int(torch.unique(half_index13(fwd)).numel())
     del rc_index
-    k3 = []
+    k3, k3_half = [], []
     for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
                               (32, torch.int32, torch.uint32)):
         lo, hi = (0, 256) if bits == 8 else (-2 ** (bits - 1), 2 ** (bits - 1))
@@ -1777,6 +1862,22 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
                 rec = record(err, ms, pms, n_bytes, lib)
                 report(card, "gather13", tag, rec)
                 k3.append((tag, rec))
+        # the half total table's entry (a random table: the plain version
+        # folds as the kernel does), every mode but both
+        half = table[:HALF]
+        for mode, kw in modes:
+            got = gather13(half, **kw)
+            err = max_abs_err(got, gather13_plain(half, **kw))
+            ms = cuda_ms(lambda: gather13(half, **kw), 20)
+            pms = cuda_ms(lambda: gather13_plain(half, **kw), 2)
+            n_out = n_codes if mode != "ascii" else rows.shape[0]
+            n_in = {"codes": 4 * n_codes, "codes+mask": 5 * n_codes,
+                    "ascii": rows.numel()}[mode]
+            n_bytes = n_in + n_out * 4 + n_touched_half[mode] * bits // 8
+            rec = record(err, ms, pms, n_bytes)
+            tag = f"u{bits} half {mode}, {'2^20 rows' if mode == 'ascii' else '4x2^24 codes'}"
+            report(card, "gather13_half", tag, rec)
+            k3_half.append((tag, rec))
         if bits == 8:
             # the main path's own traffic: codes of reads, every one in range
             inside = torch.randint(0, SPACE, (n_codes,), dtype=torch.int32, device=dev,
@@ -1792,10 +1893,14 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
             report(card, "gather13", tag, rec)
             k3.append((tag, rec))
             res["gather13 in range"] = rec
-            del inside, inside64
-        del table
+            del inside64
+            half_vs_full(dev, card, gen, inside)
+            del inside
+        del table, half
     head = dict(k3)["u8 codes, 4x2^24 codes"]
     res["gather13"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k3)}
+    head = dict(k3_half)["u8 half codes, 4x2^24 codes"]
+    res["gather13_half"] = {**head, "max_abs_err": max(r["max_abs_err"] for _, r in k3_half)}
     del codes, valid, rows, index
     gather13_edges_vs_plain(dev, card)
 
@@ -1830,11 +1935,12 @@ def dense_kernels_vs_plain(dev, card: str) -> dict:
 
 
 def gather13_edges_vs_plain(dev, card: str) -> None:
-    """K3's three entries exactly against their plain versions at edge
+    """K3's four entries exactly against their plain versions at edge
     shapes: batches of 0-9 codes and 2^20 + 3, codes (and masks) starting
     0-3 items past a 16-byte boundary, masks at another offset than the
     codes, every table width, tables of 1, 1000, 5 x 2^20 and 4^13
-    entries."""
+    entries, and the half total table (2^25 entries; codes, masked codes
+    and as many ASCII rows, starting 0-3 rows in)."""
     import torch
     from aindex_torch.kernels.lookup import (gather13, gather13_plain, gather_tf,
                                              gather_tf_plain, gather_tf_total_13,
@@ -1844,19 +1950,31 @@ def gather13_edges_vs_plain(dev, card: str) -> None:
     base = torch.randint(-2 ** 31, 2 ** 31, (4 + (1 << 20) + 3 + 4,), dtype=torch.int32,
                          device=dev, generator=gen)
     base[::3] &= SPACE - 1
+    base[:5] = torch.tensor([SPACE - 1, SPACE, 2 ** 31 - 1, -2 ** 31, -1], dtype=torch.int32)
     vbase = torch.rand(base.numel(), device=dev, generator=gen) < 0.8
-    n_checked = 0
+    rbase = torch.from_numpy(random_ascii(
+        np.random.default_rng(17), base.numel() * K, b"ACGTacgtN\n~",
+        [0.245, 0.245, 0.245, 0.245, 0.004, 0.004, 0.004, 0.004, 0.002, 0.001, 0.001]
+    ).reshape(-1, K)).to(dev)
+    n_checked = n_half = 0
     for bits, dtype, view in ((8, torch.uint8, None), (16, torch.int16, torch.uint16),
                               (32, torch.int32, torch.uint32)):
         lo, hi = (0, 256) if bits == 8 else (-2 ** (bits - 1), 2 ** (bits - 1))
         tables = [torch.randint(lo, hi, (n_t,), dtype=dtype, device=dev, generator=gen)
                   for n_t in (SPACE, 1, 1000, 5 << 20)]
         tables = [t.view(view) if view is not None else t for t in tables]
+        half = tables[0][:HALF]
         for n in (*range(10), (1 << 20) + 3):
             for off in range(4):
                 codes = base[off:off + n]
+                rows = rbase[off:off + n]
+                max_abs_err(gather13(half, ascii=rows), gather13_plain(half, ascii=rows))
+                n_half += 1
                 for voff in {off, (off + 1) % 4}:
                     valid = vbase[voff:voff + n]
+                    for kw in ({"codes": codes}, {"codes": codes, "valid": valid}):
+                        max_abs_err(gather13(half, **kw), gather13_plain(half, **kw))
+                        n_half += 1
                     for both in (False, True):
                         for kw in ({"codes": codes}, {"codes": codes, "valid": valid}):
                             got = gather13(tables[0], both=both, **kw)
@@ -1868,8 +1986,46 @@ def gather13_edges_vs_plain(dev, card: str) -> None:
                         max_abs_err(gather_tf_total_13(t, codes, valid, 16),
                                     gather_tf_total_13_plain(t, codes, valid, 16))
                         n_checked += 2
-    print(f"gather13 edge shapes == plain: {n_checked} table calls and the 4^13 modes at "
-          f"0-9 and 2^20 + 3 codes, offsets 0-3 ({time.perf_counter() - t0:.1f} s, {card})")
+    print(f"gather13 edge shapes == plain: {n_checked} table calls, the 4^13 modes and "
+          f"{n_half} half-table calls at 0-9 and 2^20 + 3 codes, offsets 0-3 "
+          f"({time.perf_counter() - t0:.1f} s, {card})")
+
+
+def half_vs_full(dev, card: str, gen, inside) -> None:
+    """K3 on the main path's traffic (``inside``: 4 x 2^24 codes, every one
+    in range) in the two u8 total tables of one random count table (entries
+    below 128, so the totals narrow to uint8): the full 4^13 table through
+    ``gather13`` and its half (2^25) through ``gather13_half``, equal
+    answers, timed in turns (full, half, half, full); with ``parent=DIR``
+    the half also in turns with the parent's ``gather13`` on the full
+    table."""
+    import torch
+    from aindex_torch.index.dense13 import _narrow, total13, total13_half
+    from aindex_torch.kernels.lookup import gather13, gather13_plain
+    tf = torch.randint(0, 128, (SPACE,), dtype=torch.int32, device=dev, generator=gen)
+    full, half = _narrow(total13(tf)), _narrow(total13_half(tf))
+    del tf
+    check(full.dtype == half.dtype == torch.uint8, "u8 total tables")
+    want = gather13_plain(full, inside)
+    max_abs_err(gather13(half, inside), want)
+    max_abs_err(gather13(full, inside), want)
+    del want
+    times = {"full": [], "half": []}
+    for name in ("full", "half", "half", "full"):
+        table = full if name == "full" else half
+        times[name].append(cuda_ms(lambda: gather13(table, inside), 20))
+    print(f"gather13 u8 codes in range, 4x2^24 codes, equal answers: full 4^13 table "
+          f"{times['full'][0]:.4f} / {times['full'][1]:.4f} ms, half 2^25 table "
+          f"{times['half'][0]:.4f} / {times['half'][1]:.4f} ms ({card})")
+    SIDE_MS["gather13 u8 codes in range, 4x2^24: full table / half table, in turns"] = times
+    if PARENT is not None:
+        def parent_full():
+            with parent_kernel("gather13"):
+                return gather13(full, inside)
+        SIDE_MS["gather13 u8 codes in range: half (this tree) / full (parent), in turns"] = \
+            in_turns(card, "gather13 u8 codes in range, 4x2^24: the half table (this tree) "
+                     "against the parent's on the full table",
+                     lambda: gather13(half, inside), parent_full, 20)
 
 
 # -- phase 4: the dense path end to end ----------------------------------------
@@ -1879,6 +2035,7 @@ def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
     import torch
     from aindex_torch import Dense13Index
     from aindex_torch.io.fastq import iter_sequence_bytes
+    from aindex_torch.kernels import _cuda
 
     n_bases = reads.size
 
@@ -1938,16 +2095,30 @@ def dense_path(dev, card: str, tmp: str, genome: np.ndarray, reads: np.ndarray,
         print(f"dense {name}: {n_q} ASCII k-mers, {n_q / dt / 1e6:.2f} M queries/s "
               f"(host clock, encode and copies included) ({card})")
 
-    # codes-in total on 4 x 2^24 device codes
+    # codes-in total on 4 x 2^24 device codes, from the half total table
+    # alone: one gather13_half launch a call
     gen = torch.Generator(device=dev).manual_seed(13)
     codes = torch.randint(0, SPACE, (N_CODES,), dtype=torch.int32, device=dev, generator=gen)
     got = index.get_total_tf_values_codes(codes)
     check(np.array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32),
                          total[codes.cpu().numpy()]), "get_total_tf_values_codes")
+    before = _cuda.launches()
+    for _ in range(8):
+        index.get_total_tf_values_codes(codes)
+    after = _cuda.launches()
+    diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check(diff == {"gather13_half": 8}, f"8 dense total calls launch {diff}")
+    half = index.tf_total_half
+    check(half.shape == (HALF,) and index._tf_total_half is half, "the index holds the half table")
     ms = cuda_ms(lambda: index.get_total_tf_values_codes(codes), 20)
     print(f"dense get_total_tf_values_codes: {codes.numel()} device codes, "
           f"{codes.numel() / ms / 1e6:.2f} G queries/s ({ms:.4f} ms, CUDA events; "
-          f"table {index.tf_total.dtype}) ({card})")
+          f"half table {half.dtype}[{half.numel()}], one gather13_half launch a call) ({card})")
+    # the full total table, built on request (K2), keeps its values
+    full = index.tf_total
+    check(full.dtype == half.dtype and np.array_equal(
+        full.cpu().numpy().astype(np.uint64), total.astype(np.uint64)), "tf_total == oracle")
+    del full
 
     # coverage of 10,000 reads, cutoff 0 and 10; one 100 kbp sequence
     n_seq = N_SEQ
@@ -4784,8 +4955,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     width_test(dev, card)
+    footprint_test(dev, card)
     rmw_test(dev, card)
-    print(f"phase random reads by width and adds by order: {time.perf_counter() - t0:.1f} s")
+    print(f"phase random reads by width and footprint, adds by order: "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     measured = dense_kernels_vs_plain(dev, card)
     print(f"phase dense kernels-vs-plain: {time.perf_counter() - t0:.1f} s")

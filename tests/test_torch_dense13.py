@@ -12,13 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from aindex_tpu.api import AIndex as JAIndex
 from aindex_tpu.constants import SPACE_13
 from aindex_tpu.core import codec as jcodec
 from aindex_tpu.core.reads import ReadsStore
 from aindex_tpu.index import dense13 as jd
 from aindex_tpu.io.fastq import iter_sequence_bytes as j_iter_bytes
+from aindex_torch import AIndex as TAIndex
+from aindex_torch.constants import HALF_13
 from aindex_torch.index import dense13 as td
 from aindex_torch.kernels import count as tcount
+from aindex_torch.kernels.encode import half_code13, half_index13
 from aindex_torch.io.fastq import iter_sequence_bytes as t_iter_bytes
 
 import oracle
@@ -154,6 +158,61 @@ class TestTables:
         np.testing.assert_array_equal(out, want)
         np.testing.assert_array_equal(td.total13(torch.from_numpy(tf)).numpy(), want)
 
+    @pytest.mark.parametrize("seed", [4, 5])
+    def test_total13_half_tile_pairs_model(self, seed):
+        """A numpy model of K2's half mode (csrc/total13.cu total13_half):
+        the same tile pairs and shared tiles, only the leading tile's
+        out_X[r][c] = sX[rc3(r)][c] + sY[c][rc3(r)] written, its row Hh at
+        slot (Hh << 19) | (Hl << 13) | (M << 12) | (Lh << 6). Every slot of
+        the 2^25-entry half table is written once, and at every code c its
+        slot half_index13(c) holds aindex_tpu's _build_total_table at c, on
+        a random table whose adds wrap."""
+        tf = np.random.default_rng(seed).integers(0, 2 ** 32, size=SPACE_13,
+                                                  dtype=np.uint64).astype(np.uint32)
+
+        def rc3(x):
+            return (((x & 3) << 4) | (x & 12) | (x >> 4)) ^ 63
+
+        idx = np.arange(64)
+        rows, cols = idx[:, None], idx[None, :]
+        r = rc3(idx)[:, None]
+        lh = idx[:, None, None]
+        out = np.zeros(HALF_13, dtype=np.uint32)
+        written = np.zeros(HALF_13, dtype=np.int8)
+        for hl in range(64):
+            for m in (0, 1):
+                shared = []
+                for a, b, c in ((hl, m, lh), (rc3(lh), 3 - m, rc3(hl))):   # leader, partner
+                    s = np.empty((64, 64, 64), dtype=np.uint32)
+                    s[:, rc3(idx), :] = tf[(rows << 20) | (a << 14) | (b << 12) | (c << 6) | cols]
+                    shared.append(s)
+                slots = (rows << 19) | (hl << 13) | (m << 12) | (lh << 6) | cols
+                out[slots] = shared[0][:, r, cols] + shared[1][:, cols, r]
+                np.add.at(written, slots.reshape(-1), 1)
+        assert (written == 1).all()
+        want = np.asarray(jd._build_total_table(jnp.asarray(tf)))
+        slot = half_index13(torch.arange(SPACE_13, dtype=torch.int64)).numpy()
+        np.testing.assert_array_equal(out[slot], want)
+
+    @pytest.mark.parametrize("source", ["reads", "wrap"])
+    def test_total13_half_plain(self, built, source):
+        """The half total table's plain build is aindex_tpu's total table
+        at the representatives (half_code13, middle base A or C), and
+        half[half_index13(c)] is the total at every one of the 4^13 codes:
+        on the conftest reads' table and on a random table whose adds
+        wrap."""
+        tf = built[1].tf_host if source == "reads" else np.random.default_rng(6).integers(
+            0, 2 ** 32, size=SPACE_13, dtype=np.uint64).astype(np.uint32)
+        want = np.asarray(jd._build_total_table(jnp.asarray(tf)))
+        half = td.total13_half(torch.from_numpy(np.array(tf, np.uint32)))
+        assert half.dtype == torch.uint32 and half.shape == (HALF_13,)
+        half = half.numpy()
+        reps = half_code13(torch.arange(HALF_13, dtype=torch.int64))
+        assert not (reps & (1 << 13)).any()
+        np.testing.assert_array_equal(half, want[reps.numpy()])
+        slot = half_index13(torch.arange(SPACE_13, dtype=torch.int64)).numpy()
+        np.testing.assert_array_equal(half[slot], want)
+
     @pytest.mark.parametrize("top", [0, 255, 256, 65535, 65536, 2 ** 31, 2 ** 32 - 1])
     def test_narrow_width(self, top):
         t = np.array([0, 3, top], dtype=np.uint32)
@@ -196,6 +255,29 @@ class TestQueries:
             got = getattr(t, fn)(c, *args[1:])
             assert got.dtype == torch.uint32 and want.dtype == np.uint32
             np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_facade_total_query_reads_half_table(self, random_reads, kmers):
+        """A dense total query through AIndex answers as aindex_tpu's from
+        the 2^25-entry half table: after it the index holds that table and
+        no 4^13 table but its count table."""
+        t = TAIndex.build_from_sequences(random_reads, kmer_size=13, build_aindex=False,
+                                         device="cpu")
+        j = JAIndex.build_from_sequences(random_reads, kmer_size=13, build_aindex=False)
+        codes, valid = jcodec.encode_kmers(kmers, 13)
+        codes = np.concatenate([codes, np.array([SPACE_13, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1],
+                                                np.uint64)])
+        valid = np.concatenate([valid, [True, True, True, False]])
+        for args in ((codes,), (codes, valid)):
+            got = t.get_total_tf_values_codes_13mer(*args)
+            want = np.asarray(j.get_total_tf_values_codes_13mer(*args))
+            assert got.dtype == torch.uint32 and want.dtype == np.uint32
+            np.testing.assert_array_equal(got.numpy(), want)
+        d = t.dense13
+        assert d._tf_total_half.shape == (HALF_13,)
+        assert str(d._tf_total_half.dtype) == f"torch.{np.asarray(j.dense13.tf_total).dtype}"
+        held = [name for name, v in vars(d).items()
+                if isinstance(v, torch.Tensor) and v.numel() == SPACE_13]
+        assert held == ["_tf"]
 
     def test_codes_in_rejects_mismatched_mask(self, built):
         with pytest.raises(ValueError):

@@ -10,6 +10,8 @@ import torch
 from aindex_tpu.constants import SPACE_13
 from aindex_tpu.index import dense13 as jd
 from aindex_tpu.kernels.lookup import gather_tf_both_13, gather_tf_valid
+from aindex_torch.constants import HALF_13
+from aindex_torch.index import dense13 as td
 from aindex_torch.kernels import lookup as tl
 from test_torch_host import jax_native  # noqa: F401 (a fixture)
 
@@ -131,3 +133,56 @@ def test_rejects_bad_arguments(tables):
         tl.gather13(tt)
     with pytest.raises(ValueError):
         tl.gather13(tt, ascii=torch.zeros((2, 12), dtype=torch.uint8))
+
+
+# -- the half total table (gather13_half) ------------------------------------------
+
+#: count-table entries below which each width's totals narrow to it (the
+#: uint32 table's adds wrap)
+HALF_TF_TOP = {8: 1 << 7, 16: 1 << 15, 32: 1 << 32}
+
+
+@pytest.fixture(scope="module", params=[8, 16, 32], ids=["u8", "u16", "u32"])
+def half_tables(request):
+    """(aindex_tpu's narrowed total table, the port's narrowed half total
+    table) of one random count table whose totals narrow to the width."""
+    rng = np.random.default_rng(100 + request.param)
+    tf = rng.integers(0, HALF_TF_TOP[request.param], size=SPACE_13,
+                      dtype=np.uint64).astype(np.uint32)
+    full = jd._narrow(jd._build_total_table(jnp.asarray(tf)))
+    half = td._narrow(td.total13_half(torch.from_numpy(tf)))
+    assert np.dtype(WIDTHS[request.param]) == full.dtype
+    assert str(half.dtype) == f"torch.{full.dtype}" and half.shape == (HALF_13,)
+    return full, half
+
+
+@pytest.mark.parametrize("fn", ["_gather_codes_u32", "_gather_total", "_gather_codes_valid_u32"])
+def test_half_codes(half_tables, queries, fn):
+    """Codes over the whole uint32 range (4^13, 2^31 - 1, 2^31, 2^32 - 1
+    among them), masked or not, read in the half table what aindex_tpu's
+    gathers read in the full one."""
+    full, half = half_tables
+    codes, valid, _ = queries
+    if fn == "_gather_codes_u32":
+        want = np.asarray(jd._gather_codes_u32(full, jnp.asarray(codes)))
+        got = tl.gather13(half, torch.from_numpy(codes))
+    else:
+        want = np.asarray(getattr(jd, fn)(full, jnp.asarray(codes), jnp.asarray(valid)))
+        got = tl.gather13(half, torch.from_numpy(codes), torch.from_numpy(valid))
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_half_ascii_rows(half_tables, queries):
+    full, half = half_tables
+    _, _, ascii = queries
+    jcodes, jvalid = jd._encode_batch_dev(jnp.asarray(ascii))
+    want = np.asarray(jd._gather_codes_valid_u32(full, jcodes, jvalid))
+    np.testing.assert_array_equal(_np(tl.gather13(half, ascii=torch.from_numpy(ascii))), want)
+
+
+def test_half_rejects_both(half_tables):
+    _, half = half_tables
+    with pytest.raises(ValueError, match="half total table"):
+        tl.gather13(half, torch.zeros(4, dtype=torch.int32), both=True)
+    with pytest.raises(ValueError):
+        tl.gather13(half[:-1], torch.zeros(4, dtype=torch.int32))

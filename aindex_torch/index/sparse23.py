@@ -310,8 +310,8 @@ class Sparse23Index(SharedQueryOps):
         aindex_tpu's ``_query`` chooses them: the quotient table when
         eligible, else the wide cuckoo table (k <= 30), else the MPHF walk
         over the ATPF MPHF's g-values and the node records of the checker
-        and tf (``MphfTables.from_host``). Raises after
-        ``release_device``."""
+        and tf (``MphfTables.from_host``), built once, in the timed span
+        ``aindex.build.walk``. Raises after ``release_device``."""
         if self._device_released:
             raise RuntimeError(
                 "device arrays were released by shard_to(); query through the sharded "
@@ -327,8 +327,9 @@ class Sparse23Index(SharedQueryOps):
                 raise RuntimeError(
                     f"no device query path for k={self.k}: the cuckoo tables "
                     "need k <= 30 and the emphf MPHF has no device walk")
-            self._walk = MphfTables.from_host(self.mphf, self.checker_host, self.tf_host,
-                                              self.device)
+            with span("aindex.build.walk", timed=True):
+                self._walk = MphfTables.from_host(self.mphf, self.checker_host,
+                                                  self.tf_host, self.device)
         return self._walk
 
     def release_device(self) -> None:
